@@ -1,0 +1,90 @@
+"""Fixed-capacity masked point clouds.
+
+``points: f32[N, 3]`` plus ``mask: bool[N]`` with a fixed capacity ``N``;
+invalid slots hold :data:`PAD_VALUE`. Fixed capacities let the keyframe ring
+and the submap cache be allocated once and written in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class PointCloud(NamedTuple):
+    """points: f32[N, 3]; mask: bool[N]. Invalid slots hold PAD_VALUE."""
+
+    points: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[-2]
+
+
+# Padding coordinate for invalid slots: far outside any plausible scene so
+# padded points can never be spurious nearest neighbors.
+PAD_VALUE = 1e6
+
+
+def from_numpy(points: np.ndarray, capacity: int, device="cpu") -> PointCloud:
+    """Pad/truncate an [M, 3] numpy array into a capacity-N cloud."""
+    points = np.asarray(points, dtype=np.float32)
+    m = min(points.shape[0], capacity)
+    out = np.full((capacity, 3), PAD_VALUE, dtype=np.float32)
+    out[:m] = points[:m]
+    mask = np.zeros((capacity,), dtype=bool)
+    mask[:m] = True
+    return PointCloud(
+        points=torch.from_numpy(out).to(device), mask=torch.from_numpy(mask).to(device)
+    )
+
+
+class QuantizedScan(NamedTuple):
+    """Host->device wire format: uint16 coordinates with a per-frame affine
+    (lo, scale) per axis, and the count of valid leading points."""
+
+    q: np.ndarray       # [N, 3] uint16 quantized coordinates
+    lo: np.ndarray      # [3] f32 per-axis offset
+    scale: np.ndarray   # [3] f32 per-axis step
+    count: np.ndarray   # [] int32 number of valid (leading) points
+
+
+def quantize_for_transfer(points: np.ndarray, capacity: int) -> QuantizedScan:
+    """Host side: encode an [M, 3] scan into the uint16 wire format (numpy)."""
+    points = np.asarray(points, dtype=np.float32)
+    m = min(points.shape[0], capacity)
+    pts = points[:m]
+    if m > 0:
+        lo = pts.min(axis=0)
+        extent = np.maximum(pts.max(axis=0) - lo, 1e-6)
+    else:
+        lo = np.zeros(3, np.float32)
+        extent = np.ones(3, np.float32)
+    scale = (extent / 65535.0).astype(np.float32)
+    q = np.zeros((capacity, 3), dtype=np.uint16)
+    if m > 0:
+        q[:m] = np.clip(np.rint((pts - lo) / scale), 0, 65535).astype(np.uint16)
+    return QuantizedScan(
+        q=q, lo=lo.astype(np.float32), scale=scale, count=np.int32(m),
+    )
+
+
+def dequantize(
+    q: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor, count
+) -> PointCloud:
+    """Device side: decode the wire format back into a masked cloud.
+
+    ``q`` holds the uint16 words; it may arrive as int16 (the same bits,
+    since CUDA tensors of dtype uint16 support few ops), so the words are
+    widened to int32 and masked to 16 bits before the float conversion.
+    """
+    n = q.shape[-2]
+    words = q.to(torch.int32) & 0xFFFF
+    mask = torch.arange(n, device=q.device) < count
+    pts = words.to(torch.float32) * scale + lo
+    pts = torch.where(mask[..., None], pts, PAD_VALUE)
+    return PointCloud(points=pts, mask=mask)
+

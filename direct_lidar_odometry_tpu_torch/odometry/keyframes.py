@@ -1,0 +1,149 @@
+"""Keyframe spawning.
+
+Counterpart of the JAX package's ``odometry/keyframes.py``, reference
+``updateKeyframes`` (``odom.cc:1097-1181``). The decision chain
+(``odom.cc:1143-1153``) reduces to
+``new = (dd > threshD) or (theta > threshR and num_nearby <= 1)``; on spawn
+the world-transformed scan is submap-voxelized, Z-ordered and stored with
+its pose and normals. The ring is written in place (see ``state.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from direct_lidar_odometry_tpu_torch.config import DloConfig
+from direct_lidar_odometry_tpu_torch.core import se3
+from direct_lidar_odometry_tpu_torch.core.cloud import PAD_VALUE, PointCloud
+from direct_lidar_odometry_tpu_torch.ops import morton, voxel
+from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore
+from direct_lidar_odometry_tpu_torch.registration import covariance
+from direct_lidar_odometry_tpu_torch.utils import sync
+
+
+class KeyframeDecision(NamedTuple):
+    spawn: torch.Tensor        # bool
+    closest_dist: torch.Tensor  # f32
+    num_nearby: torch.Tensor   # int32
+
+
+def decide(
+    kf: KeyframeStore,
+    position: torch.Tensor,
+    quat: torch.Tensor,
+    thresh_dist: torch.Tensor,
+    thresh_rot_deg: float,
+) -> KeyframeDecision:
+    """Reference odom.cc:1104-1153 (device tensors, no host read)."""
+    kmask = torch.arange(kf.capacity, device=kf.count.device) < kf.count
+    d = torch.linalg.norm(kf.positions - position, dim=-1)
+    d = torch.where(kmask, d, torch.inf)
+    num_nearby = torch.sum((d <= thresh_dist * 1.5) & kmask).to(torch.int32)
+    closest = torch.argmin(d)
+    dd = d[closest]
+    theta_deg = se3.quat_angle_deg(quat, kf.quats[closest])
+    spawn = (dd > thresh_dist) | ((theta_deg > thresh_rot_deg) & (num_nearby <= 1))
+    # no keyframes yet -> always spawn
+    spawn = spawn | (kf.count == 0)
+    return KeyframeDecision(spawn=spawn, closest_dist=dd, num_nearby=num_nearby)
+
+
+def make_keyframe_cloud(
+    scan: PointCloud, pose: torch.Tensor, cfg: DloConfig
+) -> tuple[PointCloud, covariance.Normals]:
+    """World-transform the scan, submap-voxelize, Z-order, recompute normals
+    (reference odom.cc:1155-1174). Normals use radius 3 x the submap voxel."""
+    world_pts = se3.transform_points(pose, scan.points)
+    world_pts = torch.where(scan.mask[..., None], world_pts, PAD_VALUE)
+    c = PointCloud(points=world_pts, mask=scan.mask)
+    nk = cfg.shapes.n_keyframe
+    if cfg.preprocessing.voxel_submap.use:
+        c = voxel.voxel_downsample(c, cfg.preprocessing.voxel_submap.res, out_capacity=nk)
+        res = cfg.preprocessing.voxel_submap.res
+    else:
+        c = PointCloud(points=c.points[:nk].contiguous(), mask=c.mask[:nk].contiguous())
+        res = 0.5
+    # Z-order the keyframe cloud: the pruned moment kernel needs it, and it
+    # keeps the stored cloud coherent for submap assembly
+    zp, zm = morton.sort_cloud(c.points, c.mask)
+    c = PointCloud(points=zp, mask=zm)
+    clo, chi = morton.chunk_aabbs(c.points, c.mask, morton.TARGET_CHUNK)
+    nrm = covariance.estimate_normals_radius_sorted(c.points, c.mask, clo, chi, radius=3.0 * res)
+    return c, nrm
+
+
+def _eviction_slot(kf: KeyframeStore, position: torch.Tensor) -> torch.Tensor:
+    """Slot to overwrite when the ring is full: of the densest keyframe pair
+    (smallest pairwise distance; the first in row-major order on ties), the
+    member farther from the incoming position."""
+    k = kf.capacity
+    d2 = torch.sum((kf.positions[:, None, :] - kf.positions[None, :, :]) ** 2, dim=-1)
+    eye = torch.eye(k, dtype=torch.bool, device=d2.device)
+    d2 = d2 + torch.where(eye, torch.inf, 0.0)
+    flat = torch.argmin(d2)
+    i, j = flat // k, flat % k
+    di = torch.sum((kf.positions[i] - position) ** 2)
+    dj = torch.sum((kf.positions[j] - position) ** 2)
+    return torch.where(di > dj, i, j)
+
+
+def insert(
+    kf: KeyframeStore,
+    position: torch.Tensor,
+    quat: torch.Tensor,
+    cloud: PointCloud,
+    normals: covariance.Normals,
+    seq: torch.Tensor | None = None,
+    health: torch.Tensor | None = None,
+) -> tuple[KeyframeStore, torch.Tensor, torch.Tensor]:
+    """Write a keyframe IN PLACE at ``count``; when the ring is full, evict
+    the most redundant keyframe (:func:`_eviction_slot`) instead.
+
+    Returns (store, evicted: bool tensor, slot: int32 tensor). The caller
+    must invalidate any cached submap when ``evicted`` is true.
+    """
+    full = kf.count >= kf.capacity
+    idx = torch.where(full, _eviction_slot(kf, position), kf.count.to(torch.int64))
+    idx = torch.clamp(idx, 0, kf.capacity - 1).reshape(1)
+    # monotonic insertion id (the pipeline passes the spawn frame index)
+    # and spawn-frame health (0 = unknown)
+    seq_val = torch.as_tensor(
+        torch.max(kf.seq) + 1 if seq is None else seq, dtype=torch.int32, device=idx.device
+    )
+    health_val = torch.as_tensor(
+        0.0 if health is None else health, dtype=torch.float32, device=idx.device
+    )
+    for arr, val in (
+        (kf.positions, position), (kf.quats, quat),
+        (kf.points, cloud.points), (kf.masks, cloud.mask),
+        (kf.normals, normals.normals), (kf.normals_valid, normals.valid),
+        (kf.seq, seq_val), (kf.health, health_val),
+    ):
+        arr.index_copy_(0, idx, val.to(arr.dtype).reshape((1,) + arr.shape[1:]))
+    new_count = torch.where(full, kf.count, kf.count + 1)
+    return kf._replace(count=new_count), full, idx[0].to(torch.int32)
+
+
+def maybe_spawn(
+    kf: KeyframeStore,
+    scan: PointCloud,
+    pose: torch.Tensor,
+    cfg: DloConfig,
+    thresh_dist: torch.Tensor,
+    seq: torch.Tensor | None = None,
+    health: torch.Tensor | None = None,
+) -> tuple[KeyframeStore, bool, torch.Tensor, torch.Tensor]:
+    """Full updateKeyframes step. Returns (store, spawned, evicted, slot);
+    slot is the written ring index, or -1 if no keyframe spawned. One host
+    read (the spawn decision) replaces the JAX package's ``lax.cond``."""
+    position = se3.se3_translation(pose)
+    quat = se3.rotmat_to_quat(se3.se3_rotation(pose))
+    dec = decide(kf, position, quat, thresh_dist, cfg.keyframe.thresh_rot)
+    if not sync.read(dec.spawn):
+        no = torch.zeros((), dtype=torch.bool, device=pose.device)
+        return kf, False, no, torch.full((), -1, dtype=torch.int32, device=pose.device)
+    cloud, nrm = make_keyframe_cloud(scan, pose, cfg)
+    new_kf, evicted, slot = insert(kf, position, quat, cloud, nrm, seq=seq, health=health)
+    return new_kf, True, evicted, slot

@@ -1,0 +1,120 @@
+"""Submap keyframe selection and assembly.
+
+Counterpart of the JAX package's ``odometry/submap.py``, reference
+``getSubmapKeyframes`` (``odom.cc:1240-1331``): the S2M target is the union
+of the knn nearest keyframes, the kcv nearest convex-hull keyframes and the
+kcc nearest concave-hull keyframes, with change detection so the submap
+cache is rebuilt only when the member set changes. ``pushSubmapIndices``
+keeps every element <= the kth smallest distance, ties included
+(``odom.cc:1210-1233``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from direct_lidar_odometry_tpu_torch.config import DloConfig, submap_flat_size
+from direct_lidar_odometry_tpu_torch.ops import morton
+from direct_lidar_odometry_tpu_torch.odometry import hulls
+from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore, OdomState
+from direct_lidar_odometry_tpu_torch.utils import sync
+
+
+def k_smallest_members(d2: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """[K], [K] -> [K] bool: masked elements <= the kth smallest masked value
+    (all masked elements when fewer than k are valid)."""
+    vals = torch.where(mask, d2, torch.inf)
+    kk = min(k, d2.shape[0])
+    kth = torch.topk(vals, kk, largest=False).values[-1]
+    fallback = torch.clamp(torch.max(torch.where(mask, vals, -torch.inf)), min=0.0)
+    kth = torch.where(torch.isfinite(kth), kth, fallback)
+    return mask & (vals <= kth)
+
+
+class SubmapSelection(NamedTuple):
+    members: torch.Tensor  # [K] bool
+    changed: torch.Tensor  # bool
+
+
+def select_submap_keyframes(
+    kf: KeyframeStore,
+    prev_members: torch.Tensor,
+    query_pos: torch.Tensor,
+    alpha: torch.Tensor,
+    cfg: DloConfig,
+    directions: torch.Tensor,
+    hull_masks: tuple[torch.Tensor, torch.Tensor, bool] | None = None,
+) -> SubmapSelection:
+    """Choose the submap keyframe set around the S2S-propagated position.
+
+    ``hull_masks`` = (cvx [K] bool, ccv [K] bool, fresh): exact host hull
+    memberships (``odometry/hosthull.py``); when fresh they replace the
+    device surrogates.
+    """
+    k = kf.capacity
+    kmask = torch.arange(k, device=kf.count.device) < kf.count
+    diff = kf.positions - query_pos
+    d2 = torch.sum(diff * diff, dim=-1)
+
+    knn_sel = k_smallest_members(d2, kmask, cfg.submap.knn)
+    if hull_masks is not None and hull_masks[2]:
+        cvx = hull_masks[0] & kmask
+        ccv = hull_masks[1] & kmask
+    else:
+        cvx = hulls.convex_membership(kf.positions, kmask, directions)
+        ccv = hulls.concave_membership(kf.positions, kmask, directions, alpha)
+    cvx_sel = k_smallest_members(d2, cvx, cfg.submap.kcv)
+    ccv_sel = k_smallest_members(d2, ccv, cfg.submap.kcc)
+
+    members = (knn_sel | cvx_sel | ccv_sel) & kmask
+    # cap at max_submap_kf members, keeping the nearest; exact distance ties
+    # can overflow k_smallest's bound, so enforce the hard cap by rank
+    members = k_smallest_members(d2, members, cfg.shapes.max_submap_kf)
+    idx_rank = torch.cumsum(members.to(torch.int32), dim=0) - 1
+    members = members & (idx_rank < cfg.shapes.max_submap_kf)
+    changed = torch.any(members != prev_members)
+    return SubmapSelection(members=members, changed=changed)
+
+
+def assemble_submap(
+    state: OdomState,
+    sel: SubmapSelection,
+    query_pos: torch.Tensor,
+    cfg: DloConfig,
+) -> tuple[OdomState, bool]:
+    """Rebuild the submap cache IN PLACE iff the member set changed.
+
+    Reference ``odom.cc:1309-1329``: concatenate the member keyframe clouds
+    and cached normals; beyond ``shapes.n_submap_flat`` points keep those
+    nearest ``query_pos``; Z-order the result for the pruned S2M search.
+    One host read (``changed``) replaces the JAX package's ``lax.cond``.
+    Returns (state, changed).
+    """
+    changed = bool(sync.read(sel.changed))
+    if changed:
+        s_max = cfg.shapes.max_submap_kf
+        nk = cfg.shapes.n_keyframe
+        flat_out = submap_flat_size(cfg)
+        kf = state.keyframes
+        k = kf.capacity
+        ar = torch.arange(k, device=sel.members.device)
+        # member keyframe indices, ascending, packed into s_max slots
+        order = torch.argsort(torch.where(sel.members, ar, k + ar))[:s_max]
+        slot_valid = sel.members[order]
+        pts = kf.points[order].reshape(s_max * nk, 3)
+        msk = (kf.masks[order] & slot_valid[:, None]).reshape(s_max * nk)
+        nrm = kf.normals[order].reshape(s_max * nk, 3)
+        nvl = (kf.normals_valid[order] & slot_valid[:, None]).reshape(s_max * nk)
+        if flat_out < s_max * nk:
+            d2 = torch.sum((pts - query_pos) ** 2, dim=-1)
+            d2 = torch.where(msk, d2, torch.inf)
+            keep = torch.sort(d2, stable=True).indices[:flat_out]
+            pts, msk, nrm, nvl = pts[keep], msk[keep], nrm[keep], nvl[keep]
+        z = morton.sort_order(pts, msk)
+        state.submap_points.copy_(pts[z])
+        state.submap_mask.copy_(msk[z])
+        state.submap_normals.copy_(nrm[z])
+        state.submap_normals_valid.copy_(nvl[z])
+    return state._replace(submap_members=sel.members), changed

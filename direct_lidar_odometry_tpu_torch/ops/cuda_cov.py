@@ -1,0 +1,147 @@
+"""Fixed-radius neighbourhood moments over a Morton-sorted cloud (kernel K1).
+
+Counterpart of the JAX package's ``ops/pallas_cov.py`` pruned path
+(``_pruned_moments_one``, ``radius_moments_sorted``, ``moments_to_cov``):
+the per-point covariances behind every scan's and every keyframe's normals.
+
+- :func:`cov_pruned` is the kernel's wrapper. On a CUDA tensor it launches
+  ``csrc/cov_pruned.cu`` over the candidate chunk lists of
+  :func:`ops.cuda_nn.candidate_chunks`; on a CPU tensor it runs
+  :func:`cov_plain`, the exhaustive plain PyTorch version.
+- :func:`radius_moments_sorted` is the public entry with the JAX package's
+  signature.
+
+Output rows are the 10 query-relative moments (n, sx, sy, sz, sxx, sxy,
+sxz, syy, syz, szz) of d = t - q over valid targets with |d|^2 <= r^2.
+Rows of invalid queries are zero in both routes.
+
+``launches`` counts the wrapper's calls per route (``"cuda"``/``"plain"``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
+from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
+    TILE,
+    check_kernel_inputs,
+    plain_query_step,
+    candidate_chunks,
+    f32_radius2,
+)
+
+N_MOMENTS = 10
+
+launches = {"cuda": 0, "plain": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def cov_plain(
+    points: torch.Tensor, mask: torch.Tensor,
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    radius: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: exhaustive radius moments.
+
+    The radius test evaluates d2 = (dx*dx + dy*dy) + dz*dz like the kernel,
+    so both select the same neighbours. [Q, 10] f32.
+    """
+    r2 = f32_radius2(radius)
+    q_total = queries.shape[0]
+    out = torch.zeros((q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
+    tx, ty, tz = points[:, 0], points[:, 1], points[:, 2]
+    step = plain_query_step(points.shape[0], queries.device)
+    for s in range(0, q_total, step):
+        q = queries[s:s + step]
+        dx = tx - q[:, 0:1]
+        dy = ty - q[:, 1:2]
+        dz = tz - q[:, 2:3]
+        d2 = dx * dx + dy * dy
+        d2 = d2 + dz * dz
+        w = ((d2 <= r2) & mask[None, :]).to(torch.float32)
+        wdx, wdy, wdz = w * dx, w * dy, w * dz
+        out[s:s + step] = torch.stack(
+            [
+                w.sum(1), wdx.sum(1), wdy.sum(1), wdz.sum(1),
+                (wdx * dx).sum(1), (wdx * dy).sum(1), (wdx * dz).sum(1),
+                (wdy * dy).sum(1), (wdy * dz).sum(1), (wdz * dz).sum(1),
+            ],
+            dim=1,
+        )
+    return out * query_mask[:, None]
+
+
+def cov_pruned(
+    points: torch.Tensor, mask: torch.Tensor,
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    cand: torch.Tensor, counts: torch.Tensor,
+    radius: float,
+) -> torch.Tensor:
+    """Wrapper of kernel K1: [Q, 10] moments as :func:`cov_plain`.
+
+    points [T,3] f32 Morton-sorted, T % 512 == 0; queries [Q,3] f32 with
+    Q % 128 == 0; cand/counts from :func:`candidate_chunks` over the query
+    tiles. A CUDA tensor launches the kernel on the current stream (no
+    allocation inside, no synchronization); a CPU tensor runs the plain
+    version, which ignores the candidate lists.
+    """
+    check_kernel_inputs(queries, query_mask, points, mask, cand, counts)
+    if queries.device.type == "cpu":
+        launches["plain"] += 1
+        return cov_plain(points, mask, queries, query_mask, radius)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    q_total = queries.shape[0]
+    out = torch.empty((q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        err = cuda_build.library().dlo_cov_pruned(
+            queries.data_ptr(), query_mask.data_ptr(), points.data_ptr(), mask.data_ptr(),
+            cand.data_ptr(), counts.data_ptr(), q_total // TILE, cand.shape[1],
+            f32_radius2(radius), out.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
+        )
+    cuda_build.check(err, "cov_pruned")
+    launches["cuda"] += 1
+    return out
+
+
+def radius_moments_sorted(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    chunk_lo: torch.Tensor,
+    chunk_hi: torch.Tensor,
+    queries: torch.Tensor,
+    query_mask: torch.Tensor,
+    radius: float,
+) -> torch.Tensor:
+    """Pruned radius moments over a Morton-sorted cloud. [Q, 10].
+
+    ``chunk_lo``/``chunk_hi`` are the cloud's [3, T//512] chunk AABBs.
+    Matches the exhaustive moments for every valid query.
+    """
+    qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
+    cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
+    return cov_pruned(points, mask, queries, query_mask, cand, counts, radius)
+
+
+def moments_to_cov(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[Q,10] -> (cov [Q,3,3], count [Q]). Query-relative, so well-conditioned."""
+    n = torch.clamp(m[:, 0], min=1.0)
+    mu = m[:, 1:4] / n[:, None]
+    sxx, sxy, sxz = m[:, 4] / n, m[:, 5] / n, m[:, 6] / n
+    syy, syz, szz = m[:, 7] / n, m[:, 8] / n, m[:, 9] / n
+    exx = sxx - mu[:, 0] * mu[:, 0]
+    exy = sxy - mu[:, 0] * mu[:, 1]
+    exz = sxz - mu[:, 0] * mu[:, 2]
+    eyy = syy - mu[:, 1] * mu[:, 1]
+    eyz = syz - mu[:, 1] * mu[:, 2]
+    ezz = szz - mu[:, 2] * mu[:, 2]
+    row0 = torch.stack([exx, exy, exz], dim=-1)
+    row1 = torch.stack([exy, eyy, eyz], dim=-1)
+    row2 = torch.stack([exz, eyz, ezz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2), m[:, 0]

@@ -1,0 +1,206 @@
+"""Exact fixed-radius 1-NN over a Morton-sorted target cloud (kernel K2).
+
+Counterpart of the JAX package's ``ops/pallas_nn.py`` pruned path
+(``candidate_chunks``, ``_pruned_1nn_one``, ``query_1nn_sorted``): the
+correspondence search of every GICP iteration.
+
+- :func:`candidate_chunks` builds, per 128-query tile, the list of
+  512-point target chunks whose AABB gap to the tile is <= r, sorted by
+  gap. Plain tensor ops, as the JAX package computes it outside its kernel.
+- :func:`nn1_pruned` is the kernel's wrapper. On a CUDA tensor it launches
+  ``csrc/nn1_pruned.cu`` (branch-and-bound over the candidate lists); on a
+  CPU tensor it runs :func:`nn1_plain`, the exhaustive plain PyTorch
+  version of the same function. Nothing falls back from one to the other.
+- :func:`query_1nn_sorted` is the public entry with the JAX package's
+  contract: it recomputes the winner's exact d2 after the search.
+
+``launches`` counts the wrapper's calls per route: ``"cuda"`` where it
+launched the kernel, ``"plain"`` where it ran the plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
+
+TILE = 128                    # queries per tile (one CUDA block)
+CHUNK = morton.TARGET_CHUNK   # targets per Morton chunk
+
+# Packed candidate word: low 10 bits = chunk index (C <= 1024), upper 21
+# bits = the tile-chunk AABB squared gap, floor-quantized to r^2/_GAP_SCALE
+# units. Floor keeps the branch-and-bound exit conservative (quantized gap
+# <= true gap, so "quantized gap > bound" implies "gap > bound").
+IDX_BITS = 10
+_GAP_SCALE = (1 << 21) - 1
+_NOT_CANDIDATE = 0x7FFFFFFF
+
+launches = {"cuda": 0, "plain": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def f32_radius2(radius: float) -> float:
+    """r^2 rounded to float32, the value every radius test compares against."""
+    return float(np.float32(float(radius) * float(radius)))
+
+
+def candidate_chunks(
+    qlo: torch.Tensor, qhi: torch.Tensor,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query-tile candidate target-chunk lists (the kd-tree analog).
+
+    qlo/qhi [3, Qc], chunk_lo/chunk_hi [3, C] (masked AABBs from
+    :func:`ops.morton.chunk_aabbs`). Returns (cand [Qc, C] int32 packed
+    gap+index words sorted ascending, candidates first; counts [Qc] int32).
+    A chunk is a candidate iff the AABB-AABB squared gap <= r^2, so any
+    target within ``radius`` of any query in the tile lies in a candidate
+    chunk; the ascending-gap order makes the kernel's early exit exact.
+    """
+    c = chunk_lo.shape[1]
+    if c > (1 << IDX_BITS):
+        raise ValueError(f"{c} chunks exceed the {IDX_BITS}-bit packed index")
+    g1 = chunk_lo.T[None, :, :] - qhi.T[:, None, :]   # [Qc, C, 3]
+    g2 = qlo.T[:, None, :] - chunk_hi.T[None, :, :]
+    g = torch.clamp(torch.maximum(g1, g2), min=0.0)
+    gap2 = torch.sum(g * g, dim=-1)                   # [Qc, C]
+    r2 = float(radius) * float(radius)
+    visit = gap2 <= f32_radius2(radius)
+    gq = torch.clamp(torch.floor(gap2 * (_GAP_SCALE / r2)), 0, _GAP_SCALE).to(torch.int32)
+    idx = torch.arange(c, dtype=torch.int32, device=gap2.device).expand(visit.shape)
+    packed = (gq << IDX_BITS) | idx
+    packed = torch.where(visit, packed, _NOT_CANDIDATE)
+    cand = torch.sort(packed, dim=1).values
+    counts = torch.sum(visit, dim=1, dtype=torch.int32)
+    return cand.contiguous(), counts.contiguous()
+
+
+def plain_query_step(n_targets: int, device: torch.device) -> int:
+    """Queries per step of the plain versions: bounds each [chunk, T]
+    temporary at 2^22 (CPU) or 2^25 (CUDA) elements."""
+    budget = 1 << (25 if device.type == "cuda" else 22)
+    return max(1, budget // max(n_targets, 1))
+
+
+def nn1_plain(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    targets: torch.Tensor, target_mask: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: exhaustive 1-NN within radius.
+
+    Coordinate differences, d2 = (dx*dx + dy*dy) + dz*dz (the kernel's
+    order), ties to the lower target index. Returns (idx int32 [Q], -1 =
+    none; d2 f32 [Q], +inf where none).
+    """
+    r2 = f32_radius2(radius)
+    q_total = queries.shape[0]
+    idx = torch.full((q_total,), -1, dtype=torch.int32, device=queries.device)
+    d2_out = torch.full((q_total,), torch.inf, dtype=torch.float32, device=queries.device)
+    tx, ty, tz = targets[:, 0], targets[:, 1], targets[:, 2]
+    step = plain_query_step(targets.shape[0], queries.device)
+    for s in range(0, q_total, step):
+        q = queries[s:s + step]
+        dx = q[:, 0:1] - tx
+        dy = q[:, 1:2] - ty
+        dz = q[:, 2:3] - tz
+        d2 = dx * dx + dy * dy
+        d2 = d2 + dz * dz
+        d2 = torch.where(target_mask[None, :], d2, torch.inf)
+        dmin, amin = torch.min(d2, dim=1)
+        found = query_mask[s:s + step] & (dmin < r2)
+        idx[s:s + step] = torch.where(found, amin.to(torch.int32), -1)
+        d2_out[s:s + step] = torch.where(found, dmin, torch.inf)
+    return idx, d2_out
+
+
+def check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts):
+    tensors = dict(queries=queries, query_mask=query_mask, targets=targets,
+                   target_mask=target_mask, cand=cand, counts=counts)
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != queries.device:
+            raise ValueError(f"{name} is on {t.device}, queries on {queries.device}")
+    expect = dict(queries=torch.float32, targets=torch.float32, query_mask=torch.bool,
+                  target_mask=torch.bool, cand=torch.int32, counts=torch.int32)
+    for name, dt in expect.items():
+        if tensors[name].dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {tensors[name].dtype}")
+    q_total, t_total = queries.shape[0], targets.shape[0]
+    if q_total % TILE or t_total % CHUNK:
+        raise ValueError(f"need Q % {TILE} == 0 and T % {CHUNK} == 0, got Q={q_total} T={t_total}")
+    if cand.shape != (q_total // TILE, t_total // CHUNK) or counts.shape != (q_total // TILE,):
+        raise ValueError(f"candidate table {tuple(cand.shape)} does not match Q={q_total} T={t_total}")
+
+
+def nn1_pruned(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    targets: torch.Tensor, target_mask: torch.Tensor,
+    cand: torch.Tensor, counts: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of kernel K2: (idx int32 [Q], d2 f32 [Q]) as :func:`nn1_plain`.
+
+    queries [Q,3] f32 with Q % 128 == 0; targets [T,3] f32 Morton-sorted
+    with T % 512 == 0; cand/counts from :func:`candidate_chunks` over the
+    query tiles. A CUDA tensor launches the kernel on the current stream
+    (no allocation inside, no synchronization); a CPU tensor runs the plain
+    version, which ignores the candidate lists.
+    """
+    check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts)
+    if queries.device.type == "cpu":
+        launches["plain"] += 1
+        return nn1_plain(queries, query_mask, targets, target_mask, radius)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    q_total = queries.shape[0]
+    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
+    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
+    r2 = float(radius) * float(radius)
+    gap_unit = float(np.float32(r2 / _GAP_SCALE))
+    with torch.cuda.device(queries.device):
+        err = cuda_build.library().dlo_nn1_pruned(
+            queries.data_ptr(), query_mask.data_ptr(), targets.data_ptr(),
+            target_mask.data_ptr(), cand.data_ptr(), counts.data_ptr(),
+            q_total // TILE, cand.shape[1], f32_radius2(radius), gap_unit,
+            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(queries.device).cuda_stream,
+        )
+    cuda_build.check(err, "nn1_pruned")
+    launches["cuda"] += 1
+    return idx, d2
+
+
+def query_1nn_sorted(
+    target_points: torch.Tensor,
+    target_mask: torch.Tensor,
+    chunk_lo: torch.Tensor,
+    chunk_hi: torch.Tensor,
+    queries: torch.Tensor,
+    query_mask: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact 1-NN within ``radius`` over a Morton-sorted target cloud.
+
+    ``chunk_lo``/``chunk_hi`` are the targets' [3, T//512] masked chunk
+    AABBs. Returns (idx [Q] int64, -1 where not found; exact d2 [Q], +inf
+    where no winner; found [Q] bool), the JAX package's contract.
+    """
+    qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
+    cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
+    best_idx, _ = nn1_pruned(
+        queries, query_mask, target_points, target_mask, cand, counts, radius
+    )
+    best_idx = best_idx.to(torch.int64)
+    # the winner's d2 from the index, in the public contract's own form
+    sel = target_points[torch.clamp(best_idx, min=0)]
+    best_d2 = torch.sum((queries - sel) ** 2, dim=-1)
+    found = query_mask & (best_idx >= 0) & (best_d2 < f32_radius2(radius))
+    best_d2 = torch.where(best_idx >= 0, best_d2, torch.inf)
+    return torch.where(found, best_idx, -1), best_d2, found

@@ -1,0 +1,148 @@
+"""Voxel-grid centroid downsampling as a sort/segment-mean.
+
+Counterpart of the JAX package's ``ops/voxel.py`` (replaces
+``pcl::VoxelGrid``, reference ``odom.cc:126-127, 459-463``):
+
+1. quantize points to integer voxel coordinates relative to the masked
+   min corner (clamped to 1024 cells per axis);
+2. sort by a key that is bijective with the voxel, so one sort groups
+   equal voxels;
+3. mark segment starts, number segments by prefix sum and scatter-add
+   points into per-voxel accumulators;
+4. centroid = sum / count, emitted compacted to the front.
+
+The reference's keys and Bresenham products are uint32; here they are
+int64 holding the same values, with explicit 32-bit wraparound where the
+reference relies on it (:func:`_scramble`). Sorts are stable; the
+reference's ``lax.sort`` leaves the order of equal keys unspecified, so
+outputs agree with it as sets (centroids to float rounding), not slot by
+slot. ``index_add_`` has no drop mode: scatters go into ``cap + 1`` rows
+and the last row, the "dropped" slot, is discarded.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from direct_lidar_odometry_tpu_torch.core.cloud import PAD_VALUE, PointCloud
+from direct_lidar_odometry_tpu_torch.ops import morton
+
+_GRID_DIM = 1024  # cells per axis; 1024^3 < 2^31 keeps linear ids in int32
+_INT32_MAX = 2**31 - 1
+_MASK32 = 0xFFFFFFFF
+
+
+def _voxel_coords(points: torch.Tensor, mask: torch.Tensor, res: float) -> torch.Tensor:
+    masked = torch.where(mask[..., None], points, PAD_VALUE)
+    origin = torch.amin(masked, dim=-2, keepdim=True)
+    coords = torch.floor((points - origin) / res).to(torch.int64)
+    return torch.clamp(coords, 0, _GRID_DIM - 1)
+
+
+def voxel_ids(points: torch.Tensor, mask: torch.Tensor, res: float) -> torch.Tensor:
+    """Collision-free linear voxel id per point; invalid points get INT32_MAX."""
+    c = _voxel_coords(points, mask, res)
+    ids = c[..., 0] + _GRID_DIM * (c[..., 1] + _GRID_DIM * c[..., 2])
+    return torch.where(mask, ids, _INT32_MAX)
+
+
+def _mul32(h: torch.Tensor, const: int) -> torch.Tensor:
+    """(h * const) mod 2^32 for h < 2^32, without int64 overflow: the
+    constant is split into 16-bit halves so no partial product exceeds 2^48."""
+    lo = h * (const & 0xFFFF)
+    hi = ((h * (const >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _scramble(ids: torch.Tensor) -> torch.Tensor:
+    """Murmur-style bijective mix of voxel ids, in uint32 arithmetic."""
+    h = ids.to(torch.int64) & _MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h
+
+
+def _segment_mean(
+    spts: torch.Tensor, slot: torch.Tensor, cap: int
+) -> PointCloud:
+    """Scatter-add sorted points into ``cap`` voxel slots (slot ``cap`` =
+    dropped) and emit the centroids compacted to the front."""
+    n = spts.shape[0]
+    slot = torch.clamp(slot, max=cap)
+    sums = torch.zeros((cap + 1, 3), dtype=torch.float32, device=spts.device)
+    sums.index_add_(0, slot, spts)
+    counts = torch.zeros((cap + 1,), dtype=torch.float32, device=spts.device)
+    counts.index_add_(0, slot, torch.ones((n,), dtype=torch.float32, device=spts.device))
+    sums, counts = sums[:cap], counts[:cap]
+    out_mask = counts > 0
+    centroids = sums / torch.clamp(counts, min=1.0)[..., None]
+    centroids = torch.where(out_mask[..., None], centroids, PAD_VALUE)
+    return PointCloud(points=centroids, mask=out_mask)
+
+
+def voxel_downsample_morton(
+    cloud: PointCloud, res: float, out_capacity: int | None = None
+) -> PointCloud:
+    """Centroid voxel filter emitting the output in Z (Morton) order.
+
+    The sort key is the Morton code of the integer voxel coordinates, which
+    is bijective with the voxel, so ONE sort both groups voxels and
+    Z-orders the centroids for the pruned kernels. Capacity overflow keeps
+    a spatially uniform subset: segments are Bresenham-subsampled along the
+    Z-curve (``slot = floor(seg * cap / S)``, keep iff the floor
+    increments).
+    """
+    n = cloud.capacity
+    cap = out_capacity or n
+    if (n - 1) * cap >= 2**32:
+        raise ValueError(f"Bresenham products overflow 32 bits: n={n}, cap={cap}")
+    cu = _voxel_coords(cloud.points, cloud.mask, res)
+    code = torch.where(cloud.mask, morton.interleave3(cu), morton.INVALID_CODE)
+
+    scode, order = torch.sort(code, stable=True)
+    spts = cloud.points[order]
+    svalid = scode != morton.INVALID_CODE
+    first = torch.ones_like(svalid)
+    first[1:] = scode[1:] != scode[:-1]
+    first = first & svalid
+    seg = torch.cumsum(first.to(torch.int64), dim=0) - 1
+    s_total = torch.clamp(torch.sum(first.to(torch.int64)), min=1)
+
+    # Bresenham stride over Z-ordered segments when S > cap: kept segments
+    # get strictly increasing slots in [0, cap); dropped ones go to `cap`
+    prod = seg * cap
+    kept = (prod % s_total) < cap
+    slot_over = prod // s_total
+    slot = torch.where(
+        s_total > cap, torch.where(kept, slot_over, cap), seg
+    )
+    slot = torch.where(svalid, slot, cap)
+    return _segment_mean(spts, slot, cap)
+
+
+def voxel_downsample(
+    cloud: PointCloud, res: float, out_capacity: int | None = None
+) -> PointCloud:
+    """Centroid voxel filter, output compacted to the front in scrambled-id
+    order: if more voxels are occupied than ``out_capacity``, the overflow
+    drops a spatially uniform subset (ordering by raw id would keep one
+    corner of the scene)."""
+    n = cloud.capacity
+    cap = out_capacity or n
+    ids = voxel_ids(cloud.points, cloud.mask, res)
+    # _scramble is bijective: sorting by the scrambled key alone groups
+    # equal ids and randomizes group order. Invalid points share one key
+    # (INT32_MAX's) and are dropped by the svalid gating below.
+    _, order = torch.sort(_scramble(ids), stable=True)
+    sids = ids[order]
+    spts = cloud.points[order]
+    svalid = cloud.mask[order]
+    first = torch.ones_like(svalid)
+    first[1:] = sids[1:] != sids[:-1]
+    first = first & svalid
+    slot = torch.cumsum(first.to(torch.int64), dim=0) - 1
+    slot = torch.where(svalid, slot, cap)
+    return _segment_mean(spts, slot, cap)

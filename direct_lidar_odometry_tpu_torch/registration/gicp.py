@@ -1,0 +1,287 @@
+"""GICP registration: 1-NN correspondences + Mahalanobis + Gauss-Newton /
+Levenberg-Marquardt on SE(3).
+
+Counterpart of the JAX package's ``registration/gicp.py``, pruned-kernel
+backend only (the reference's ``NanoGICP`` + ``LsqRegistration``):
+
+- ``_update_correspondences`` (``nano_gicp_impl.hpp:173-211``): 1-NN of
+  the transformed source in the target through kernel K2
+  (``ops/cuda_nn.py``), gated by ``max_correspondence_distance``, plus
+  PLANE Mahalanobis weights rebuilt from stored normals;
+- ``_linearize`` (``:213-270``): residuals, Jacobians and the H/b sums;
+- ``_compute_error`` (``:272-296``): error with frozen correspondences,
+  for the LM gain-ratio test;
+- :func:`align` (``lsq_registration_impl.hpp:89-208``): the outer loop and
+  the LM inner retry loop, with the reference's lambda/nu schedule, the
+  rho gain test and the convergence test
+  ``max(|R-I|/rot_eps, |t|/trans_eps) < 1``.
+
+The JAX package runs both loops as ``lax.while_loop`` on the device. Here
+they are Python loops; each inner iteration reads its two flags (accept,
+converged) in ONE host read (``utils/sync.py``), and nothing else in the
+loop waits for the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from direct_lidar_odometry_tpu_torch.config import GicpStageConfig
+from direct_lidar_odometry_tpu_torch.core import se3
+from direct_lidar_odometry_tpu_torch.ops import cuda_nn, morton
+from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS, cov_from_normal
+from direct_lidar_odometry_tpu_torch.utils import sync
+
+
+class GicpTarget(NamedTuple):
+    """A Morton-sorted registration target with its [3, Nt//512] chunk
+    AABBs (the branch-and-bound index that replaces the reference's kd-tree
+    build, ``nano_gicp_impl.hpp:127,137``)."""
+
+    points: torch.Tensor         # [Nt, 3]
+    mask: torch.Tensor           # [Nt]
+    normals: torch.Tensor        # [Nt, 3]
+    normals_valid: torch.Tensor  # [Nt]
+    chunk_lo: torch.Tensor       # [3, Nt//512]
+    chunk_hi: torch.Tensor
+
+
+class GicpSource(NamedTuple):
+    points: torch.Tensor         # [Ns, 3]
+    mask: torch.Tensor           # [Ns]
+    normals: torch.Tensor        # [Ns, 3]
+    normals_valid: torch.Tensor  # [Ns]
+
+
+class GicpResult(NamedTuple):
+    transform: torch.Tensor          # [4, 4] final estimate
+    hessian: torch.Tensor            # [6, 6] final accepted H
+    iterations: int                  # outer iterations executed
+    converged: bool
+    lm_failed: bool                  # "lm not converged!!" analog
+    final_error: torch.Tensor        # f32, last linearization error sum
+    num_correspondences: torch.Tensor  # int32 at the last linearization
+
+
+def make_target(points, mask, normals, normals_valid) -> GicpTarget:
+    """Chunk AABBs over a Morton-ordered target cloud (contiguous tensors)."""
+    chunk_lo, chunk_hi = morton.chunk_aabbs(points, mask, morton.TARGET_CHUNK)
+    return GicpTarget(
+        points=points, mask=mask, normals=normals, normals_valid=normals_valid,
+        chunk_lo=chunk_lo, chunk_hi=chunk_hi,
+    )
+
+
+def _sym_inv3(m: torch.Tensor) -> torch.Tensor:
+    """Analytic inverse of symmetric [..., 3, 3] via the adjugate."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e = m[..., 1, 1], m[..., 1, 2]
+    f = m[..., 2, 2]
+    co_a = d * f - e * e
+    co_b = c * e - b * f
+    co_c = b * e - c * d
+    det = a * co_a + b * co_b + c * co_c
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, torch.ones_like(det))
+    i00 = co_a * inv_det
+    i01 = co_b * inv_det
+    i02 = co_c * inv_det
+    i11 = (a * f - c * c) * inv_det
+    i12 = (b * c - a * e) * inv_det
+    i22 = (a * d - b * b) * inv_det
+    row0 = torch.stack([i00, i01, i02], dim=-1)
+    row1 = torch.stack([i01, i11, i12], dim=-1)
+    row2 = torch.stack([i02, i12, i22], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+class _Linearization(NamedTuple):
+    h: torch.Tensor           # [6, 6]
+    b: torch.Tensor           # [6]
+    error: torch.Tensor       # scalar
+    corr: torch.Tensor        # [Ns] target index (-1 = none)
+    weight: torch.Tensor      # [Ns] f32 0/1 correspondence mask
+    mu_b: torch.Tensor        # [Ns, 3] frozen correspondence target points
+    n_b: torch.Tensor         # [Ns, 3] frozen correspondence target normals
+    m0: torch.Tensor          # [Ns, 3] source normals rotated by the frozen R
+    n_corr: torch.Tensor      # int32
+
+
+def _update_correspondences(
+    x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
+):
+    """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211."""
+    r = x0[:3, :3]
+    p_t = se3.transform_points(x0, src.points)  # [Ns, 3]
+    idx, _, found = cuda_nn.query_1nn_sorted(
+        target.points, target.mask, target.chunk_lo, target.chunk_hi,
+        p_t, src.mask, cfg.max_correspondence_distance,
+    )
+    j = torch.clamp(idx, min=0)
+    # both endpoints need usable normals
+    ok = found & src.normals_valid & target.normals_valid[j]
+    # C_B + R C_A R^T = 2 I - (1-eps)(nB nB^T + (R nA)(R nA)^T)
+    n_a_rot = src.normals @ r.T
+    n_b = target.normals[j]
+    mahal = _sym_inv3(cov_from_normal(n_b) + cov_from_normal(n_a_rot))
+    w = ok.to(torch.float32)
+    mahal = mahal * w[..., None, None]
+    corr = torch.where(ok, j, -1)
+    return corr, w, mahal, p_t, n_b, n_a_rot
+
+
+def _linearize(
+    x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
+) -> _Linearization:
+    """Reference nano_gicp_impl.hpp:213-270 as one masked reduction."""
+    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg)
+    j = torch.clamp(corr, min=0)
+    mu_b = target.points[j]
+    e = (mu_b - p_t) * weight[..., None]               # [Ns, 3]
+    me = torch.einsum("nij,nj->ni", mahal, e)         # [Ns, 3]
+    err = torch.sum(e * me)
+    # J = [ skew(p_t) | -I ]  (3x6). Blocks of H = J^T M J:
+    #   H = [[ S^T M S,  -S^T M ], [ -M S,  M ]],  b = [ S^T M e, -M e ]
+    s = se3.skew(p_t)                                  # [Ns, 3, 3]
+    ms = torch.einsum("nij,njk->nik", mahal, s)        # M S
+    stms = torch.einsum("nji,njk->nik", s, ms)         # S^T (M S)
+    stm = torch.einsum("nji,njk->nik", s, mahal)       # S^T M
+    h_tl = torch.sum(stms, dim=0)
+    h_tr = -torch.sum(stm, dim=0)
+    h_br = torch.sum(mahal, dim=0)
+    h = torch.cat(
+        [torch.cat([h_tl, h_tr], dim=1), torch.cat([h_tr.T, h_br], dim=1)], dim=0
+    )
+    b_top = torch.einsum("nji,nj->i", s, me)
+    b_bot = -torch.sum(me, dim=0)
+    b = torch.cat([b_top, b_bot])
+    n_corr = torch.sum(weight).to(torch.int32)
+    return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
+                          mu_b=mu_b, n_b=n_b, m0=m0, n_corr=n_corr)
+
+
+def _compute_error(x0: torch.Tensor, src: GicpSource, lin: _Linearization) -> torch.Tensor:
+    """Reference nano_gicp_impl.hpp:272-296 — frozen correspondences, with
+    M = w * (2I - (1-eps)(n_b n_b^T + m0 m0^T))^{-1} rebuilt columnwise."""
+    p_t = se3.transform_points(x0, src.points)
+    e = lin.mu_b - p_t
+    ex, ey, ez = e[:, 0], e[:, 1], e[:, 2]
+    nx, ny, nz = lin.n_b[:, 0], lin.n_b[:, 1], lin.n_b[:, 2]
+    mx, my, mz = lin.m0[:, 0], lin.m0[:, 1], lin.m0[:, 2]
+    a = 1.0 - PLANE_EPS
+    a00 = 2.0 - a * (nx * nx + mx * mx)
+    a01 = -a * (nx * ny + mx * my)
+    a02 = -a * (nx * nz + mx * mz)
+    a11 = 2.0 - a * (ny * ny + my * my)
+    a12 = -a * (ny * nz + my * mz)
+    a22 = 2.0 - a * (nz * nz + mz * mz)
+    co00 = a11 * a22 - a12 * a12
+    co01 = a02 * a12 - a01 * a22
+    co02 = a01 * a12 - a02 * a11
+    det = a00 * co00 + a01 * co01 + a02 * co02
+    inv_det = lin.weight / torch.where(torch.abs(det) > 1e-20, det, torch.ones_like(det))
+    m00 = co00 * inv_det
+    m01 = co01 * inv_det
+    m02 = co02 * inv_det
+    m11 = (a00 * a22 - a02 * a02) * inv_det
+    m12 = (a01 * a02 - a00 * a12) * inv_det
+    m22 = (a00 * a11 - a01 * a01) * inv_det
+    mex = m00 * ex + m01 * ey + m02 * ez
+    mey = m01 * ex + m11 * ey + m12 * ez
+    mez = m02 * ex + m12 * ey + m22 * ez
+    return torch.sum(ex * mex + ey * mey + ez * mez)
+
+
+def _is_converged(delta: torch.Tensor, cfg: GicpStageConfig) -> torch.Tensor:
+    """Reference lsq_registration_impl.hpp:118-127 (device bool)."""
+    r = delta[:3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
+    t = delta[:3, 3]
+    r_max = torch.max(torch.abs(r)) / cfg.rotation_epsilon
+    t_max = torch.max(torch.abs(t)) / cfg.transformation_epsilon
+    return torch.maximum(r_max, t_max) < 1.0
+
+
+def _reorthonormalize(x: torch.Tensor) -> torch.Tensor:
+    """Keep the rotation block orthonormal under f32 compounding (quat roundtrip)."""
+    q = se3.rotmat_to_quat(x[:3, :3])
+    return se3.make_se3(se3.quat_to_rotmat(q), x[:3, 3])
+
+
+def _solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # solve_ex: no error check, hence no host sync (a singular H gives
+    # non-finite steps, which the gain test rejects, as in the reference)
+    return torch.linalg.solve_ex(h, -b)[0]
+
+
+def align(
+    src: GicpSource,
+    target: GicpTarget,
+    guess: torch.Tensor,
+    cfg: GicpStageConfig,
+) -> GicpResult:
+    """Register ``src`` onto ``target`` starting from ``guess`` (4x4).
+
+    ``LsqRegistration::computeTransformation`` with the reference-default
+    LM inner step, or plain GN when ``cfg.optimizer == "gn"``. One host
+    read per inner iteration (LM) or per outer iteration (GN).
+    """
+    dev = guess.device
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    use_lm = cfg.optimizer == "lm"
+
+    x = _reorthonormalize(guess.to(torch.float32))
+    lam = None
+    h_fin = eye6
+    err_fin = torch.zeros((), dtype=torch.float32, device=dev)
+    nc_fin = torch.zeros((), dtype=torch.int32, device=dev)
+    iters, converged, failed = 0, False, False
+    while iters < cfg.max_iterations and not converged and not failed:
+        lin = _linearize(x, src, target, cfg)
+        if use_lm:
+            # step_lm (lsq_registration_impl.hpp:161-208)
+            if lam is None:
+                lam = cfg.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(lin.h)))
+            nu = 2.0
+            ok, conv, x_new = False, False, x
+            for _ in range(cfg.lm_max_iterations):
+                d = _solve6(lin.h + lam * eye6, lin.b)
+                delta = se3.se3_exp(d)
+                xi = _reorthonormalize(delta @ x)
+                yi = _compute_error(xi, src, lin)
+                denom = torch.dot(d, lam * d - lin.b)
+                denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+                rho = (lin.error - yi) / denom
+                accept, conv = sync.read(torch.stack([rho >= 0.0, _is_converged(delta, cfg)]))
+                if accept:
+                    lam = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+                    x_new = xi
+                else:
+                    lam = nu * lam
+                    nu = 2.0 * nu
+                # the reference returns true on acceptance and on a
+                # rejected step that is already below the convergence test
+                if accept or conv:
+                    ok = True
+                    break
+        else:
+            # step_gn (lsq_registration_impl.hpp:142-158)
+            d = _solve6(lin.h, lin.b)
+            delta = se3.se3_exp(d)
+            x_new = _reorthonormalize(delta @ x)
+            ok, conv = True, sync.read(_is_converged(delta, cfg))
+        converged = ok and conv
+        failed = not ok
+        if ok:
+            x = x_new
+        iters += 1
+        h_fin, err_fin, nc_fin = lin.h, lin.error, lin.n_corr
+    return GicpResult(
+        transform=x,
+        hessian=h_fin,
+        iterations=iters,
+        converged=converged,
+        lm_failed=failed,
+        final_error=err_fin,
+        num_correspondences=nc_fin,
+    )
