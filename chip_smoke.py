@@ -10,21 +10,38 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    sm_90a) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the per-frame path at ``cfg/tpu_dlo.yaml`` sizes, from
-   Morton-sorted clouds of rendered OS1-64 scans: K2 (1-NN) with 32768
-   queries against a 65536-point submap at r = 0.5, 1.0, 1.5; K1 (radius
-   moments) over a 32768-point scan at r = 0.75 and a 16384-point keyframe
-   at r = 1.5. Prints agreement and median times (CUDA events, 20 runs);
-4. drive ``OdometryRunner(cfg, device="cuda")`` over 30 frames of the
-   ray-cast urban world with every launch counter reset just before, and
-   check the trajectory (ATE), the S2M correspondences of every frame, that
-   both kernels were launched and that no plain version ran;
-5. print one JSON line of per-kernel results, then the final JSON line.
+   Morton-sorted clouds of rendered OS1-64 scans: K2 (1-NN) and K4 (its
+   distance-expansion variant) with 32768 queries against a 65536-point
+   submap at r = 0.5, 1.0, 1.5; K1 (radius moments) over a 32768-point
+   scan at r = 0.75 and a 16384-point keyframe at r = 1.5; K3 (fused GICP
+   linearization) at the S2M shape (32768-point scan with K1 normals
+   against the 65536-point submap with keyframe normals, r = 0.5) and the
+   S2S shape (32768 x 32768, r = 1.0), cold and warm-started; K5
+   (exhaustive 1-NN) at 32768 x 65536; K6 (exhaustive moments) over the
+   32768-point scan at r = 0.75. Prints agreement and median times (CUDA
+   events, 20 runs);
+4. drive ``OdometryRunner(cfg, device="cuda")`` (backend "pallas") over 30
+   frames of the ray-cast urban world with every launch counter reset just
+   before, and check the trajectory (ATE), the S2M correspondences of every
+   frame, that K1 and K2 were launched and that no plain version ran;
+5. call the port's CLI (``cli.main``) in-process on the same 30 frames at
+   full widths, once on backend "pallas_fused" (K3) and once on
+   "pallas_mxu" (K4), with ``--eval --map-ply --checkpoint``, counters reset
+   before each call: ATE gate, the backend's kernel and K1 launched, K2 and
+   every plain version not, a map of > 100 points, a checkpoint that loads;
+6. check the drive's last state through the public exhaustive entries
+   (the JAX package's oracles): ``query_1nn`` (K5) against the pruned
+   search, ``estimate_normals_radius`` (K6) against the carried normals,
+   counters reset before;
+7. print one JSON line of per-kernel results, then the final JSON line.
 
 It imports torch and the port, nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -41,6 +58,11 @@ K2_TOL_REL = 2.0**-14   # near-tie slack between two winners' d2
 K2_BORDER = 1e-6        # |d2 - r^2| <= K2_BORDER * r^2 counts as on the boundary
 K2_FOUND_AGREE = 0.9999
 K1_ATOL, K1_RTOL = 1e-3, 1e-5
+K4_SLACK = 2e-3          # m^2: the expansion's cancellation error at map-scale coordinates
+K3_REL = 2e-4            # max|dH| <= K3_REL * max|H|, the same form for b and the error
+REPO = Path(__file__).resolve().parent
+CFG_PATH = REPO / "cfg" / "tpu_dlo.yaml"
+OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
 
 
 def require(ok: bool, what: str) -> None:
@@ -48,11 +70,32 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def slice_config():
+def slice_config(backend: str = "pallas"):
     from direct_lidar_odometry_tpu_torch.config import load_config
 
-    cfg_path = Path(__file__).resolve().parent / "cfg" / "tpu_dlo.yaml"
-    return load_config(str(cfg_path), overrides={"nn_backend": "pallas", "posegraph.use": False})
+    return load_config(str(CFG_PATH), overrides={"nn_backend": backend, "posegraph.use": False})
+
+
+def counter_modules():
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn
+
+    return cuda_nn, cuda_cov, cuda_gicp
+
+
+def reset_counters() -> None:
+    for mod in counter_modules():
+        mod.reset_launches()
+
+
+def read_counters() -> dict:
+    """Every kernel's launch counter, per route."""
+    cuda_nn, cuda_cov, cuda_gicp = counter_modules()
+    return {
+        "nn1_pruned": dict(cuda_nn.launches), "nn1_pruned_mxu": dict(cuda_nn.mxu_launches),
+        "nn1_exhaustive": dict(cuda_nn.exhaustive_launches),
+        "cov_pruned": dict(cuda_cov.launches), "cov_exhaustive": dict(cuda_cov.exhaustive_launches),
+        "fused_linearize": dict(cuda_gicp.launches),
+    }
 
 
 def cuda_median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -85,11 +128,14 @@ def make_world():
 
 def kernel_inputs(cfg, world, scans, dev):
     """Morton-sorted clouds as the per-frame path builds them: the frame-4
-    scan in the world frame (K2 queries), a submap of the frame 0-3
-    keyframe clouds (K2 targets), the frame-0 scan and keyframe (K1)."""
+    scan in the world frame with its K1 normals rotated along (queries of
+    K2, K4, K3), a submap of the frame 0-3 keyframe clouds with their
+    normals (the S2M target), the frame-3 scan in the world frame with its
+    normals (the S2S target), the frame-0 scan and keyframe (K1, K6)."""
     from direct_lidar_odometry_tpu_torch.core import cloud as cl, se3
     from direct_lidar_odometry_tpu_torch.odometry import keyframes, pipeline
     from direct_lidar_odometry_tpu_torch.ops import morton
+    from direct_lidar_odometry_tpu_torch.registration import gicp
 
     p0_inv = np.linalg.inv(world.poses[0])
 
@@ -98,21 +144,27 @@ def kernel_inputs(cfg, world, scans, dev):
         pose = torch.tensor(p0_inv @ world.poses[t], dtype=torch.float32, device=dev)
         return pipeline.preprocess_scan(raw.points, raw.mask, cfg), pose
 
+    def world_scan(t):
+        scan, pose = scan_at(t)
+        nrm = pipeline._scan_normals(scan, cfg)
+        pts = torch.where(scan.mask[:, None], se3.transform_points(pose, scan.points),
+                          cl.PAD_VALUE)
+        return gicp.GicpSource(pts.contiguous(), scan.mask,
+                               (nrm.normals @ pose[:3, :3].T).contiguous(), nrm.valid)
+
     kfs = []
     for t in range(4):
         scan, pose = scan_at(t)
-        kc, _ = keyframes.make_keyframe_cloud(scan, pose, cfg)
-        kfs.append(kc)
+        kc, kn = keyframes.make_keyframe_cloud(scan, pose, cfg)
+        kfs.append((kc.points, kc.mask, kn.normals, kn.valid))
         if t == 0:
             scan0, kf0 = scan, kc
-    sm_pts = torch.cat([k.points for k in kfs])
-    sm_msk = torch.cat([k.mask for k in kfs])
+    sm_pts, sm_msk, sm_nrm, sm_val = (torch.cat(parts) for parts in zip(*kfs))
     z = morton.sort_order(sm_pts, sm_msk)
-    submap = cl.PointCloud(sm_pts[z].contiguous(), sm_msk[z].contiguous())
-    scan4, pose4 = scan_at(4)
-    q = torch.where(scan4.mask[:, None], se3.transform_points(pose4, scan4.points), cl.PAD_VALUE)
-    queries = cl.PointCloud(q.contiguous(), scan4.mask)
-    return queries, submap, scan0, kf0
+    submap = gicp.make_target(*(a[z].contiguous() for a in (sm_pts, sm_msk, sm_nrm, sm_val)))
+    s3 = world_scan(3)
+    s2s_target = gicp.make_target(*s3)
+    return world_scan(4), submap, s2s_target, scan0, kf0
 
 
 def candidates(queries, targets, radius):
@@ -123,14 +175,16 @@ def candidates(queries, targets, radius):
     return cuda_nn.candidate_chunks(qlo, qhi, tlo, thi, radius)
 
 
-def check_k2(queries, targets, radius):
-    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
-
+def check_nn1(name, kernel, plain, queries, targets, radius):
+    """A pruned 1-NN kernel (K2 or K4) against its plain version: found
+    agrees except on the r^2 boundary, winners' d2 within 2^-14 relative."""
     cand, counts = candidates(queries, targets, radius)
     args = (queries.points, queries.mask, targets.points, targets.mask)
-    ik, dk = cuda_nn.nn1_pruned(*args, cand, counts, radius)
-    ip, dp = cuda_nn.nn1_plain(*args, radius)
+    ik, dk = kernel(*args, cand, counts, radius)
+    ip, dp = plain(*args, radius)
     torch.cuda.synchronize()
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
     r2 = cuda_nn.f32_radius2(radius)
     fk, fp = ik >= 0, ip >= 0
     valid = queries.mask
@@ -143,20 +197,81 @@ def check_k2(queries, targets, radius):
     near_tie = diff <= K2_TOL_REL * torch.maximum(dk[both], dp[both])
     max_err = float(diff.max()) if both.any() else 0.0
     idx_same = float((ik[both] == ip[both]).float().mean()) if both.any() else 1.0
-    ms = cuda_median_ms(lambda: cuda_nn.nn1_pruned(*args, cand, counts, radius))
-    plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_plain(*args, radius))
+    ms = cuda_median_ms(lambda: kernel(*args, cand, counts, radius))
+    plain_ms = cuda_median_ms(lambda: plain(*args, radius))
     prep_ms = cuda_median_ms(lambda: candidates(queries, targets, radius))
     case = dict(
         radius=radius, queries=int(queries.points.shape[0]), targets=int(targets.points.shape[0]),
         found=int(fk.sum()), found_agree=agree, n_disagree=int(dis.sum()), idx_same=idx_same,
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, candidate_ms=prep_ms,
     )
+    require(agree >= K2_FOUND_AGREE, f"{name} r={radius}: found agrees on {agree:.6f} < {K2_FOUND_AGREE}")
+    require(dis_ok, f"{name} r={radius}: a found disagreement lies off the r^2 boundary")
+    require(bool(torch.all(near_tie)), f"{name} r={radius}: winners' d2 differ beyond 2^-14 relative")
+    require(int(fk.sum()) > 1000, f"{name} r={radius}: only {int(fk.sum())} queries found a neighbour")
+    return case, ik
+
+
+def check_k2(queries, targets, radius):
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    case, _ = check_nn1("K2", cuda_nn.nn1_pruned, cuda_nn.nn1_plain, queries, targets, radius)
     print(f"# K2 nn1_pruned {case}")
-    require(agree >= K2_FOUND_AGREE, f"K2 r={radius}: found agrees on {agree:.6f} < {K2_FOUND_AGREE}")
-    require(dis_ok, f"K2 r={radius}: a found disagreement lies off the r^2 boundary")
-    require(bool(torch.all(near_tie)), f"K2 r={radius}: winners' d2 differ beyond 2^-14 relative")
-    require(int(fk.sum()) > 1000, f"K2 r={radius}: only {int(fk.sum())} queries found a neighbour")
     return case
+
+
+def check_k4(queries, targets, radius):
+    """K4 against its plain version (the same expansion in the same order),
+    then against the exact search: found differs only within K4_SLACK of
+    r^2, the winner's exact d2 within K4_SLACK of the nearest, and the
+    public entry reports the winner's exact d2."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    case, ik = check_nn1("K4", cuda_nn.nn1_pruned_mxu, cuda_nn.nn1_mxu_plain,
+                         queries, targets, radius)
+    ie, de = cuda_nn.nn1_plain(queries.points, queries.mask, targets.points, targets.mask, radius)
+    idx, d2, found = cuda_nn.query_1nn_sorted(
+        targets.points, targets.mask, targets.chunk_lo, targets.chunk_hi,
+        queries.points, queries.mask, radius, mxu=True)
+    torch.cuda.synchronize()
+    r2 = cuda_nn.f32_radius2(radius)
+    fk, fe = ik >= 0, ie >= 0
+    win = targets.points[ik.clamp(min=0).long()]
+    dxk = torch.sum((queries.points - win) ** 2, dim=-1)  # K4 winner's exact d2
+    only_k, only_e, both = fk & ~fe, fe & ~fk, fk & fe
+    border_ok = bool(torch.all(torch.abs(dxk[only_k] - r2) < K4_SLACK)) and bool(
+        torch.all(torch.abs(de[only_e] - r2) < K4_SLACK))
+    gap = float((dxk[both] - de[both]).max()) if both.any() else 0.0
+    reported = bool(torch.equal(d2[found], dxk[found])) and bool(torch.equal(idx[found], ik[found].long()))
+    case.update(vs_exact_found_differ=int((fk != fe).sum()), vs_exact_max_d2_gap=gap,
+                vs_exact_idx_same=float((ik[both] == ie[both]).float().mean()))
+    print(f"# K4 nn1_pruned_mxu {case}")
+    require(border_ok, f"K4 r={radius}: found differs from the exact search off the r^2 slack")
+    require(gap < K4_SLACK, f"K4 r={radius}: a winner is {gap:.2e} m^2 beyond the nearest")
+    require(reported, f"K4 r={radius}: the public entry's d2 is not the winner's exact d2")
+    return case
+
+
+def moments_agree(name, mk, mp, cloud, rows, radius):
+    """Counts identical on ``rows`` except through a pair on the r^2
+    boundary; moments within K1_ATOL + K1_RTOL |plain|. Returns (rows whose
+    counts differ, max abs error)."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov
+
+    cnt_same = mk[:, 0] == mp[:, 0]
+    n_cnt_diff = int((~cnt_same & rows).sum())
+    if n_cnt_diff:
+        r2 = cuda_cov.f32_radius2(radius)
+        bad = torch.nonzero(~cnt_same & rows)[:, 0]
+        d = cloud.points[None, :, :] - cloud.points[bad][:, None, :]
+        d2 = torch.sum(d * d, dim=-1)
+        on_border = torch.any(torch.abs(d2 - r2) <= K2_BORDER * r2, dim=1)
+        require(bool(on_border.all()), f"{name} r={radius}: counts differ off the r^2 boundary")
+    keep = rows & cnt_same
+    err = torch.abs(mk[keep] - mp[keep])
+    close = bool(torch.all(err <= K1_ATOL + K1_RTOL * torch.abs(mp[keep])))
+    require(close, f"{name} r={radius}: moments beyond atol {K1_ATOL} rtol {K1_RTOL}")
+    return n_cnt_diff, float(err.max())
 
 
 def check_k1(cloud, radius):
@@ -168,20 +283,7 @@ def check_k1(cloud, radius):
     mp = cuda_cov.cov_plain(*args, radius)
     torch.cuda.synchronize()
     v = cloud.mask
-    cnt_same = mk[:, 0] == mp[:, 0]
-    n_cnt_diff = int((~cnt_same & v).sum())
-    if n_cnt_diff:
-        # a count may differ only through a pair on the r^2 boundary
-        r2 = cuda_cov.f32_radius2(radius)
-        rows = torch.nonzero(~cnt_same & v)[:, 0]
-        d = cloud.points[None, :, :] - cloud.points[rows][:, None, :]
-        d2 = torch.sum(d * d, dim=-1)
-        on_border = torch.any(torch.abs(d2 - r2) <= K2_BORDER * r2, dim=1)
-        require(bool(on_border.all()), f"K1 r={radius}: counts differ off the r^2 boundary")
-    rows = v & cnt_same
-    err = torch.abs(mk[rows] - mp[rows])
-    max_err = float(err.max())
-    close = bool(torch.all(err <= K1_ATOL + K1_RTOL * torch.abs(mp[rows])))
+    n_cnt_diff, max_err = moments_agree("K1", mk, mp, cloud, v, radius)
     ms = cuda_median_ms(lambda: cuda_cov.cov_pruned(*args, cand, counts, radius))
     plain_ms = cuda_median_ms(lambda: cuda_cov.cov_plain(*args, radius))
     prep_ms = cuda_median_ms(lambda: candidates(cloud, cloud, radius))
@@ -191,26 +293,130 @@ def check_k1(cloud, radius):
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, candidate_ms=prep_ms,
     )
     print(f"# K1 cov_pruned {case}")
-    require(close, f"K1 r={radius}: moments beyond atol {K1_ATOL} rtol {K1_RTOL}")
+    return case
+
+
+def check_k6(cloud, radius):
+    """K6 (every query, no mask) against its plain version on all rows."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov
+
+    every = torch.ones_like(cloud.mask)
+    mk = cuda_cov.cov_exhaustive(cloud.points, cloud.mask, cloud.points, radius)
+    mp = cuda_cov.cov_plain(cloud.points, cloud.mask, cloud.points, every, radius)
+    torch.cuda.synchronize()
+    n_cnt_diff, max_err = moments_agree("K6", mk, mp, cloud, every, radius)
+    ms = cuda_median_ms(lambda: cuda_cov.cov_exhaustive(cloud.points, cloud.mask,
+                                                        cloud.points, radius))
+    plain_ms = cuda_median_ms(lambda: cuda_cov.cov_plain(cloud.points, cloud.mask,
+                                                         cloud.points, every, radius))
+    case = dict(radius=radius, points=int(cloud.points.shape[0]), valid=int(cloud.mask.sum()),
+                mean_neighbours=float(mp[cloud.mask, 0].mean()), n_count_diff=n_cnt_diff,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    print(f"# K6 cov_exhaustive {case}")
+    return case
+
+
+def check_k5(queries, targets):
+    """K5 against its plain version: raw minima and indices identical."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    args = (queries.points, targets.points, targets.mask)
+    ik, dk = cuda_nn.nn1_exhaustive(*args)
+    ip, dp = cuda_nn.nn1_exhaustive_plain(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ik, ip)) and bool(torch.equal(dk, dp))
+    v = queries.mask
+    max_err = float(torch.abs(dk[v] - dp[v]).max())
+    ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive(*args))
+    plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive_plain(*args))
+    case = dict(queries=int(queries.points.shape[0]), targets=int(targets.points.shape[0]),
+                identical=same, within_0p5m=int((v & (dk < 0.25)).sum()),
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    print(f"# K5 nn1_exhaustive {case}")
+    require(same, "K5: idx or d2 differ from the plain version")
+    return case
+
+
+def check_k3(src, target, radius, label):
+    """K3 against its plain version at one GICP shape: correspondences equal
+    except 2^-14 near-ties, tile sums within K3_REL of their scale, and a
+    warm start (seeds from a perturbed pose) equal to the cold pass bit for
+    bit."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud
+    from direct_lidar_odometry_tpu_torch.ops import cuda_gicp
+    from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
+
+    qw = src.mask & src.normals_valid
+    cand, counts = candidates(PointCloud(src.points, qw), target, radius)
+    tgt = (target.points, target.mask, target.normals, target.normals_valid)
+    cold = torch.full((src.points.shape[0],), -1, dtype=torch.int32, device=qw.device)
+
+    def run(fn, p, m, seed, cand_, counts_):
+        return fn(p, m, qw, seed, *tgt, cand_, counts_, radius, PLANE_EPS)
+
+    hk, pk, ik = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, cold, cand, counts)
+    hp, pp, ip = run(cuda_gicp.fused_linearize_plain, src.points, src.normals, cold, cand, counts)
+    # seeds: the correspondences of a pose 5 cm / 0.1 degree away
+    delta = se3.se3_exp(torch.tensor([0.002, -0.001, 0.002, 0.05, -0.04, 0.03], device=qw.device))
+    p_b = torch.where(src.mask[:, None], se3.transform_points(delta, src.points), 1e6).contiguous()
+    m_b = (src.normals @ delta[:3, :3].T).contiguous()
+    cand_b, counts_b = candidates(PointCloud(p_b, qw), target, radius)
+    _, _, seed = run(cuda_gicp.fused_linearize_pruned, p_b, m_b, cold, cand_b, counts_b)
+    hs, ps, is_ = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, seed, cand, counts)
+    torch.cuda.synchronize()
+
+    fk, fp = ik >= 0, ip >= 0
+    dis = ik != ip
+    tie = torch.abs(pk[:, 7] - pp[:, 7]) <= K2_TOL_REL * torch.maximum(pk[:, 7], pp[:, 7])
+    corr_ok = bool(torch.all(tie[dis] & (fk == fp)[dis]))
+    sk, sp = hk[:, :29].sum(0), hp[:, :29].sum(0)
+    dh = float((sk[:21] - sp[:21]).abs().max())
+    db = float((sk[21:27] - sp[21:27]).abs().max())
+    derr = float((sk[27] - sp[27]).abs())
+    seeded_same = (bool(torch.equal(is_, ik)) and bool(torch.equal(hs[:, :29], hk[:, :29]))
+                   and bool(torch.equal(ps, pk)))
+    ms = cuda_median_ms(lambda: run(cuda_gicp.fused_linearize_pruned, src.points, src.normals,
+                                    cold, cand, counts))
+    seeded_ms = cuda_median_ms(lambda: run(cuda_gicp.fused_linearize_pruned, src.points,
+                                           src.normals, seed, cand, counts))
+    plain_ms = cuda_median_ms(lambda: run(cuda_gicp.fused_linearize_plain, src.points,
+                                          src.normals, cold, cand, counts))
+    prep_ms = cuda_median_ms(lambda: candidates(PointCloud(src.points, qw), target, radius))
+    case = dict(
+        shape=label, radius=radius, queries=int(src.points.shape[0]),
+        targets=int(target.points.shape[0]), n_corr=int(sp[28]), n_corr_kernel=int(sk[28]),
+        corr_differ=int(dis.sum()), max_abs_err=max(dh, db), max_h_err=dh,
+        max_abs_h=float(sp[:21].abs().max()), max_b_err=db, max_abs_b=float(sp[21:27].abs().max()),
+        error_rel=derr / max(float(sp[27].abs()), 1e-30), seeded_equals_cold=seeded_same,
+        visits_cold=float(hk[:, 29].sum()), visits_seeded=float(hs[:, 29].sum()),
+        candidates=float(hk[:, 30].sum()), ms=ms, seeded_ms=seeded_ms, plain_ms=plain_ms,
+        candidate_ms=prep_ms,
+    )
+    print(f"# K3 fused_linearize {case}")
+    require(corr_ok, f"K3 {label}: correspondences differ beyond 2^-14 near-ties")
+    require(dh <= K3_REL * float(sp[:21].abs().max()), f"K3 {label}: H differs by {dh:.3e}")
+    require(db <= K3_REL * float(sp[21:27].abs().max()), f"K3 {label}: b differs by {db:.3e}")
+    require(case["error_rel"] <= K3_REL, f"K3 {label}: error differs by {case['error_rel']:.2e}")
+    require(seeded_same, f"K3 {label}: the warm-started pass differs from the cold one")
+    require(int(sp[28]) > 1000, f"K3 {label}: only {int(sp[28])} correspondences")
     return case
 
 
 def drive(cfg, world, scans, device="cuda"):
     from direct_lidar_odometry_tpu_torch.io import evaluation
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
-    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_nn
     from direct_lidar_odometry_tpu_torch.utils import sync
 
     runner = OdometryRunner(cfg, device=device)
-    cuda_nn.reset_launches()
-    cuda_cov.reset_launches()
+    reset_counters()
     sync.reset()
     reads = []
     for t, scan in enumerate(scans):
         before = sync.counts["host_reads"]
         runner.process_scan(scan, float(world.stamps[t]), sync=True)
         reads.append(sync.counts["host_reads"] - before)
-    launches = {"nn1_pruned": dict(cuda_nn.launches), "cov_pruned": dict(cuda_cov.launches)}
+    launches = read_counters()
 
     est = runner.trajectory()
     gt = np.linalg.inv(world.poses[0])[None] @ world.poses[: len(est)]
@@ -234,9 +440,104 @@ def drive(cfg, world, scans, device="cuda"):
     gate = max(0.10, 0.001 * path)
     require(rmse < gate, f"ATE {rmse:.4f} m >= {gate:.4f} m")
     require(min(corr) > 100, f"a frame has s2m_num_corr {min(corr)} <= 100")
+    for name in ("nn1_pruned", "cov_pruned"):
+        require(launches[name]["cuda"] > 0, f"{name} kernel was never launched on the main path")
     for name, cnt in launches.items():
-        require(cnt["cuda"] > 0, f"{name} kernel was never launched on the main path")
         require(cnt["plain"] == 0, f"{name} plain version ran {cnt['plain']} times on the main path")
+    return out, runner
+
+
+def drive_cli(backend, world, device="cuda"):
+    """Phase 5: the port's CLI in-process on backend ``backend`` over the
+    synthetic world the CLI renders (the same seed, scans and widths as
+    phase 4), counters reset just before."""
+    from direct_lidar_odometry_tpu_torch import cli
+    from direct_lidar_odometry_tpu_torch.io import evaluation, ply, trajectory
+    from direct_lidar_odometry_tpu_torch.utils import checkpoint
+
+    out_dir = OUT_DIR / backend
+    argv = ["--synthetic", str(N_FRAMES), "--config", str(CFG_PATH), "--device", device,
+            "--set", f"nn_backend={backend}", "--set", "posegraph.use=false",
+            "--out-dir", str(out_dir), "--eval", "--map-ply", "map.ply",
+            "--checkpoint", "ckpt.npz", "--dashboard-every", "10"]
+    stdout = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+
+    est = trajectory.read_kitti(str(out_dir / "trajectory_kitti.txt"))
+    gt = np.linalg.inv(world.poses[0])[None] @ world.poses[: len(est)]
+    rmse = evaluation.ate(est, gt, align=False).rmse
+    path = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)))
+    map_pts = ply.read_ply(str(out_dir / "map.ply"))
+    state, extra = checkpoint.load_state(str(out_dir / "ckpt.npz"), slice_config(backend), device)
+    ckpt_ok = (int(state.frame_idx) == N_FRAMES
+               and np.allclose(state.pose.cpu().numpy()[:3], est[-1][:3], atol=1e-5)
+               and extra.get("prev_stamp") == float(world.stamps[N_FRAMES - 1]))
+    out = dict(backend=backend, rc=rc, frames=len(est), ate_m=rmse, path_m=path,
+               map_points=len(map_pts), checkpoint_ok=ckpt_ok, wall_s=wall_s,
+               summary=summary, launches=launches)
+    print(f"# cli {json.dumps(out)}")
+    kernel = {"pallas_fused": "fused_linearize", "pallas_mxu": "nn1_pruned_mxu"}[backend]
+    gate = max(0.10, 0.001 * path)
+    require(rc == 0 and len(est) == N_FRAMES, f"cli {backend}: rc {rc}, {len(est)} frames")
+    require(rmse < gate, f"cli {backend}: ATE {rmse:.4f} m >= {gate:.4f} m")
+    require(launches[kernel]["cuda"] > 0, f"cli {backend}: {kernel} was never launched")
+    require(launches["cov_pruned"]["cuda"] > 0, f"cli {backend}: cov_pruned was never launched")
+    require(launches["nn1_pruned"]["cuda"] == 0, f"cli {backend}: nn1_pruned was launched")
+    for name, cnt in launches.items():
+        require(cnt["plain"] == 0, f"cli {backend}: {name} plain version ran {cnt['plain']} times")
+    require(len(map_pts) > 100, f"cli {backend}: the map has {len(map_pts)} points")
+    require(ckpt_ok, f"cli {backend}: the checkpoint does not restore the final state")
+    return out
+
+
+def oracle_check(cfg, runner):
+    """Phase 6: the last state of the phase-4 drive through the public
+    exhaustive entries, the JAX package's test oracles: K5 ``query_1nn`` of
+    the last scan (in the world frame) against the submap, held against the
+    pruned search; K6 ``estimate_normals_radius`` of the last scan, held
+    against the K1 normals the step carried."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+    from direct_lidar_odometry_tpu_torch.registration import covariance, gicp
+
+    st = runner.state
+    reset_counters()
+    q = torch.where(st.prev_mask[:, None], se3.transform_points(st.pose, st.prev_points),
+                    1e6).contiguous()
+    radius = cfg.gicp.s2m.max_correspondence_distance
+    i5, d5, f5 = cuda_nn.query_1nn(st.submap_points, st.submap_mask, q, st.prev_mask, radius)
+    res = cfg.preprocessing.voxel_scan.res
+    n6 = covariance.estimate_normals_radius(st.prev_points, st.prev_mask, 3.0 * res)
+    launches = read_counters()
+    target = gicp.make_target(st.submap_points, st.submap_mask, st.submap_normals,
+                              st.submap_normals_valid)
+    i2, d2, f2 = cuda_nn.query_1nn_sorted(target.points, target.mask, target.chunk_lo,
+                                          target.chunk_hi, q, st.prev_mask, radius)
+    torch.cuda.synchronize()
+    dots = torch.abs(torch.sum(n6.normals * st.prev_normals, dim=-1))
+    both = n6.valid & st.prev_normals_valid
+    out = dict(
+        found=int(f5.sum()), found_same=bool(torch.equal(f5, f2)),
+        idx_same=float((i5[f5] == i2[f5]).float().mean()),
+        max_d2_rel=float((torch.abs(d5[f5] - d2[f5]) / torch.clamp(d2[f5], min=1e-12)).max()),
+        normals_valid_same=bool(torch.equal(n6.valid, st.prev_normals_valid)),
+        normals_dot_min_p001=float(torch.quantile(dots[both], 0.001)),
+        launches=launches,
+    )
+    print(f"# oracle {json.dumps(out)}")
+    require(out["found_same"] and int(f5.sum()) > 1000, "oracle: K5 found differs from K2")
+    require(out["idx_same"] == 1.0, "oracle: K5 picked another neighbour than K2")
+    require(out["max_d2_rel"] <= 1e-6, "oracle: K5 d2 differs from K2's")
+    require(out["normals_valid_same"], "oracle: K6 normal validity differs from K1's")
+    for name in ("nn1_exhaustive", "cov_exhaustive"):
+        require(launches[name]["cuda"] > 0 and launches[name]["plain"] == 0,
+                f"oracle: {name} did not run as a kernel")
     return out
 
 
@@ -268,25 +569,39 @@ def main() -> int:
     from direct_lidar_odometry_tpu_torch.utils.precision import pin_float32
 
     pin_float32()
-    queries, submap, scan0, kf0 = kernel_inputs(cfg, world, scans, dev)
+    queries, submap, s2s_target, scan0, kf0 = kernel_inputs(cfg, world, scans, dev)
     k2 = [check_k2(queries, submap, r) for r in (0.5, 1.0, 1.5)]
+    k4 = [check_k4(queries, submap, r) for r in (0.5, 1.0, 1.5)]
     k1 = [check_k1(scan0, 0.75), check_k1(kf0, 1.5)]
+    k3 = [check_k3(queries, submap, 0.5, "S2M"), check_k3(queries, s2s_target, 1.0, "S2S")]
+    k5 = check_k5(queries, submap)
+    k6 = check_k6(scan0, 0.75)
 
-    main_path = drive(cfg, world, scans)
+    main_path, runner = drive(cfg, world, scans)
+    cli_fused = drive_cli("pallas_fused", world)
+    cli_mxu = drive_cli("pallas_mxu", world)
+    oracle = oracle_check(cfg, runner)
+
+    def entry(name, src, replaces, path, launches, cases):
+        return dict(name=name, route="cuda", source=f"direct_lidar_odometry_tpu_torch/csrc/{src}",
+                    replaces=f"direct_lidar_odometry_tpu/ops/{replaces}", path=path,
+                    launches=launches[name]["cuda"],
+                    max_abs_err=max(c["max_abs_err"] for c in cases),
+                    ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"])
 
     kernels = [
-        dict(name="nn1_pruned", route="cuda",
-             source="direct_lidar_odometry_tpu_torch/csrc/nn1_pruned.cu",
-             replaces="direct_lidar_odometry_tpu/ops/pallas_nn.py:192",
-             launches=main_path["launches"]["nn1_pruned"]["cuda"],
-             max_abs_err=max(c["max_abs_err"] for c in k2),
-             ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"]),
-        dict(name="cov_pruned", route="cuda",
-             source="direct_lidar_odometry_tpu_torch/csrc/cov_pruned.cu",
-             replaces="direct_lidar_odometry_tpu/ops/pallas_cov.py:117",
-             launches=main_path["launches"]["cov_pruned"]["cuda"],
-             max_abs_err=max(c["max_abs_err"] for c in k1),
-             ms=k1[0]["ms"], plain_ms=k1[0]["plain_ms"]),
+        entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192", "runner, pallas",
+              main_path["launches"], k2),
+        entry("cov_pruned", "cov_pruned.cu", "pallas_cov.py:117", "runner, pallas",
+              main_path["launches"], k1),
+        entry("fused_linearize", "fused_linearize.cu", "pallas_gicp.py:68", "cli, pallas_fused",
+              cli_fused["launches"], k3),
+        entry("nn1_pruned_mxu", "nn1_pruned.cu", "pallas_nn.py:200", "cli, pallas_mxu",
+              cli_mxu["launches"], k4),
+        entry("nn1_exhaustive", "nn1_exhaustive.cu", "pallas_nn.py:38",
+              "oracle: query_1nn", oracle["launches"], [k5]),
+        entry("cov_exhaustive", "cov_exhaustive.cu", "pallas_cov.py:40",
+              "oracle: estimate_normals_radius", oracle["launches"], [k6]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,15 @@ has an obvious counterpart:
 
 - ``core``: SE(3) math and masked fixed-capacity point clouds;
 - ``ops``: preprocessing, Morton sort, voxel filter, 3x3 eigen-analysis and
-  the two kernels of the per-frame path (``ops/cuda_nn.py``,
-  ``ops/cuda_cov.py``, sources in ``csrc/``);
+  the wrappers of the six CUDA kernels (``ops/cuda_nn.py``: 1-NN K2, K4,
+  K5; ``ops/cuda_cov.py``: radius moments K1, K6; ``ops/cuda_gicp.py``:
+  the fused GICP linearization K3; sources in ``csrc/``);
 - ``registration``: normals and GICP;
-- ``odometry``: state, keyframes, submap, the per-frame step and the runner.
+- ``odometry``: state, keyframes, submap, the per-frame step, the runner
+  and the keyframe map;
+- ``io``: synthetic worlds, KITTI, trajectory and PLY files, ATE/RPE;
+- ``utils``: precision pin, host-read counter, checkpoint, dashboard;
+- ``cli``: the process entry point (``python -m direct_lidar_odometry_tpu_torch``).
 
 The port imports ``torch`` and never ``jax``.
 """

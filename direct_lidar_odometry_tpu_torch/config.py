@@ -264,9 +264,10 @@ class DloConfig:
     """Root configuration, mirroring reference ``cfg/dlo.yaml`` + ``cfg/params.yaml``."""
 
     version: str = "0.1.0"
-    # Neighbor-search backend. The port runs "auto" and "pallas", both the
-    # AABB-pruned kernel path (see resolve_backend); the JAX package's
-    # other names raise NotImplementedError here.
+    # Neighbor-search backend. The port runs the AABB-pruned kernel paths
+    # "pallas" (alias "pallas_unfused"; "auto" means it), "pallas_mxu" and
+    # "pallas_fused" (see resolve_backend); "hashgrid" and "brute" raise
+    # NotImplementedError here.
     nn_backend: str = "auto"
     # S2S initial guess: "imu" = the reference behavior (IMU rotational
     # prior when enabled, identity otherwise; odom.cc:801-806);
@@ -301,17 +302,17 @@ class DloConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Backends the port runs. "auto" and "pallas" both mean the AABB-pruned
-# kernel path (ops/cuda_nn.py, ops/cuda_cov.py): the CUDA kernels on a CUDA
-# tensor, their plain PyTorch versions on a CPU tensor.
-PORTED_BACKENDS = ("auto", "pallas")
+# Backends the port runs: the AABB-pruned kernel paths. On a CUDA tensor
+# they launch the CUDA kernels, on a CPU tensor the kernels' plain PyTorch
+# versions run.
+PORTED_BACKENDS = ("auto", "pallas", "pallas_unfused", "pallas_mxu", "pallas_fused")
 
 
 def resolve_backend(cfg: "DloConfig") -> str:
-    """Map ``nn_backend`` onto the port's one backend, ``"pallas"``.
+    """The backend name itself, as in the JAX package, with "auto" ->
+    "pallas" (the port's production path on every device).
 
-    The JAX package's other backends ("pallas_fused", "pallas_mxu",
-    "hashgrid", "brute") have no port yet and raise rather than run a
+    "hashgrid" and "brute" have no port yet and raise rather than run a
     silent substitute.
     """
     if cfg.nn_backend not in PORTED_BACKENDS:
@@ -319,7 +320,7 @@ def resolve_backend(cfg: "DloConfig") -> str:
             f"nn_backend={cfg.nn_backend!r} is not yet ported "
             f"(ported: {', '.join(PORTED_BACKENDS)})"
         )
-    return "pallas"
+    return "pallas" if cfg.nn_backend == "auto" else cfg.nn_backend
 
 
 def submap_flat_size(cfg: "DloConfig") -> int:

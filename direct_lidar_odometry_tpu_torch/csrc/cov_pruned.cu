@@ -1,5 +1,5 @@
 // Fixed-radius neighbourhood moments over a Morton-sorted cloud, visiting
-// only candidate chunks. sm_90a.
+// only candidate chunks (kernel K1). sm_90a.
 //
 // Replaces the TPU kernel direct_lidar_odometry_tpu/ops/pallas_cov.py:
 // _cov_pruned_kernel, which feeds the normals of every scan and every
@@ -20,25 +20,16 @@
 // Design: one thread per query holds its 10 sums in registers; the block
 // stages each candidate chunk in shared memory with coalesced loads and
 // all threads read the same shared address in lockstep (broadcast). The
-// radius test uses __fmul_rn/__fadd_rn in the plain version's order, so
-// the neighbour sets agree exactly with it; the sums themselves are taken
-// in another order than the plain version's, which moves them by float
-// rounding only.
+// radius test (chunk_ops.cuh moments_chunk) uses the plain version's
+// rounding, so the neighbour sets agree exactly with it; the sums
+// themselves are taken in another order than the plain version's, which
+// moves them by float rounding only.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "chunk_ops.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kChunk = 512;
-constexpr int kIdxBits = 10;
-constexpr int kMoments = 10;
-
-__device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
+using namespace dlo;
 
 __global__ void __launch_bounds__(kTile) cov_pruned_kernel(
     const float* __restrict__ queries,   // [Q, 3]
@@ -58,49 +49,18 @@ __global__ void __launch_bounds__(kTile) cov_pruned_kernel(
   const float qx = queries[3 * q + 0];
   const float qy = queries[3 * q + 1];
   const float qz = queries[3 * q + 2];
-
-  float n = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-  float sxx = 0.f, sxy = 0.f, sxz = 0.f, syy = 0.f, syz = 0.f, szz = 0.f;
+  Moments acc = {};
 
   const int cnt = counts[tile];
   const int32_t* row = cand + static_cast<size_t>(tile) * n_c;
   for (int k = 0; k < cnt; ++k) {
-    const int j = row[k] & ((1 << kIdxBits) - 1);
-    const int base = j * kChunk;
+    const int base = (row[k] & ((1 << kIdxBits) - 1)) * kChunk;
     __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < kChunk; i += kTile) {
-      const bool ok = tmask[base + i] != 0;
-      // invalid targets at +inf: d2 = +inf fails the radius test
-      s_x[i] = ok ? targets[3 * (base + i) + 0] : INFINITY;
-      s_y[i] = ok ? targets[3 * (base + i) + 1] : INFINITY;
-      s_z[i] = ok ? targets[3 * (base + i) + 2] : INFINITY;
-    }
+    stage_chunk(s_x, s_y, s_z, targets, tmask, base, n_c * kChunk);
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < kChunk; ++i) {
-      const float dx = s_x[i] - qx;
-      const float dy = s_y[i] - qy;
-      const float dz = s_z[i] - qz;
-      if (dist2_rn(dx, dy, dz) <= radius2) {
-        n += 1.f;
-        sx += dx; sy += dy; sz += dz;
-        sxx += dx * dx; sxy += dx * dy; sxz += dx * dz;
-        syy += dy * dy; syz += dy * dz; szz += dz * dz;
-      }
-    }
+    moments_chunk(qx, qy, qz, s_x, s_y, s_z, radius2, acc);
   }
-  const bool valid = qmask[q] != 0;
-  float* o = out + static_cast<size_t>(q) * kMoments;
-  o[0] = valid ? n : 0.f;
-  o[1] = valid ? sx : 0.f;
-  o[2] = valid ? sy : 0.f;
-  o[3] = valid ? sz : 0.f;
-  o[4] = valid ? sxx : 0.f;
-  o[5] = valid ? sxy : 0.f;
-  o[6] = valid ? sxz : 0.f;
-  o[7] = valid ? syy : 0.f;
-  o[8] = valid ? syz : 0.f;
-  o[9] = valid ? szz : 0.f;
+  store_moments(out + static_cast<size_t>(q) * 10, acc, qmask[q] != 0);
 }
 
 }  // namespace

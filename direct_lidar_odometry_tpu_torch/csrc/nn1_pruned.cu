@@ -1,58 +1,55 @@
-// Exact fixed-radius 1-NN over a Morton-sorted target cloud, by
-// branch-and-bound over gap-sorted candidate chunks. sm_90a.
+// Fixed-radius 1-NN over a Morton-sorted target cloud, by branch-and-bound
+// over gap-sorted candidate chunks: kernel K2 (exact distance) and its
+// expansion variant K4. sm_90a.
 //
-// Replaces the TPU kernel direct_lidar_odometry_tpu/ops/pallas_nn.py:
-// _nn1_pruned_kernel (body _pruned_kernel_body with mxu=False), the
-// correspondence search of every GICP iteration.
+// Replaces the TPU kernels direct_lidar_odometry_tpu/ops/pallas_nn.py:
+// _nn1_pruned_kernel (K2, body _pruned_kernel_body with mxu=False), the
+// correspondence search of every GICP iteration on the "pallas" backend,
+// and _nn1_pruned_kernel_mxu (K4, mxu=True), the search of the
+// "pallas_mxu" backend.
 //
 // What it computes: for each query q of a 128-query tile, the index of the
-// nearest valid target t with |q - t|^2 < r^2 (ties go to the lower target
-// index), or -1. The tile's candidate list (ops/cuda_nn.py
-// candidate_chunks) holds the 512-point target chunks whose AABB gap to
-// the tile's AABB is <= r, in ascending gap order, each word packing the
-// floor-quantized squared gap (high 21 bits) with the chunk index (low 10
-// bits). Each query's bound starts at r^2 (0 for invalid queries, so they
-// never hold the tile open). Once a chunk's gap exceeds every query's
-// bound, no later chunk can improve any query and the tile stops: the
-// kd-tree's searchLevel pruning at tile granularity.
+// nearest target t with d2(q, t) < r^2 (ties go to the lower target index),
+// or -1. K2 uses the coordinate-difference distance over valid targets
+// only. K4 uses d2 = max((|q|^2 + |t|^2) - 2 q.t, 0) over targets whose
+// invalid entries the wrapper folded to the finite padding coordinate 1e6
+// (an infinite coordinate would give inf - inf = NaN in the expansion), with
+// |t|^2 precomputed by the wrapper: its winner may differ from K2's among
+// near-ties within the expansion's cancellation error, which the public
+// entry tolerates by recomputing the winner's exact d2. Each query's bound
+// starts at r^2 (0 for invalid queries, so they never hold the tile open).
+// The TPU kernel ran K4's cross term on its matrix unit at HIGHEST
+// precision; here it is three fp32 products on the CUDA cores, never TF32
+// (TF32's error at 30-60 m coordinates is metres^2).
 //
-// What bounds it on the H100: FP32 issue on the distance loop. Each pair
-// costs about 10 instructions (3 subtracts, 3 multiplies, 2 adds, a
+// What bounds it on the H100: FP32 issue on the distance loop, about 10
+// instructions per pair (K4 about the same: 3 products, 4 adds, a max, a
 // compare and a select); memory traffic is one 6 KB chunk read per visited
 // (tile, chunk), served mostly from L2 since every tile of a frame reads
 // the same target cloud. Design: one thread per query keeps its (d2, idx)
 // minimum in registers; the block stages each visited chunk in shared
-// memory with coalesced loads and every thread then reads the same
-// shared address in lockstep (a broadcast, no bank conflicts). The early
-// exit is one __syncthreads_or per chunk, which is also the barrier that
-// protects the shared chunk before the next load. Distances use
-// __fmul_rn/__fadd_rn in the order ((dx*dx + dy*dy) + dz*dz), the order
-// the plain PyTorch version evaluates, so the radius test and the winner
-// agree bit for bit with it (nvcc would otherwise contract into FMAs).
-// The TPU kernel's packed-mantissa min-reduce is dropped: registers hold
-// the index exactly. Known limit of this first version: 128 threads per
+// memory with coalesced loads and every thread then reads the same shared
+// address in lockstep (a broadcast, no bank conflicts). The early exit is
+// one __syncthreads_or per chunk, which is also the barrier that protects
+// the shared chunk before the next load. The TPU kernel's
+// packed-mantissa min-reduce is dropped: registers hold the index exactly,
+// so K2's d2 is exact. Known limit of this first version: 128 threads per
 // block and one block per tile leave most of each SM's thread slots empty
 // at 256 tiles per call.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "chunk_ops.cuh"
 
 namespace {
 
-constexpr int kTile = 128;   // queries per block, one thread each
-constexpr int kChunk = 512;  // targets per Morton chunk (ops/morton.py TARGET_CHUNK)
-constexpr int kIdxBits = 10; // packed candidate word: chunk index bits
+using namespace dlo;
 
-__device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
+template <bool kExpansion>
 __global__ void __launch_bounds__(kTile) nn1_pruned_kernel(
     const float* __restrict__ queries,   // [Q, 3]
     const uint8_t* __restrict__ qmask,   // [Q]
-    const float* __restrict__ targets,   // [T, 3]
-    const uint8_t* __restrict__ tmask,   // [T]
+    const float* __restrict__ targets,   // [T, 3] (K4: invalid folded to 1e6)
+    const uint8_t* __restrict__ tmask,   // [T] (K2 only)
+    const float* __restrict__ t2,        // [T] |t|^2 (K4 only)
     const int32_t* __restrict__ cand,    // [Qc, n_c] packed gap+index words
     const int32_t* __restrict__ counts,  // [Qc]
     int n_c, float radius2, float gap_unit,
@@ -61,15 +58,20 @@ __global__ void __launch_bounds__(kTile) nn1_pruned_kernel(
   __shared__ float s_x[kChunk];
   __shared__ float s_y[kChunk];
   __shared__ float s_z[kChunk];
+  __shared__ float s_t2[kExpansion ? kChunk : 1];
 
   const int tile = blockIdx.x;
   const int q = tile * kTile + threadIdx.x;
   const float qx = queries[3 * q + 0];
   const float qy = queries[3 * q + 1];
   const float qz = queries[3 * q + 2];
+  const float q2 = kExpansion ? dist2_rn(qx, qy, qz) : 0.0f;
   float best = qmask[q] ? radius2 : 0.0f;
   int best_idx = -1;
 
+  // The walk, the staging and the inner loop are spelled out in the kernel
+  // body: built from helper functions instead, K2 ran 25-45 % slower on the
+  // H100 at the slice shapes with the same instruction count per pair.
   const int cnt = counts[tile];
   const int32_t* row = cand + static_cast<size_t>(tile) * n_c;
   for (int k = 0; k < cnt; ++k) {
@@ -77,19 +79,32 @@ __global__ void __launch_bounds__(kTile) nn1_pruned_kernel(
     const float gap = static_cast<float>(word >> kIdxBits) * gap_unit;
     // block-uniform exit: stop once the gap exceeds every query's bound
     if (!__syncthreads_or(gap <= best)) break;
-    const int j = word & ((1 << kIdxBits) - 1);
-    const int base = j * kChunk;
+    const int base = (word & ((1 << kIdxBits) - 1)) * kChunk;
     for (int i = threadIdx.x; i < kChunk; i += kTile) {
-      const bool ok = tmask[base + i] != 0;
-      // invalid targets at +inf: their d2 is +inf and never wins
-      s_x[i] = ok ? targets[3 * (base + i) + 0] : INFINITY;
-      s_y[i] = ok ? targets[3 * (base + i) + 1] : INFINITY;
-      s_z[i] = ok ? targets[3 * (base + i) + 2] : INFINITY;
+      if (kExpansion) {
+        s_x[i] = targets[3 * (base + i) + 0];
+        s_y[i] = targets[3 * (base + i) + 1];
+        s_z[i] = targets[3 * (base + i) + 2];
+        s_t2[i] = t2[base + i];
+      } else {
+        // invalid targets at +inf: their d2 is +inf and never wins
+        const bool ok = tmask[base + i] != 0;
+        s_x[i] = ok ? targets[3 * (base + i) + 0] : INFINITY;
+        s_y[i] = ok ? targets[3 * (base + i) + 1] : INFINITY;
+        s_z[i] = ok ? targets[3 * (base + i) + 2] : INFINITY;
+      }
     }
     __syncthreads();
 #pragma unroll 8
     for (int i = 0; i < kChunk; ++i) {
-      const float d2 = dist2_rn(qx - s_x[i], qy - s_y[i], qz - s_z[i]);
+      float d2;
+      if (kExpansion) {
+        const float g = __fadd_rn(__fadd_rn(__fmul_rn(qx, s_x[i]), __fmul_rn(qy, s_y[i])),
+                                  __fmul_rn(qz, s_z[i]));
+        d2 = fmaxf(__fsub_rn(__fadd_rn(q2, s_t2[i]), __fmul_rn(2.0f, g)), 0.0f);
+      } else {
+        d2 = dist2_rn(qx - s_x[i], qy - s_y[i], qz - s_z[i]);
+      }
       const int gi = base + i;
       if (d2 < best || (d2 == best && best_idx >= 0 && gi < best_idx)) {
         best = d2;
@@ -101,19 +116,35 @@ __global__ void __launch_bounds__(kTile) nn1_pruned_kernel(
   out_d2[q] = best_idx >= 0 ? best : INFINITY;
 }
 
+template <bool kExpansion>
+int launch(const void* queries, const void* qmask, const void* targets, const void* tmask,
+           const void* t2, const void* cand, const void* counts, int n_tiles, int n_c,
+           float radius2, float gap_unit, void* out_idx, void* out_d2, void* stream) {
+  if (n_tiles > 0) {
+    nn1_pruned_kernel<kExpansion><<<n_tiles, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
+        static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
+        static_cast<const float*>(t2), static_cast<const int32_t*>(cand),
+        static_cast<const int32_t*>(counts), n_c, radius2, gap_unit,
+        static_cast<int32_t*>(out_idx), static_cast<float*>(out_d2));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int dlo_nn1_pruned(
     const void* queries, const void* qmask, const void* targets, const void* tmask,
     const void* cand, const void* counts, int n_tiles, int n_c,
     float radius2, float gap_unit, void* out_idx, void* out_d2, void* stream) {
-  if (n_tiles > 0) {
-    nn1_pruned_kernel<<<n_tiles, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
-        static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
-        static_cast<const int32_t*>(cand), static_cast<const int32_t*>(counts),
-        n_c, radius2, gap_unit,
-        static_cast<int32_t*>(out_idx), static_cast<float*>(out_d2));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(queries, qmask, targets, tmask, nullptr, cand, counts, n_tiles, n_c,
+                       radius2, gap_unit, out_idx, out_d2, stream);
+}
+
+extern "C" int dlo_nn1_pruned_mxu(
+    const void* queries, const void* qmask, const void* targets, const void* t2,
+    const void* cand, const void* counts, int n_tiles, int n_c,
+    float radius2, float gap_unit, void* out_idx, void* out_d2, void* stream) {
+  return launch<true>(queries, qmask, targets, nullptr, t2, cand, counts, n_tiles, n_c,
+                      radius2, gap_unit, out_idx, out_d2, stream);
 }

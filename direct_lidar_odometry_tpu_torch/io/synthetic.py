@@ -1,11 +1,14 @@
-"""Ray-cast LiDAR world and scan generator (host-side, numpy).
+"""Synthetic LiDAR worlds and scan generators (host-side, numpy).
 
-The parts of the JAX package's ``io/synthetic.py`` that drive the port on
-the card (``chip_smoke.py``): the urban-corridor :class:`BoxWorld`, the
-OS1-64 :class:`BeamModel` and the exact ray-cast renderer. They are copied,
-not imported, because importing any module of the JAX package runs that
-package's ``__init__``; ``tests/test_torch_io.py`` checks that both copies
-render identical scans from the same seed.
+The parts of the JAX package's ``io/synthetic.py`` that drive the port: the
+urban-corridor :class:`BoxWorld`, the OS1-64 :class:`BeamModel` and the
+exact ray-cast renderer (``chip_smoke.py``, the CLI's ``--synthetic``), and
+the point-soup :class:`SyntheticWorld` with its closed-loop world,
+:func:`render_scan` and :func:`dump_kitti` (the CLI's ``--kitti`` path,
+tested on a dumped sequence). They are copied, not imported, because
+importing any module of the JAX package runs that package's ``__init__``;
+``tests/test_torch_io.py`` and ``tests/test_torch_cli.py`` check that both
+copies produce identical worlds and scans from the same seed.
 """
 
 from __future__ import annotations
@@ -13,6 +16,21 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
+
+@dataclass
+class SyntheticWorld:
+    surface_points: np.ndarray  # [M, 3] dense point soup on surfaces (world frame)
+    poses: np.ndarray           # [T, 4, 4] ground-truth sensor poses
+    stamps: np.ndarray          # [T] seconds
+    # optional dynamic objects: points at t=0 plus a constant world-frame
+    # velocity per point (moving boxes). They occlude and are occluded like
+    # static surfaces but violate the static-world assumption every
+    # odometry pipeline makes — the realism stressor real sequences carry.
+    dynamic_points: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 3), np.float32))
+    dynamic_vel: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 3), np.float32))
 
 
 @dataclass
@@ -79,6 +97,127 @@ class BeamModel:
     occl_pool: int = 1
     occl_slack_abs: float = 0.35
     occl_slack_rel: float = 0.02
+
+
+def _box_surface(rng, center, size, density):
+    """Sample points on the faces of an axis-aligned box."""
+    cx, cy, cz = center
+    sx, sy, sz = size
+    areas = np.array([sy * sz, sy * sz, sx * sz, sx * sz, sx * sy, sx * sy])
+    counts = np.maximum((areas * density).astype(int), 1)
+    pts = []
+    for face, n in enumerate(counts):
+        u = rng.uniform(-0.5, 0.5, size=(n, 2))
+        if face < 2:  # +x / -x
+            x = np.full(n, 0.5 if face == 0 else -0.5)
+            p = np.stack([x, u[:, 0], u[:, 1]], axis=1)
+        elif face < 4:
+            y = np.full(n, 0.5 if face == 2 else -0.5)
+            p = np.stack([u[:, 0], y, u[:, 1]], axis=1)
+        else:
+            z = np.full(n, 0.5 if face == 4 else -0.5)
+            p = np.stack([u[:, 0], u[:, 1], z], axis=1)
+        pts.append(p * np.array(size) + np.array(center))
+    return np.concatenate(pts, axis=0)
+
+
+def make_loop_world(
+    rng: np.random.Generator,
+    n_frames: int = 500,
+    speed: float = 0.4,
+    dt: float = 0.1,
+    z_amplitude: float = 1.0,
+    n_loops: float = 1.0,
+    density: float = 6.0,
+    ground_density: float = 9.0,
+) -> SyntheticWorld:
+    """Closed-loop trajectory with elevation — the hard validation world.
+
+    The sensor travels a circle of circumference ``speed * n_frames /
+    n_loops`` (heading tangent to it, like a vehicle) while bobbing
+    ``z_amplitude`` metres sinusoidally — exercising loop closure, z
+    drift, and pitch-free elevation change over arbitrarily long
+    sequences. The world (ground plane + boxes) is sized to the loop so
+    500+ frame runs never exit the populated region. Surface sampling is
+    ~0.3 m so scan matching stays in the ICP basin.
+    """
+    radius = speed * n_frames / n_loops / (2 * np.pi)
+    extent = radius + 16.0  # loop + scan range margin
+    ground_points = int(ground_density * (2 * extent) ** 2)  # pts per m^2
+    # boxes scattered in an annulus around the loop path so every frame
+    # sees vertical structure (pure ground is yaw-unobservable)
+    n_boxes = max(8, int(radius * 1.5))
+    surf = [
+        np.stack(
+            [
+                rng.uniform(-extent, extent, size=ground_points),
+                rng.uniform(-extent, extent, size=ground_points),
+                np.zeros(ground_points),
+            ],
+            axis=1,
+        )
+    ]
+    for k in range(n_boxes):
+        a = 2 * np.pi * k / n_boxes + rng.uniform(-0.2, 0.2)
+        rr = radius + rng.uniform(-8.0, 8.0)
+        center = [rr * np.cos(a), rr * np.sin(a), rng.uniform(1.0, 4.0)]
+        size = rng.uniform(1.0, 8.0, size=3)
+        surf.append(_box_surface(rng, center, size, density))
+    surface_points = np.concatenate(surf, axis=0).astype(np.float32)
+
+    poses = np.zeros((n_frames, 4, 4))
+    stamps = np.arange(n_frames) * dt
+    for t in range(n_frames):
+        a = 2 * np.pi * n_loops * t / n_frames
+        c, s = np.cos(a + np.pi / 2), np.sin(a + np.pi / 2)  # tangent heading
+        poses[t] = np.eye(4)
+        poses[t, :3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        poses[t, :3, 3] = [
+            radius * np.cos(a),
+            radius * np.sin(a),
+            1.5 + z_amplitude * np.sin(2 * a),
+        ]
+    return SyntheticWorld(
+        surface_points=surface_points, poses=poses, stamps=stamps
+    )
+
+
+def dump_kitti(
+    world: SyntheticWorld,
+    root: str,
+    sequence: str = "00",
+    rng: np.random.Generator | None = None,
+    max_range: float = 13.0,
+    max_points: int = 8192,
+) -> str:
+    """Write a synthetic world as a KITTI odometry sequence directory.
+
+    Produces ``root/sequences/<seq>/velodyne/NNNNNN.bin`` (float32 xyzi
+    rows — intensity synthesized as 1/range, a crude lambertian),
+    ``times.txt``, and ``root/poses/<seq>.txt``, the exact layout
+    :func:`io.kitti.load_sequence` reads — so the full CLI ``--kitti``
+    path is testable without the real dataset. Returns ``root``.
+    """
+    import os
+
+    rng = rng or np.random.default_rng(0)
+    vdir = os.path.join(root, "sequences", sequence, "velodyne")
+    os.makedirs(vdir, exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    n = len(world.poses)
+    for t in range(n):
+        xyz = render_scan(world, t, rng, max_range=max_range,
+                          max_points=max_points)
+        r = np.maximum(np.linalg.norm(xyz, axis=1), 1.0)
+        xyzi = np.concatenate([xyz, (1.0 / r)[:, None]], axis=1)
+        xyzi.astype(np.float32).tofile(
+            os.path.join(vdir, f"{t:06d}.bin")
+        )
+    np.savetxt(os.path.join(root, "sequences", sequence, "times.txt"),
+               world.stamps, fmt="%.6f")
+    np.savetxt(os.path.join(root, "poses", f"{sequence}.txt"),
+               world.poses[:, :3, :4].reshape(n, 12), fmt="%.9f")
+    return root
 
 
 def _beam_dirs(beams: BeamModel, rng: np.random.Generator) -> np.ndarray:
@@ -343,3 +482,143 @@ def make_urban_world(
         world.dynamic_boxes = np.asarray(dyn, np.float32)
         world.dynamic_vel = np.asarray(vel, np.float32)
     return world
+
+
+_CELL = 32.0  # metres; xy-cell size of the lazy render prefilter grid
+
+
+def _candidates_near(
+    world: SyntheticWorld, center: np.ndarray, max_range: float
+) -> np.ndarray:
+    """Static surface points within max_range of center, by xy-cell grid.
+
+    World sizes scale with sequence length (bench worlds reach millions of
+    points) while each scan only sees a ~max_range disc, so the renderer
+    prefilters through a lazily built cell index cached on the world
+    (rebuilt if surface_points is replaced).
+    """
+    pts = world.surface_points
+    cache = getattr(world, "_cell_cache", None)
+    if cache is None or cache[0] is not pts:
+        ids = np.floor(pts[:, :2] / _CELL).astype(np.int64)
+        order = np.lexsort((ids[:, 1], ids[:, 0]))
+        sids = ids[order]
+        change = np.ones(len(sids), bool)
+        change[1:] = np.any(sids[1:] != sids[:-1], axis=1)
+        starts = np.flatnonzero(change)
+        keys = [tuple(k) for k in sids[starts]]
+        ends = np.append(starts[1:], len(sids))
+        table = {k: (s, e) for k, s, e in zip(keys, starts, ends)}
+        cache = (pts, order, table)
+        object.__setattr__(world, "_cell_cache", cache)
+    _, order, table = cache
+    lo = np.floor((center[:2] - max_range) / _CELL).astype(np.int64)
+    hi = np.floor((center[:2] + max_range) / _CELL).astype(np.int64)
+    slices = []
+    for ix in range(lo[0], hi[0] + 1):
+        for iy in range(lo[1], hi[1] + 1):
+            se = table.get((ix, iy))
+            if se is not None:
+                slices.append(order[se[0]:se[1]])
+    if not slices:
+        return pts[:0]
+    return pts[np.concatenate(slices)]
+
+
+def render_scan(
+    world: SyntheticWorld,
+    frame: int,
+    rng: np.random.Generator,
+    max_range: float = 40.0,
+    min_range: float = 0.5,
+    max_points: int = 8192,
+    noise: float = 0.01,
+    beams: BeamModel | None = None,
+) -> np.ndarray:
+    """Points visible from pose[frame], in the sensor frame. [<=max_points, 3].
+
+    ``beams=None`` is the legacy point-soup renderer (range gating only —
+    every surface point within range is returned, through walls). Passing
+    a :class:`BeamModel` renders an occluded spinning-scanner sweep: the
+    nearest return per (beam, azimuth) bin after a min-pooled z-buffer
+    occlusion test, with radial range noise. Dynamic objects (if the
+    world has any) are advanced to ``stamps[frame]`` and rendered too.
+    A :class:`BoxWorld` dispatches to the exact ray-cast renderer.
+    """
+    if isinstance(world, BoxWorld):
+        return render_raycast(
+            world, frame, rng, max_range=max_range, min_range=min_range,
+            max_points=max_points, noise=noise, beams=beams)
+    T = world.poses[frame]
+    pts_all = _candidates_near(world, T[:3, 3], max_range)
+    if len(world.dynamic_points):
+        t = float(world.stamps[frame])
+        dyn = world.dynamic_points + world.dynamic_vel * t
+        pts_all = np.concatenate([pts_all, dyn.astype(np.float32)], axis=0)
+    # f32 throughout: a float64 T would promote every elementwise op on the
+    # candidate set (hundreds of k points per frame) to double width
+    rel = pts_all - T[:3, 3].astype(np.float32)
+    r = np.sqrt(np.einsum("ij,ij->i", rel, rel))
+    vis = (r < max_range) & (r > min_range)
+    if beams is None:
+        pts_w = pts_all[vis]
+        if len(pts_w) > max_points:
+            sel = rng.choice(len(pts_w), size=max_points, replace=False)
+            pts_w = pts_w[sel]
+        # world -> sensor
+        pts_s = (pts_w - T[:3, 3]) @ T[:3, :3]
+        pts_s = pts_s + rng.normal(scale=noise, size=pts_s.shape)
+        return pts_s.astype(np.float32)
+
+    # --- occluded spinning-scanner sweep -------------------------------
+    # sensor-frame directions (beam pattern is a property of the sensor)
+    rel_s = rel[vis] @ T[:3, :3].astype(np.float32)
+    r = r[vis]
+    el = np.arcsin(np.clip(rel_s[:, 2] / r, -1.0, 1.0))
+    lo, hi = np.deg2rad(beams.fov_down_deg), np.deg2rad(beams.fov_up_deg)
+    in_fov = (el >= lo) & (el < hi)
+    rel_s, r, el = rel_s[in_fov], r[in_fov], el[in_fov]
+    az = np.arctan2(rel_s[:, 1], rel_s[:, 0])  # [-pi, pi)
+    ia = np.minimum(
+        ((az + np.pi) * (beams.n_azimuth / (2 * np.pi))).astype(np.int64),
+        beams.n_azimuth - 1,
+    )
+    ie = np.minimum(
+        ((el - lo) * (beams.n_beams / (hi - lo))).astype(np.int64),
+        beams.n_beams - 1,
+    )
+    bins = ie * beams.n_azimuth + ia
+    # one sort serves the z-buffer, the occlusion test, and the return
+    # selection: within each bin group points come nearest-first
+    order = np.lexsort((r, bins))
+    b_s, r_s = bins[order], r[order].astype(np.float32)
+    first = np.ones(len(b_s), bool)
+    first[1:] = b_s[1:] != b_s[:-1]
+    zbuf = np.full(beams.n_beams * beams.n_azimuth, np.inf, np.float32)
+    zbuf[b_s[first]] = r_s[first]  # nearest range per bin
+    # min-pool the z-buffer over azimuth neighbors only (azimuth wraps;
+    # elevation pooling would self-cull grazing surfaces — see BeamModel)
+    zg = zbuf.reshape(beams.n_beams, beams.n_azimuth)
+    if beams.occl_pool > 0:
+        pooled = zg.copy()
+        for da in range(1, beams.occl_pool + 1):
+            np.minimum(pooled, np.roll(zg, da, axis=1), out=pooled)
+            np.minimum(pooled, np.roll(zg, -da, axis=1), out=pooled)
+        occ_min = pooled.reshape(-1)
+    else:
+        occ_min = zbuf
+    keep = r_s <= occ_min[b_s] + beams.occl_slack_abs + beams.occl_slack_rel * r_s
+    # one return per bin: the nearest surviving point of each bin group
+    idx = np.flatnonzero(keep)
+    bk = b_s[idx]
+    fk = np.ones(len(bk), bool)
+    fk[1:] = bk[1:] != bk[:-1]
+    sel = order[idx[fk]]
+    pts_s = rel_s[sel]
+    r = r[sel]
+    if len(pts_s) > max_points:
+        sub = rng.choice(len(pts_s), size=max_points, replace=False)
+        pts_s, r = pts_s[sub], r[sub]
+    # radial range noise (real LiDAR noise is along the beam)
+    pts_s = pts_s * (1.0 + rng.normal(scale=noise, size=len(pts_s)) / r)[:, None]
+    return pts_s.astype(np.float32)

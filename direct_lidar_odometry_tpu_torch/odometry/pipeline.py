@@ -13,6 +13,11 @@ eagerly, so the JAX package's ``lax.cond`` branches become Python ``if`` on
 host reads (``utils/sync.py``): the rescue trigger, the submap change and
 the keyframe spawn, one read each per frame, besides GICP's loop exits.
 
+Every stage runs on a pruned-kernel backend (``config.resolve_backend``
+admits no other), so the JAX package's ``is_pallas`` branches of
+preprocessing, normals, keyframes and the submap always take their pallas
+side here; the backend picks the GICP search (K2, K4 or the fused K3).
+
 Normals are computed ONCE per scan and reused as the S2M source normals
 and, via the carried previous scan, as the next frame's S2S target normals
 (reference ``odom.cc:815, 818``).
@@ -24,7 +29,7 @@ import dataclasses
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.config import DloConfig
+from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend
 from direct_lidar_odometry_tpu_torch.core import se3
 from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud
 from direct_lidar_odometry_tpu_torch.ops import morton, preprocess as prep, voxel
@@ -104,6 +109,9 @@ def odom_frame(
     ``state`` is consumed: its keyframe ring and submap cache are written in
     place, so only the returned state may be used afterwards.
     """
+    backend = resolve_backend(cfg)
+    if not gicp.is_pallas(backend):
+        raise NotImplementedError(f"backend {backend!r} is not a pruned-kernel backend")
     # --- preprocessing + metrics (odom.cc:650-659) ---
     scan = preprocess_scan(raw_points, raw_mask, cfg)
     spac = adaptive.update_spaciousness(
@@ -149,7 +157,7 @@ def odom_frame(
             cfg.gicp.s2s,
             max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations),
         )
-        coarse_res = gicp.align(coarse_src, coarse_target, guess, coarse_cfg)
+        coarse_res = gicp.align(coarse_src, coarse_target, guess, coarse_cfg, backend)
         guess = coarse_res.transform
     if coarse_res is not None and not cfg.gicp.s2s_full_polish:
         s2s_res = coarse_res
@@ -157,7 +165,7 @@ def odom_frame(
         s2s_target = gicp.make_target(
             state.prev_points, state.prev_mask, state.prev_normals, state.prev_normals_valid,
         )
-        s2s_res = gicp.align(src, s2s_target, guess, cfg.gicp.s2s)
+        s2s_res = gicp.align(src, s2s_target, guess, cfg.gicp.s2s, backend)
 
     # --- propagate S2S into the global frame (odom.cc:812, 926-943) ---
     t_s2s_global = state.t_s2s @ s2s_res.transform
@@ -175,7 +183,7 @@ def odom_frame(
         state.submap_points, state.submap_mask, state.submap_normals,
         state.submap_normals_valid,
     )
-    s2m_res = gicp.align(src, s2m_target, t_s2s_global, cfg.gicp.s2m)
+    s2m_res = gicp.align(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend)
 
     if cfg.gicp.s2m_rescue:
         # Staged-gate rescue (GicpConfig.s2m_rescue): when either stage's
@@ -198,8 +206,8 @@ def odom_frame(
             wide_cfg = dataclasses.replace(
                 cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance,
             )
-            r1 = gicp.align(src, s2m_target, t_s2s_global, wide_cfg)
-            s2m_res = gicp.align(src, s2m_target, r1.transform, cfg.gicp.s2m)
+            r1 = gicp.align(src, s2m_target, t_s2s_global, wide_cfg, backend)
+            s2m_res = gicp.align(src, s2m_target, r1.transform, cfg.gicp.s2m, backend)
 
     # guard: no submap correspondences (tracking lost) -> keep the
     # S2S-propagated pose rather than garbage

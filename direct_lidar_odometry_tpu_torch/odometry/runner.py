@@ -3,9 +3,12 @@
 Counterpart of the JAX package's ``odometry/runner.py`` (the reference's
 process shell, ``odom_node.cc``, ``odom.cc:586-697``): a Python loop that
 encodes each scan, feeds it to the per-frame step on ``device`` and
-collects the trajectory. Exact QHull hull masks are computed on the host
-one frame behind, from a non-blocking copy of the keyframe positions whose
-readiness is checked with a CUDA event (never waited on).
+collects the trajectory, plus the per-frame health classification and the
+keyframe map the CLI exports. Exact QHull hull masks are computed on the
+host one frame behind, from a non-blocking copy of the keyframe positions
+whose readiness is checked with a CUDA event (never waited on). A resumed
+run sets ``state`` (``utils/checkpoint.py``) and ``prev_stamp`` before its
+first frame.
 
 Not ported yet (the constructor raises ``NotImplementedError`` for the
 options that need them): chunked dispatch, IMU feed and gravity alignment,
@@ -22,7 +25,7 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend
 from direct_lidar_odometry_tpu_torch.core import cloud as cl, se3
-from direct_lidar_odometry_tpu_torch.odometry import hosthull, hulls, pipeline
+from direct_lidar_odometry_tpu_torch.odometry import hosthull, hulls, mapper, pipeline
 from direct_lidar_odometry_tpu_torch.odometry.state import FrameResult, OdomState
 from direct_lidar_odometry_tpu_torch.utils.precision import pin_float32
 
@@ -81,6 +84,7 @@ class OdometryRunner:
             torch.empty((), dtype=torch.float32, pin_memory=pin),
         )
         self.state: OdomState | None = None
+        self.prev_stamp: float | None = None
         self.poses: list[torch.Tensor] = []
         self.stamps: list[float] = []
         self.stats: list[FrameStats] = []
@@ -117,6 +121,7 @@ class OdometryRunner:
             self._enqueue_hull_fetch(
                 torch.tensor(cfg.keyframe.thresh_dist, dtype=torch.float32, device=self.device)
             )
+            self.prev_stamp = stamp
             self.poses.append(self.state.pose.clone())
             self.stamps.append(stamp)
             self._finish(sync)
@@ -129,6 +134,7 @@ class OdometryRunner:
             self._identity, self._hull_args(),
         )
         self._enqueue_hull_fetch(result.keyframe_thresh_dist)
+        self.prev_stamp = stamp
         self.poses.append(result.pose)
         self.stamps.append(stamp)
         self._finish(sync)
@@ -201,11 +207,39 @@ class OdometryRunner:
             )
         return self._hull_dev
 
+    # -- health -----------------------------------------------------------
+    def health_check(self, result: FrameResult, min_corr_frac: float = 0.05) -> str:
+        """Classify a frame from its health metrics (SURVEY §5 gap: the
+        reference only prints "lm not converged!!" and carries on,
+        lsq_registration_impl.hpp:105-108). Reads the frame on the host.
+
+        "diverged": non-finite pose or zero S2M correspondences (the step
+        already fell back to the S2S-propagated pose; restart from a
+        checkpoint to recover); "degraded": S2S did not converge or either
+        stage matched fewer than ``min_corr_frac`` of the scan capacity;
+        "ok" otherwise.
+        """
+        pose = result.pose.cpu().numpy()
+        s2s_nc, s2m_nc = int(result.s2s_num_corr), int(result.s2m_num_corr)
+        if not np.all(np.isfinite(pose)) or s2m_nc == 0:
+            return "diverged"
+        n_cap = self.cfg.shapes.n_scan
+        weak = s2s_nc < min_corr_frac * n_cap or s2m_nc < min_corr_frac * n_cap
+        if not result.s2s_converged or weak:
+            return "degraded"
+        return "ok"
+
     # -- outputs ----------------------------------------------------------
     def trajectory(self) -> np.ndarray:
         if not self.poses:
             return np.zeros((0, 4, 4))
         return torch.stack(self.poses).cpu().numpy()
+
+    def build_map(self, out_capacity: int | None = None) -> np.ndarray:
+        """The keyframe map, voxel-downsampled at ``map.leaf_size``: [M, 3]."""
+        assert self.state is not None
+        m = mapper.build_map(self.state.keyframes, self.cfg.map.leaf_size, out_capacity)
+        return m.points[m.mask].cpu().numpy()
 
     def num_keyframes(self) -> int:
         return int(self.state.keyframes.count) if self.state is not None else 0

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every ``.cu`` file under ``csrc/`` into one
-shared library with a plain C interface, for ``sm_90a`` (Hopper), inside
-``_build/`` next to this package (listed in ``.gitignore``). The library
+At first use, ``nvcc`` compiles every ``.cu`` file under ``csrc/`` (with
+the shared device functions of ``csrc/*.cuh``) into one shared library
+with a plain C interface, for ``sm_90a`` (Hopper), inside ``_build/``
+next to this package (listed in ``.gitignore``). The library
 file is named by a hash of the sources and the flags, so an edit rebuilds
 and an unchanged tree reuses the last build; a file lock keeps concurrent
 processes from building the same library twice. The library is bound with
@@ -28,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,7 +38,12 @@ _F = ctypes.c_float
 # C entry points and their argument types (see the extern "C" blocks)
 _SIGNATURES = {
     "dlo_nn1_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P),
+    "dlo_nn1_pruned_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P),
+    "dlo_nn1_exhaustive": (_P, _P, _P, _I, _I, _P, _P, _P),
     "dlo_cov_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    "dlo_cov_exhaustive": (_P, _P, _P, _I, _I, _F, _P, _P),
+    "dlo_fused_linearize": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                            _P, _P, _P, _P),
 }
 
 
@@ -58,7 +64,7 @@ def sources() -> list[Path]:
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -79,14 +85,27 @@ def build() -> tuple[Path, float]:
         if lib.exists():
             return lib, 0.0
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+        nvcc = find_nvcc()
         t0 = time.perf_counter()
+        # one nvcc per source, all started together, then one link
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)) for cmd in cmds]
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
             )
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, lib)
         return lib, seconds
 

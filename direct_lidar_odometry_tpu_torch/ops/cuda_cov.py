@@ -1,8 +1,10 @@
-"""Fixed-radius neighbourhood moments over a Morton-sorted cloud (kernel K1).
+"""Fixed-radius neighbourhood moments: kernel K1 over a Morton-sorted
+cloud, and the exhaustive kernel K6.
 
-Counterpart of the JAX package's ``ops/pallas_cov.py`` pruned path
-(``_pruned_moments_one``, ``radius_moments_sorted``, ``moments_to_cov``):
-the per-point covariances behind every scan's and every keyframe's normals.
+Counterpart of the JAX package's ``ops/pallas_cov.py``: the pruned path
+(``_pruned_moments_one``, ``radius_moments_sorted``, ``moments_to_cov``),
+the per-point covariances behind every scan's and every keyframe's normals,
+and the exhaustive ``radius_moments``.
 
 - :func:`cov_pruned` is the kernel's wrapper. On a CUDA tensor it launches
   ``csrc/cov_pruned.cu`` over the candidate chunk lists of
@@ -10,12 +12,17 @@ the per-point covariances behind every scan's and every keyframe's normals.
   :func:`cov_plain`, the exhaustive plain PyTorch version.
 - :func:`radius_moments_sorted` is the public entry with the JAX package's
   signature.
+- :func:`cov_exhaustive` is kernel K6's wrapper (``csrc/cov_exhaustive.cu``,
+  every query against every target, no query mask); its plain version is
+  :func:`cov_plain` with every query valid. :func:`radius_moments` is the
+  public entry.
 
 Output rows are the 10 query-relative moments (n, sx, sy, sz, sxx, sxy,
 sxz, syy, syz, szz) of d = t - q over valid targets with |d|^2 <= r^2.
 Rows of invalid queries are zero in both routes.
 
-``launches`` counts the wrapper's calls per route (``"cuda"``/``"plain"``).
+``launches`` (K1) and ``exhaustive_launches`` (K6) count each wrapper's
+calls per route (``"cuda"``/``"plain"``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
 from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
     TILE,
+    check_exhaustive_inputs,
     check_kernel_inputs,
     plain_query_step,
     candidate_chunks,
@@ -34,11 +42,13 @@ from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
 N_MOMENTS = 10
 
 launches = {"cuda": 0, "plain": 0}
+exhaustive_launches = {"cuda": 0, "plain": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counter in (launches, exhaustive_launches):
+        for k in counter:
+            counter[k] = 0
 
 
 def cov_plain(
@@ -127,6 +137,42 @@ def radius_moments_sorted(
     qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
     cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
     return cov_pruned(points, mask, queries, query_mask, cand, counts, radius)
+
+
+def cov_exhaustive(
+    points: torch.Tensor, mask: torch.Tensor, queries: torch.Tensor, radius: float,
+) -> torch.Tensor:
+    """Wrapper of kernel K6: [Q, 10] moments of every query (no query mask)
+    over the valid points within ``radius`` (inclusive), as :func:`cov_plain`
+    with every query valid. queries [Q,3] f32 with Q % 128 == 0; points of
+    any count (the kernel pads the last chunk)."""
+    check_exhaustive_inputs(queries, points, mask)
+    q_total = queries.shape[0]
+    if queries.device.type == "cpu":
+        exhaustive_launches["plain"] += 1
+        every = torch.ones((q_total,), dtype=torch.bool, device=queries.device)
+        return cov_plain(points, mask, queries, every, radius)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    out = torch.empty((q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        err = cuda_build.library().dlo_cov_exhaustive(
+            queries.data_ptr(), points.data_ptr(), mask.data_ptr(), q_total // TILE,
+            points.shape[0], f32_radius2(radius), out.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
+        )
+    cuda_build.check(err, "cov_exhaustive")
+    exhaustive_launches["cuda"] += 1
+    return out
+
+
+def radius_moments(
+    points: torch.Tensor, mask: torch.Tensor, queries: torch.Tensor, radius: float,
+) -> torch.Tensor:
+    """[T,3], [T], [Q,3] -> [Q,10] raw relative moments within ``radius``
+    over the valid points, for every query (the JAX package's exhaustive
+    ``radius_moments``)."""
+    return cov_exhaustive(points, mask, queries, radius)
 
 
 def moments_to_cov(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,10 @@
-"""Exact fixed-radius 1-NN over a Morton-sorted target cloud (kernel K2).
+"""Fixed-radius 1-NN: kernels K2 and K4 over a Morton-sorted target cloud,
+and the exhaustive kernel K5.
 
-Counterpart of the JAX package's ``ops/pallas_nn.py`` pruned path
-(``candidate_chunks``, ``_pruned_1nn_one``, ``query_1nn_sorted``): the
-correspondence search of every GICP iteration.
+Counterpart of the JAX package's ``ops/pallas_nn.py``: the pruned path
+(``candidate_chunks``, ``_pruned_1nn_one``, ``query_1nn_sorted``), the
+correspondence search of every GICP iteration, and the exhaustive
+``query_1nn``.
 
 - :func:`candidate_chunks` builds, per 128-query tile, the list of
   512-point target chunks whose AABB gap to the tile is <= r, sorted by
@@ -11,11 +13,20 @@ correspondence search of every GICP iteration.
   ``csrc/nn1_pruned.cu`` (branch-and-bound over the candidate lists); on a
   CPU tensor it runs :func:`nn1_plain`, the exhaustive plain PyTorch
   version of the same function. Nothing falls back from one to the other.
+- :func:`nn1_pruned_mxu` is kernel K4's wrapper (``csrc/nn1_pruned.cu``
+  with the distance expansion ``max((|q|^2 + |t|^2) - 2 q.t, 0)``); its
+  plain version is :func:`nn1_mxu_plain`.
 - :func:`query_1nn_sorted` is the public entry with the JAX package's
-  contract: it recomputes the winner's exact d2 after the search.
+  contract: it recomputes the winner's exact d2 after the search
+  (``mxu=True`` selects K4).
+- :func:`nn1_exhaustive` is kernel K5's wrapper (``csrc/nn1_exhaustive.cu``,
+  the raw minimum over every target), plain version
+  :func:`nn1_exhaustive_plain`; :func:`query_1nn` is the public entry.
 
-``launches`` counts the wrapper's calls per route: ``"cuda"`` where it
-launched the kernel, ``"plain"`` where it ran the plain version.
+Each kernel has its own launch counter, counted per route: ``"cuda"``
+where the wrapper launched the kernel, ``"plain"`` where it ran the plain
+version: ``launches`` (K2), ``mxu_launches`` (K4), ``exhaustive_launches``
+(K5).
 """
 
 from __future__ import annotations
@@ -37,11 +48,18 @@ _GAP_SCALE = (1 << 21) - 1
 _NOT_CANDIDATE = 0x7FFFFFFF
 
 launches = {"cuda": 0, "plain": 0}
+mxu_launches = {"cuda": 0, "plain": 0}
+exhaustive_launches = {"cuda": 0, "plain": 0}
+
+# invalid targets of the expansion kernel are folded to this finite
+# coordinate (an infinite one gives inf - inf = NaN in the expansion)
+_EXPANSION_PAD = 1e6
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counter in (launches, mxu_launches, exhaustive_launches):
+        for k in counter:
+            counter[k] = 0
 
 
 def f32_radius2(radius: float) -> float:
@@ -88,36 +106,86 @@ def plain_query_step(n_targets: int, device: torch.device) -> int:
     return max(1, budget // max(n_targets, 1))
 
 
+def _expansion_targets(targets: torch.Tensor, target_mask: torch.Tensor):
+    """K4's targets: invalid ones folded to the finite pad, and the |t|^2
+    row (tx*tx + ty*ty) + tz*tz, as the JAX package's wrapper prepares them."""
+    folded = torch.where(target_mask[:, None], targets, _EXPANSION_PAD).contiguous()
+    tx, ty, tz = folded.unbind(-1)
+    return folded, ((tx * tx + ty * ty) + tz * tz).contiguous()
+
+
+def _min_plain(queries: torch.Tensor, targets: torch.Tensor, target_mask: torch.Tensor,
+               expansion: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw minimum over the targets per query, in steps of queries: (d2 f32
+    [Q], index int64 [Q]; the first index among equal minima).
+
+    Coordinate differences d2 = (dx*dx + dy*dy) + dz*dz with invalid targets
+    at +inf (the kernels' order), or with ``expansion`` the K4 distance
+    max((|q|^2 + |t|^2) - 2 q.t, 0) over targets folded to the finite pad,
+    with q.t = (qx*tx + qy*ty) + qz*tz and |.|^2 in the same order.
+    """
+    q_total = queries.shape[0]
+    dmin = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
+    amin = torch.empty((q_total,), dtype=torch.int64, device=queries.device)
+    if expansion:
+        targets, t2 = _expansion_targets(targets, target_mask)
+    tx, ty, tz = targets[:, 0], targets[:, 1], targets[:, 2]
+    step = plain_query_step(targets.shape[0], queries.device)
+    for s in range(0, q_total, step):
+        q = queries[s:s + step]
+        qx, qy, qz = q[:, 0:1], q[:, 1:2], q[:, 2:3]
+        if expansion:
+            q2 = (qx * qx + qy * qy) + qz * qz
+            g = (qx * tx + qy * ty) + qz * tz
+            d2 = torch.clamp((q2 + t2) - 2.0 * g, min=0.0)
+        else:
+            dx, dy, dz = qx - tx, qy - ty, qz - tz
+            d2 = (dx * dx + dy * dy) + dz * dz
+            d2 = torch.where(target_mask[None, :], d2, torch.inf)
+        dmin[s:s + step], amin[s:s + step] = torch.min(d2, dim=1)
+    return dmin, amin
+
+
+def _radius_plain(queries, query_mask, targets, target_mask, radius, expansion=False):
+    r2 = f32_radius2(radius)
+    dmin, amin = _min_plain(queries, targets, target_mask, expansion)
+    found = query_mask & (dmin < r2)
+    return torch.where(found, amin.to(torch.int32), -1), torch.where(found, dmin, torch.inf)
+
+
 def nn1_plain(
     queries: torch.Tensor, query_mask: torch.Tensor,
     targets: torch.Tensor, target_mask: torch.Tensor,
     radius: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: exhaustive 1-NN within radius.
+    """Plain PyTorch version of K2: exhaustive 1-NN within radius.
 
     Coordinate differences, d2 = (dx*dx + dy*dy) + dz*dz (the kernel's
     order), ties to the lower target index. Returns (idx int32 [Q], -1 =
     none; d2 f32 [Q], +inf where none).
     """
-    r2 = f32_radius2(radius)
-    q_total = queries.shape[0]
-    idx = torch.full((q_total,), -1, dtype=torch.int32, device=queries.device)
-    d2_out = torch.full((q_total,), torch.inf, dtype=torch.float32, device=queries.device)
-    tx, ty, tz = targets[:, 0], targets[:, 1], targets[:, 2]
-    step = plain_query_step(targets.shape[0], queries.device)
-    for s in range(0, q_total, step):
-        q = queries[s:s + step]
-        dx = q[:, 0:1] - tx
-        dy = q[:, 1:2] - ty
-        dz = q[:, 2:3] - tz
-        d2 = dx * dx + dy * dy
-        d2 = d2 + dz * dz
-        d2 = torch.where(target_mask[None, :], d2, torch.inf)
-        dmin, amin = torch.min(d2, dim=1)
-        found = query_mask[s:s + step] & (dmin < r2)
-        idx[s:s + step] = torch.where(found, amin.to(torch.int32), -1)
-        d2_out[s:s + step] = torch.where(found, dmin, torch.inf)
-    return idx, d2_out
+    return _radius_plain(queries, query_mask, targets, target_mask, radius)
+
+
+def nn1_mxu_plain(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    targets: torch.Tensor, target_mask: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4: :func:`nn1_plain` on the distance
+    expansion, evaluated in the kernel's order (so the two agree bit for
+    bit). Returns (idx int32 [Q], expansion d2 f32 [Q], +inf where none)."""
+    return _radius_plain(queries, query_mask, targets, target_mask, radius, expansion=True)
+
+
+def nn1_exhaustive_plain(
+    queries: torch.Tensor, targets: torch.Tensor, target_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: the raw nearest valid target of every
+    query with no radius (idx int32 [Q]; d2 f32 [Q]); -1 and +inf only
+    where every target is invalid."""
+    dmin, amin = _min_plain(queries, targets, target_mask)
+    return torch.where(torch.isinf(dmin), -1, amin.to(torch.int32)), dmin
 
 
 def check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts):
@@ -138,6 +206,22 @@ def check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts)
         raise ValueError(f"need Q % {TILE} == 0 and T % {CHUNK} == 0, got Q={q_total} T={t_total}")
     if cand.shape != (q_total // TILE, t_total // CHUNK) or counts.shape != (q_total // TILE,):
         raise ValueError(f"candidate table {tuple(cand.shape)} does not match Q={q_total} T={t_total}")
+
+
+def check_exhaustive_inputs(queries, targets, target_mask):
+    """Inputs of the exhaustive kernels K5/K6: contiguous, on one device,
+    f32 points, a bool mask, Q % 128 == 0 (T of any size)."""
+    for name, t in dict(queries=queries, targets=targets, target_mask=target_mask).items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != queries.device:
+            raise ValueError(f"{name} is on {t.device}, queries on {queries.device}")
+    if queries.dtype != torch.float32 or targets.dtype != torch.float32:
+        raise ValueError("queries and targets must be float32")
+    if target_mask.dtype != torch.bool:
+        raise ValueError(f"target_mask must be bool, got {target_mask.dtype}")
+    if queries.shape[0] % TILE:
+        raise ValueError(f"need Q % {TILE} == 0, got Q={queries.shape[0]}")
 
 
 def nn1_pruned(
@@ -177,6 +261,39 @@ def nn1_pruned(
     return idx, d2
 
 
+def nn1_pruned_mxu(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    targets: torch.Tensor, target_mask: torch.Tensor,
+    cand: torch.Tensor, counts: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of kernel K4: (idx int32 [Q], expansion d2 f32 [Q]) as
+    :func:`nn1_mxu_plain`, with the inputs of :func:`nn1_pruned`. The
+    wrapper folds invalid targets to the finite pad and computes the
+    |t|^2 row, as the JAX package's wrapper does."""
+    check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts)
+    if queries.device.type == "cpu":
+        mxu_launches["plain"] += 1
+        return nn1_mxu_plain(queries, query_mask, targets, target_mask, radius)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    folded, t2 = _expansion_targets(targets, target_mask)
+    q_total = queries.shape[0]
+    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
+    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
+    gap_unit = float(np.float32(float(radius) * float(radius) / _GAP_SCALE))
+    with torch.cuda.device(queries.device):
+        err = cuda_build.library().dlo_nn1_pruned_mxu(
+            queries.data_ptr(), query_mask.data_ptr(), folded.data_ptr(), t2.data_ptr(),
+            cand.data_ptr(), counts.data_ptr(), q_total // TILE, cand.shape[1],
+            f32_radius2(radius), gap_unit, idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
+        )
+    cuda_build.check(err, "nn1_pruned_mxu")
+    mxu_launches["cuda"] += 1
+    return idx, d2
+
+
 def query_1nn_sorted(
     target_points: torch.Tensor,
     target_mask: torch.Tensor,
@@ -185,18 +302,21 @@ def query_1nn_sorted(
     queries: torch.Tensor,
     query_mask: torch.Tensor,
     radius: float,
+    mxu: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exact 1-NN within ``radius`` over a Morton-sorted target cloud.
+    """1-NN within ``radius`` over a Morton-sorted target cloud.
 
     ``chunk_lo``/``chunk_hi`` are the targets' [3, T//512] masked chunk
     AABBs. Returns (idx [Q] int64, -1 where not found; exact d2 [Q], +inf
     where no winner; found [Q] bool), the JAX package's contract.
+    ``mxu=True`` searches with kernel K4's distance expansion: the winner
+    may differ among near-ties and borderline radius hits, the reported d2
+    stays exact.
     """
     qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
     cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
-    best_idx, _ = nn1_pruned(
-        queries, query_mask, target_points, target_mask, cand, counts, radius
-    )
+    search = nn1_pruned_mxu if mxu else nn1_pruned
+    best_idx, _ = search(queries, query_mask, target_points, target_mask, cand, counts, radius)
     best_idx = best_idx.to(torch.int64)
     # the winner's d2 from the index, in the public contract's own form
     sel = target_points[torch.clamp(best_idx, min=0)]
@@ -204,3 +324,46 @@ def query_1nn_sorted(
     found = query_mask & (best_idx >= 0) & (best_d2 < f32_radius2(radius))
     best_d2 = torch.where(best_idx >= 0, best_d2, torch.inf)
     return torch.where(found, best_idx, -1), best_d2, found
+
+
+def nn1_exhaustive(
+    queries: torch.Tensor, targets: torch.Tensor, target_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of kernel K5: (idx int32 [Q], raw d2 f32 [Q]) as
+    :func:`nn1_exhaustive_plain`. queries [Q,3] f32 with Q % 128 == 0;
+    targets [T,3] f32 of any T (the kernel pads the last chunk)."""
+    check_exhaustive_inputs(queries, targets, target_mask)
+    q_total = queries.shape[0]
+    if queries.device.type == "cpu":
+        exhaustive_launches["plain"] += 1
+        return nn1_exhaustive_plain(queries, targets, target_mask)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
+    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        err = cuda_build.library().dlo_nn1_exhaustive(
+            queries.data_ptr(), targets.data_ptr(), target_mask.data_ptr(),
+            q_total // TILE, targets.shape[0], idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
+        )
+    cuda_build.check(err, "nn1_exhaustive")
+    exhaustive_launches["cuda"] += 1
+    return idx, d2
+
+
+def query_1nn(
+    target_points: torch.Tensor,
+    target_mask: torch.Tensor,
+    queries: torch.Tensor,
+    query_mask: torch.Tensor,
+    radius: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exhaustive exact 1-NN (kernel K5), the JAX package's ``query_1nn``
+    contract: (idx [Q] int64, -1 where not found; the raw nearest d2 [Q],
+    reported even beyond ``radius`` and +inf only when every target is
+    invalid; found [Q] = query_mask & (d2 < r^2))."""
+    best_idx, best_d2 = nn1_exhaustive(queries, target_points, target_mask)
+    r = np.float32(radius)
+    found = query_mask & (best_d2 < float(r * r))  # the reference's f32(r)**2
+    return torch.where(found, best_idx.to(torch.int64), -1), best_d2, found

@@ -8,7 +8,8 @@ depends only on the neighbourhood's smallest eigenvector n:
 
 so only normals are stored; covariances are rebuilt where the Mahalanobis
 weights need them. Neighbourhoods are all points within a fixed radius
-(kernel K1, ``ops/cuda_cov.py``).
+(``ops/cuda_cov.py``: kernel K1 over a Morton-sorted cloud, the exhaustive
+kernel K6 over any cloud).
 """
 
 from __future__ import annotations
@@ -27,6 +28,28 @@ class Normals(NamedTuple):
     valid: torch.Tensor    # [N] bool — enough neighbors to estimate
 
 
+def _normals_from_moments(m: torch.Tensor, mask: torch.Tensor, min_neighbors: int) -> Normals:
+    cov, count = cuda_cov.moments_to_cov(m)
+    normal, _ = eigh3.smallest_eigvec3(cov)
+    valid = mask & (count >= min_neighbors)
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal.dtype, device=normal.device)
+    normal = torch.where(valid[..., None], normal, z)
+    return Normals(normals=normal, valid=valid)
+
+
+def estimate_normals_radius(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    radius: float,
+    min_neighbors: int = 4,
+) -> Normals:
+    """Normals from ALL neighbours within ``radius``, any point order, via
+    the exhaustive moment kernel K6 (``min_neighbors`` counts the point
+    itself)."""
+    m = cuda_cov.radius_moments(points, mask, points, radius)
+    return _normals_from_moments(m, mask, min_neighbors)
+
+
 def estimate_normals_radius_sorted(
     points: torch.Tensor,
     mask: torch.Tensor,
@@ -35,17 +58,12 @@ def estimate_normals_radius_sorted(
     radius: float,
     min_neighbors: int = 4,
 ) -> Normals:
-    """Normals from all neighbours within ``radius`` over a Morton-sorted
-    cloud (``min_neighbors`` counts the point itself)."""
+    """:func:`estimate_normals_radius` over a Morton-sorted cloud, through
+    the pruned moment kernel K1."""
     m = cuda_cov.radius_moments_sorted(
         points, mask, chunk_lo, chunk_hi, points, mask, radius
     )
-    cov, count = cuda_cov.moments_to_cov(m)
-    normal, _ = eigh3.smallest_eigvec3(cov)
-    valid = mask & (count >= min_neighbors)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal.dtype, device=normal.device)
-    normal = torch.where(valid[..., None], normal, z)
-    return Normals(normals=normal, valid=valid)
+    return _normals_from_moments(m, mask, min_neighbors)
 
 
 def cov_from_normal(n: torch.Tensor, eps: float = PLANE_EPS) -> torch.Tensor:

@@ -2,13 +2,16 @@
 Levenberg-Marquardt on SE(3).
 
 Counterpart of the JAX package's ``registration/gicp.py``, pruned-kernel
-backend only (the reference's ``NanoGICP`` + ``LsqRegistration``):
+backends only (the reference's ``NanoGICP`` + ``LsqRegistration``):
 
 - ``_update_correspondences`` (``nano_gicp_impl.hpp:173-211``): 1-NN of
-  the transformed source in the target through kernel K2
-  (``ops/cuda_nn.py``), gated by ``max_correspondence_distance``, plus
-  PLANE Mahalanobis weights rebuilt from stored normals;
-- ``_linearize`` (``:213-270``): residuals, Jacobians and the H/b sums;
+  the transformed source in the target through kernel K2, or K4 on the
+  ``"pallas_mxu"`` backend (``ops/cuda_nn.py``), gated by
+  ``max_correspondence_distance``, plus PLANE Mahalanobis weights rebuilt
+  from stored normals;
+- ``_linearize`` (``:213-270``): residuals, Jacobians and the H/b sums; on
+  the ``"pallas_fused"`` backend all of it, search included, is kernel K3
+  (``ops/cuda_gicp.py``);
 - ``_compute_error`` (``:272-296``): error with frozen correspondences,
   for the LM gain-ratio test;
 - :func:`align` (``lsq_registration_impl.hpp:89-208``): the outer loop and
@@ -30,9 +33,16 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.config import GicpStageConfig
 from direct_lidar_odometry_tpu_torch.core import se3
-from direct_lidar_odometry_tpu_torch.ops import cuda_nn, morton
+from direct_lidar_odometry_tpu_torch.ops import cuda_gicp, cuda_nn, morton
 from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS, cov_from_normal
 from direct_lidar_odometry_tpu_torch.utils import sync
+
+
+def is_pallas(backend: str) -> bool:
+    """All pruned-kernel backends: "pallas" (1-NN kernel K2 + tensor-op
+    linearization), "pallas_mxu" (K4 instead of K2), "pallas_fused" (the
+    fused kernel K3); "pallas_unfused" is an alias of "pallas"."""
+    return backend.startswith("pallas")
 
 
 class GicpTarget(NamedTuple):
@@ -110,13 +120,18 @@ class _Linearization(NamedTuple):
 
 def _update_correspondences(
     x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
+    backend: str,
 ):
-    """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211."""
+    """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211.
+
+    Serves the unfused backends; "pallas_fused" takes the fused kernel in
+    :func:`_linearize` and never calls this."""
     r = x0[:3, :3]
     p_t = se3.transform_points(x0, src.points)  # [Ns, 3]
     idx, _, found = cuda_nn.query_1nn_sorted(
         target.points, target.mask, target.chunk_lo, target.chunk_hi,
         p_t, src.mask, cfg.max_correspondence_distance,
+        mxu=(backend == "pallas_mxu"),
     )
     j = torch.clamp(idx, min=0)
     # both endpoints need usable normals
@@ -133,9 +148,28 @@ def _update_correspondences(
 
 def _linearize(
     x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
+    backend: str, seed_corr: torch.Tensor | None = None,
 ) -> _Linearization:
-    """Reference nano_gicp_impl.hpp:213-270 as one masked reduction."""
-    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg)
+    """Reference nano_gicp_impl.hpp:213-270 as one masked reduction.
+
+    backend "pallas_fused": one pass of kernel K3 (search, Mahalanobis and
+    the H/b sums). ``seed_corr``: previous-iteration correspondences that
+    warm-start K3's branch-and-bound (the result is exactly the unseeded
+    one; :func:`align` does not seed, as in the JAX package).
+    """
+    if backend == "pallas_fused":
+        r = x0[:3, :3]
+        p_t = se3.transform_points(x0, src.points)
+        m0 = src.normals @ r.T
+        fl = cuda_gicp.fused_linearize(
+            target.points, target.mask, target.normals, target.normals_valid,
+            target.chunk_lo, target.chunk_hi, p_t, m0, src.mask & src.normals_valid,
+            cfg.max_correspondence_distance, PLANE_EPS, seed_corr=seed_corr,
+        )
+        return _Linearization(h=fl.h, b=fl.b, error=fl.error, corr=fl.corr, weight=fl.weight,
+                              mu_b=fl.mu_b, n_b=fl.n_b, m0=m0, n_corr=fl.n_corr)
+
+    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend)
     j = torch.clamp(corr, min=0)
     mu_b = target.points[j]
     e = (mu_b - p_t) * weight[..., None]               # [Ns, 3]
@@ -219,12 +253,15 @@ def align(
     target: GicpTarget,
     guess: torch.Tensor,
     cfg: GicpStageConfig,
+    backend: str = "pallas",
 ) -> GicpResult:
     """Register ``src`` onto ``target`` starting from ``guess`` (4x4).
 
     ``LsqRegistration::computeTransformation`` with the reference-default
     LM inner step, or plain GN when ``cfg.optimizer == "gn"``. One host
-    read per inner iteration (LM) or per outer iteration (GN).
+    read per inner iteration (LM) or per outer iteration (GN). ``backend``:
+    "pallas" (or its alias "pallas_unfused"), "pallas_mxu" or
+    "pallas_fused" (see config.resolve_backend).
     """
     dev = guess.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -237,7 +274,7 @@ def align(
     nc_fin = torch.zeros((), dtype=torch.int32, device=dev)
     iters, converged, failed = 0, False, False
     while iters < cfg.max_iterations and not converged and not failed:
-        lin = _linearize(x, src, target, cfg)
+        lin = _linearize(x, src, target, cfg, backend)
         if use_lm:
             # step_lm (lsq_registration_impl.hpp:161-208)
             if lam is None:

@@ -53,15 +53,21 @@ def test_config_yaml_loads_equal():
     )
 
 
-@pytest.mark.parametrize("backend", ["pallas_fused", "pallas_mxu", "hashgrid", "brute"])
+@pytest.mark.parametrize("backend", ["hashgrid", "brute"])
 def test_unported_backends_raise(backend):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tcfg.resolve_backend(tcfg.DloConfig(nn_backend=backend))
 
 
-@pytest.mark.parametrize("backend", ["auto", "pallas"])
-def test_ported_backends_resolve(backend):
-    assert tcfg.resolve_backend(tcfg.DloConfig(nn_backend=backend)) == "pallas"
+@pytest.mark.parametrize("backend,resolved", [
+    ("auto", "pallas"), ("pallas", "pallas"), ("pallas_unfused", "pallas_unfused"),
+    ("pallas_fused", "pallas_fused"), ("pallas_mxu", "pallas_mxu"),
+])
+def test_ported_backends_resolve(backend, resolved):
+    """The name itself, as in the JAX package; "auto" is the pallas path."""
+    assert tcfg.resolve_backend(tcfg.DloConfig(nn_backend=backend)) == resolved
+    if backend != "auto":
+        assert jcfg.resolve_backend(jcfg.DloConfig(nn_backend=backend)) == resolved
 
 
 def test_se3_constants():
@@ -82,11 +88,16 @@ def test_precision_pin():
 
 
 def test_port_imports_no_jax():
-    """The runner's whole import graph stays free of jax."""
+    """The import graphs of the runner, the CLI and every other public
+    module stay free of jax."""
     code = (
         "import sys, direct_lidar_odometry_tpu_torch.odometry.runner, "
         "direct_lidar_odometry_tpu_torch.io.synthetic, "
-        "direct_lidar_odometry_tpu_torch.io.evaluation\n"
+        "direct_lidar_odometry_tpu_torch.io.evaluation, "
+        "direct_lidar_odometry_tpu_torch.cli, "
+        "direct_lidar_odometry_tpu_torch.utils.checkpoint, "
+        "direct_lidar_odometry_tpu_torch.odometry.mapper, "
+        "direct_lidar_odometry_tpu_torch.ops.cuda_gicp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_nn, morton
+from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn, morton
 
 pytestmark = pytest.mark.cuda
 
@@ -75,24 +75,121 @@ def test_cov_kernel_matches_plain(dev, radius):
     assert float(mp[tm, 0].mean()) > 4
 
 
-def test_runner_on_cuda_uses_kernels(dev):
+@pytest.mark.parametrize("radius", [0.5, 1.0, 1.5])
+def test_nn1_mxu_kernel_matches_plain(dev, radius):
+    """K4 and its plain version evaluate the expansion in the same order:
+    idx and d2 bit-identical; against the exact K2 the winner's d2 is within
+    the expansion's 2e-3 m^2 slack."""
+    tp, tm = _sorted_cloud(0, 8192, dev)
+    qp, qm = _sorted_cloud(1, 4096, dev)
+    cand, counts = _candidates(qp, qm, tp, tm, radius)
+    before = cuda_nn.mxu_launches["cuda"]
+    ik, dk = cuda_nn.nn1_pruned_mxu(qp, qm, tp, tm, cand, counts, radius)
+    ip, dp = cuda_nn.nn1_mxu_plain(qp, qm, tp, tm, radius)
+    ie, de = cuda_nn.nn1_plain(qp, qm, tp, tm, radius)
+    torch.cuda.synchronize()
+    assert cuda_nn.mxu_launches["cuda"] == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+    both = (ik >= 0) & (ie >= 0)
+    assert both.sum() > 100
+    d_exact = torch.sum((qp - tp[ik.clamp(min=0).long()]) ** 2, dim=-1)
+    assert float((d_exact[both] - de[both]).max()) < 2e-3
+
+
+@pytest.mark.parametrize("n_targets", [8192, 1000])
+def test_nn1_exhaustive_kernel_matches_plain(dev, n_targets):
+    """K5: raw minimum over every target (ragged last chunk included)."""
+    tp, tm = _sorted_cloud(3, n_targets, dev)
+    qp, _ = _sorted_cloud(4, 2048, dev)
+    before = cuda_nn.exhaustive_launches["cuda"]
+    ik, dk = cuda_nn.nn1_exhaustive(qp, tp, tm)
+    ip, dp = cuda_nn.nn1_exhaustive_plain(qp, tp, tm)
+    torch.cuda.synchronize()
+    assert cuda_nn.exhaustive_launches["cuda"] == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+    assert (ik >= 0).all()
+
+
+@pytest.mark.parametrize("n_targets", [8192, 1000])
+def test_cov_exhaustive_kernel_matches_plain(dev, n_targets):
+    """K6: counts exact (inclusive radius), moments to summation order."""
+    tp, tm = _sorted_cloud(5, n_targets, dev, extent=6.0)
+    before = cuda_cov.exhaustive_launches["cuda"]
+    mk = cuda_cov.cov_exhaustive(tp, tm, tp[:896].contiguous(), 0.9)
+    mp = cuda_cov.cov_plain(tp, tm, tp[:896], torch.ones(896, dtype=torch.bool, device=dev), 0.9)
+    torch.cuda.synchronize()
+    assert cuda_cov.exhaustive_launches["cuda"] == before + 1
+    assert torch.equal(mk[:, 0], mp[:, 0])
+    torch.testing.assert_close(mk, mp, atol=1e-3, rtol=1e-5)
+
+
+def _fused_problem(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    tp, tm = _sorted_cloud(seed, 8192, dev, extent=10.0)
+    nrm = torch.from_numpy(rng.normal(size=(8192, 3)).astype(np.float32)).to(dev)
+    nrm = (nrm / nrm.norm(dim=1, keepdim=True)).contiguous()
+    nval = torch.from_numpy(rng.random(8192) > 0.1).to(dev)
+    pick = torch.from_numpy(rng.choice(8192, 4096)).to(dev)
+    p = (tp[pick] + torch.from_numpy(rng.normal(0, 0.05, (4096, 3)).astype(np.float32)).to(dev))
+    qw = tm[pick] & torch.from_numpy(rng.random(4096) > 0.1).to(dev)
+    p = torch.where(qw[:, None], p, 1e6).contiguous()
+    m = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32)).to(dev)
+    m = (m / m.norm(dim=1, keepdim=True)).contiguous()
+    return tp, tm, nrm, nval, p, m, qw
+
+
+def test_fused_linearize_kernel_matches_plain(dev):
+    """K3: correspondences and payload identical to the plain version, tile
+    sums within summation-order rounding, seeded == cold exactly, and two
+    launches bit-identical (no atomics)."""
+    tp, tm, nrm, nval, p, m, qw = _fused_problem(dev)
+    radius = 0.5
+    cand, counts = _candidates(p, qw, tp, tm, radius)
+    cold = torch.full((4096,), -1, dtype=torch.int32, device=dev)
+    before = cuda_gicp.launches["cuda"]
+    args = (tp, tm, nrm, nval, cand, counts, radius, 1e-3)
+    hk, pk, ik = cuda_gicp.fused_linearize_pruned(p, m, qw, cold, *args)
+    hp, pp, ip = cuda_gicp.fused_linearize_plain(p, m, qw, cold, *args)
+    hk2, pk2, ik2 = cuda_gicp.fused_linearize_pruned(p, m, qw, cold, *args)
+    # seeds from a shuffled copy of the cold correspondences: wrong but valid
+    seed = ik[torch.randperm(4096, device=dev)].contiguous()
+    hs, ps, is_ = cuda_gicp.fused_linearize_pruned(p, m, qw, seed, *args)
+    torch.cuda.synchronize()
+    assert cuda_gicp.launches["cuda"] == before + 3
+    assert torch.equal(ik, ip) and (ik >= 0).sum() > 1000
+    assert torch.equal(pk[:, :7], pp[:, :7])
+    assert torch.equal(hk, hk2) and torch.equal(pk, pk2)
+    assert torch.equal(is_, ik) and torch.equal(ps[:, :7], pk[:, :7])
+    assert torch.equal(hs[:, :29], hk[:, :29])
+    assert float(hs[:, 29].sum()) <= float(hk[:, 29].sum())
+    sk, sp = hk[:, :29].sum(0), hp[:, :29].sum(0)
+    assert float((sk - sp).abs().max()) <= 2e-4 * float(sp.abs().max())
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_mxu", "pallas_fused"])
+def test_runner_on_cuda_uses_kernels(dev, backend):
     from direct_lidar_odometry_tpu_torch.config import DloConfig, ShapeConfig
     from direct_lidar_odometry_tpu_torch.io import synthetic
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
 
-    cfg = DloConfig(nn_backend="pallas", shapes=ShapeConfig(
+    cfg = DloConfig(nn_backend=backend, shapes=ShapeConfig(
         n_raw=16384, n_scan=4096, n_keyframe=2048, max_keyframes=16, max_submap_kf=4,
         n_submap_flat=8192, hull_directions=16))
     rng = np.random.default_rng(0)
     world = synthetic.make_urban_world(rng, n_frames=6, speed=1.0, n_dynamic=0)
     beams = synthetic.BeamModel(n_beams=32, n_azimuth=512)
     runner = OdometryRunner(cfg, device="cuda")
-    cuda_nn.reset_launches()
-    cuda_cov.reset_launches()
+    for mod in (cuda_nn, cuda_cov, cuda_gicp):
+        mod.reset_launches()
     for t in range(6):
         scan = synthetic.render_raycast(world, t, rng, max_points=16384, beams=beams)
         runner.process_scan(scan, float(world.stamps[t]), sync=True)
-    assert cuda_nn.launches["cuda"] > 0 and cuda_nn.launches["plain"] == 0
+    search = {"pallas": cuda_nn.launches, "pallas_mxu": cuda_nn.mxu_launches,
+              "pallas_fused": cuda_gicp.launches}[backend]
+    assert search["cuda"] > 0 and search["plain"] == 0
     assert cuda_cov.launches["cuda"] > 0 and cuda_cov.launches["plain"] == 0
+    if backend != "pallas":
+        assert cuda_nn.launches["cuda"] == 0
     assert np.isfinite(runner.trajectory()).all()
-
