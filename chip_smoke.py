@@ -20,20 +20,36 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (exhaustive 1-NN) at 32768 x 65536; K6 (exhaustive moments) over the
    32768-point scan at r = 0.75. Prints agreement and median times (CUDA
    events, 20 runs);
-4. drive ``OdometryRunner(cfg, device="cuda")`` (backend "pallas") over 30
-   frames of the ray-cast urban world with every launch counter reset just
-   before, and check the trajectory (ATE), the S2M correspondences of every
-   frame, that K1 and K2 were launched and that no plain version ran;
+4. drive ``OdometryRunner(cfg, device="cuda")`` (backend "pallas",
+   ``cfg/tpu_dlo.yaml`` as shipped, loop closure on) over 30 frames of the
+   ray-cast urban world with every launch counter reset just before, and
+   check the trajectory (ATE), the S2M correspondences of every frame,
+   that K1 and K2 were launched and that no plain version ran;
 5. call the port's CLI (``cli.main``) in-process on the same 30 frames at
    full widths, once on backend "pallas_fused" (K3) and once on
    "pallas_mxu" (K4), with ``--eval --map-ply --checkpoint``, counters reset
    before each call: ATE gate, the backend's kernel and K1 launched, K2 and
-   every plain version not, a map of > 100 points, a checkpoint that loads;
+   every plain version not, a map of > 100 points, a checkpoint that loads,
+   the loop-closure counts in the summary;
 6. check the drive's last state through the public exhaustive entries
    (the JAX package's oracles): ``query_1nn`` (K5) against the pruned
    search, ``estimate_normals_radius`` (K6) against the carried normals,
    counters reset before;
-7. print one JSON line of per-kernel results, then the final JSON line.
+7. loop closure at full width: 144 frames of a closed-loop urban world
+   with a drift burst (frames 40-79 rendered at 11 m range and 0.35 m
+   noise), loop closure on, 512-slot ring; then a forced refinement round,
+   timed, with the counters reset before it: at least one round and one
+   accepted loop edge, the keyframe-map error (each keyframe against its
+   own ground truth) lower after the round than before, every state leaf
+   finite, K2 launched by the round, no plain version run;
+8. the IMU prior and chunked dispatch at full width: the first 40 phase-7
+   scans with ``imu.use``, ``gravity_align`` and ``s2s_prior: imu``, after
+   1.5 s of static samples, once through ``process_scan`` and once through
+   ``process_scan`` + ``process_chunk`` in chunks of 8: the ATE gate on
+   both, the two trajectories equal within 1e-5 m, a non-identity IMU prior
+   passed to the step, no plain version run; plus the same scans without
+   the IMU, for its ATE;
+9. print one JSON line of per-kernel results, then the final JSON line.
 
 It imports torch and the port, nothing of JAX.
 """
@@ -41,6 +57,7 @@ It imports torch and the port, nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -53,6 +70,10 @@ import torch
 
 N_FRAMES = 30
 WARMUP = 3
+LOOP_FRAMES = 144
+BURST = range(40, 80)   # phase 7's degraded stretch
+IMU_FRAMES = 40         # phase 8: the phase-7 scans before the burst
+CHUNK = 8
 TIMING_RUNS = 20
 K2_TOL_REL = 2.0**-14   # near-tie slack between two winners' d2
 K2_BORDER = 1e-6        # |d2 - r^2| <= K2_BORDER * r^2 counts as on the boundary
@@ -73,7 +94,7 @@ def require(ok: bool, what: str) -> None:
 def slice_config(backend: str = "pallas"):
     from direct_lidar_odometry_tpu_torch.config import load_config
 
-    return load_config(str(CFG_PATH), overrides={"nn_backend": backend, "posegraph.use": False})
+    return load_config(str(CFG_PATH), overrides={"nn_backend": backend})
 
 
 def counter_modules():
@@ -404,7 +425,6 @@ def check_k3(src, target, radius, label):
 
 
 def drive(cfg, world, scans, device="cuda"):
-    from direct_lidar_odometry_tpu_torch.io import evaluation
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
     from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -419,9 +439,7 @@ def drive(cfg, world, scans, device="cuda"):
     launches = read_counters()
 
     est = runner.trajectory()
-    gt = np.linalg.inv(world.poses[0])[None] @ world.poses[: len(est)]
-    rmse = evaluation.ate(est, gt, align=False).rmse
-    path = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)))
+    rmse, path = ate_of(est, world)
     frame_ms = [s.wall_ms for s in runner.stats]
     corr = [int(s.result.s2m_num_corr) for s in runner.stats[1:]]
     timed = slice(1 + WARMUP, None)
@@ -457,7 +475,7 @@ def drive_cli(backend, world, device="cuda"):
 
     out_dir = OUT_DIR / backend
     argv = ["--synthetic", str(N_FRAMES), "--config", str(CFG_PATH), "--device", device,
-            "--set", f"nn_backend={backend}", "--set", "posegraph.use=false",
+            "--set", f"nn_backend={backend}",
             "--out-dir", str(out_dir), "--eval", "--map-ply", "map.ply",
             "--checkpoint", "ckpt.npz", "--dashboard-every", "10"]
     stdout = io.StringIO()
@@ -493,6 +511,8 @@ def drive_cli(backend, world, device="cuda"):
         require(cnt["plain"] == 0, f"cli {backend}: {name} plain version ran {cnt['plain']} times")
     require(len(map_pts) > 100, f"cli {backend}: the map has {len(map_pts)} points")
     require(ckpt_ok, f"cli {backend}: the checkpoint does not restore the final state")
+    require("refine_rounds" in summary and "loop_edges_accepted" in summary,
+            f"cli {backend}: the summary has no loop-closure counts")
     return out
 
 
@@ -541,6 +561,196 @@ def oracle_check(cfg, runner):
     return out
 
 
+def loop_world(n_raw: int, beams=None):
+    """Phase 7's closed-loop urban world and its scans with the drift burst
+    of the JAX package's loop-closure check: frames [BURST) at 11 m range
+    and 0.35 m range noise, the rest at 40 m and 0.01 m."""
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+
+    world = synthetic.make_urban_world(np.random.default_rng(21), n_frames=LOOP_FRAMES,
+                                       speed=1.0, closed_loop=True, n_dynamic=0)
+    beams = beams or synthetic.BeamModel()
+    srng = np.random.default_rng(5)
+    scans = []
+    for t in range(LOOP_FRAMES):
+        burst = t in BURST
+        scans.append(synthetic.render_scan(
+            world, t, srng, max_range=11.0 if burst else 40.0, max_points=n_raw,
+            noise=0.35 if burst else 0.01, beams=beams))
+    return world, scans
+
+
+def loop_config(cfg):
+    return cfg.replace(posegraph=dataclasses.replace(
+        cfg.posegraph, use=True, min_index_gap=12, loop_radius=12.0, check_every=48,
+        refine_every_kf=8))
+
+
+def sync_device(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ate_of(est, world):
+    from direct_lidar_odometry_tpu_torch.io import evaluation
+
+    gt = np.linalg.inv(world.poses[0])[None] @ world.poses[: len(est)]
+    path = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)))
+    return evaluation.ate(est, gt, align=False).rmse, path
+
+
+def loop_closure_check(cfg, world, scans, device="cuda"):
+    """Phase 7: the 144-frame drive with loop closure on, then a forced
+    round, timed with a device sync on both sides."""
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+
+    runner = OdometryRunner(cfg, device=device)
+    reset_counters()
+    t0 = time.perf_counter()
+    for t, scan in enumerate(scans):
+        runner.process_scan(scan, float(world.stamps[t]), sync=True)
+    drive_s = time.perf_counter() - t0
+    drive_launches = read_counters()
+    gt_pos = (np.linalg.inv(world.poses[0])[None] @ world.poses)[:, :3, 3]
+
+    def kf_map_error() -> float:
+        kf = runner.state.keyframes
+        kfc = int(kf.count)
+        pos = kf.positions[:kfc].cpu().numpy()
+        return float(np.linalg.norm(pos - gt_pos[kf.seq[:kfc].cpu().numpy()], axis=-1).mean())
+
+    before = kf_map_error()
+    rounds_in_drive = len(runner.refine_log)
+    reset_counters()
+    sync_device(device)
+    t0 = time.perf_counter()
+    forced = runner.maybe_refine(force=True)
+    sync_device(device)
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    refine_launches = read_counters()
+    after = kf_map_error()
+    from direct_lidar_odometry_tpu_torch.odometry.state import state_to_numpy
+
+    finite = all(np.isfinite(v).all() for v in state_to_numpy(runner.state).values())
+    rmse, path = ate_of(runner.trajectory(), world)
+    out = dict(
+        frames=len(scans), ring_slots=cfg.shapes.max_keyframes, keyframes=runner.num_keyframes(),
+        refine_rounds=len(runner.refine_log), rounds_in_drive=rounds_in_drive,
+        loop_edges_accepted=sum(e["n_accepted"] for e in runner.refine_log),
+        forced_round=forced, kf_map_err_before_m=before, kf_map_err_after_m=after,
+        forced_refine_wall_ms=refine_ms, drive_s=drive_s, ate_m=rmse, path_m=path,
+        state_finite=finite, drive_launches=drive_launches, refine_launches=refine_launches,
+    )
+    print(f"# loop closure {json.dumps(out)}")
+    require(len(runner.refine_log) >= 1, "loop closure: no refinement round ran")
+    require(out["loop_edges_accepted"] >= 1, "loop closure: no loop edge was accepted")
+    require(after < before, f"loop closure: map error {before:.4f} -> {after:.4f} m did not drop")
+    require(finite, "loop closure: a state leaf is not finite")
+    require(refine_launches["nn1_pruned"]["cuda"] > 0,
+            "loop closure: nn1_pruned was not launched by the forced round")
+    for launches in (drive_launches, refine_launches):
+        for name, cnt in launches.items():
+            require(cnt["plain"] == 0, f"loop closure: {name} plain version ran {cnt['plain']} times")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_priors(priors: list):
+    """Record the IMU prior the runner passes to each step."""
+    from direct_lidar_odometry_tpu_torch.odometry import pipeline
+
+    step = pipeline.odom_frame
+
+    def recording(cfg, directions, state, points, mask, imu_prior, *args):
+        priors.append(imu_prior)
+        return step(cfg, directions, state, points, mask, imu_prior, *args)
+
+    pipeline.odom_frame = recording
+    try:
+        yield
+    finally:
+        pipeline.odom_frame = step
+
+
+def imu_chunk_check(cfg, world, scans, device="cuda"):
+    """Phase 8: the IMU prior and gravity alignment through process_scan,
+    and the same frames through process_chunk (chunks of CHUNK), then the
+    frames without the IMU."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+
+    imu_cfg = cfg.replace(gravity_align=True, s2s_prior="imu",
+                          imu=dataclasses.replace(cfg.imu, use=True, calib_time=1.0))
+    n = len(scans)
+    imu_rng = np.random.default_rng(9)
+    samples = [synthetic.make_imu_between(world, t, 100.0, imu_rng) for t in range(n)]
+    g_body = world.poses[0][:3, :3].T @ np.array([0.0, 0.0, 9.81])
+
+    def new_runner(c):
+        r = OdometryRunner(c, device=device)
+        for i in range(150):  # 1.5 s static: the calibration window
+            r.push_imu(-1.5 + i * 0.01, np.zeros(3), g_body)
+        return r
+
+    def push(r, frames):
+        for t in frames:
+            for row in samples[t]:
+                r.push_imu(float(row[0]), row[1:4], row[4:7])
+
+    reset_counters()
+    priors = []
+    per_frame = new_runner(imu_cfg)
+    with recorded_priors(priors):
+        for t, scan in enumerate(scans):
+            push(per_frame, [t])
+            per_frame.process_scan(scan, float(world.stamps[t]), sync=True)
+    scan_ms = [s.wall_ms for s in per_frame.stats[1 + WARMUP:]]
+
+    chunked = new_runner(imu_cfg)
+    push(chunked, [0])
+    chunked.process_scan(scans[0], float(world.stamps[0]), sync=True)
+    chunk_ms = []
+    for lo in range(1, n, CHUNK):
+        hi = min(lo + CHUNK, n)
+        push(chunked, range(lo, hi))
+        sync_device(device)
+        t0 = time.perf_counter()
+        chunked.process_chunk(scans[lo:hi], [float(s) for s in world.stamps[lo:hi]])
+        sync_device(device)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / (hi - lo))
+    launches = read_counters()
+
+    plain = OdometryRunner(cfg, device=device)
+    for t, scan in enumerate(scans):
+        plain.process_scan(scan, float(world.stamps[t]), sync=True)
+
+    est_scan, est_chunk = per_frame.trajectory(), chunked.trajectory()
+    ate_scan, path = ate_of(est_scan, world)
+    ate_chunk, _ = ate_of(est_chunk, world)
+    ate_no_imu, _ = ate_of(plain.trajectory(), world)
+    dev_max = float(np.abs(est_scan[:, :3, 3] - est_chunk[:, :3, 3]).max())
+    angles = [float(torch.linalg.norm(se3.so3_log(p[:3, :3]))) for p in priors]
+    out = dict(
+        frames=n, chunk=CHUNK, ate_imu_process_scan_m=ate_scan, ate_imu_process_chunk_m=ate_chunk,
+        ate_no_imu_m=ate_no_imu, path_m=path, chunk_vs_scan_max_m=dev_max,
+        prior_angle_max_rad=max(angles), priors=len(angles),
+        process_scan_median_ms=float(np.median(scan_ms)),
+        process_chunk_median_ms_per_frame=float(np.median(chunk_ms[1:] or chunk_ms)),
+        chunk_ms_per_frame=chunk_ms, launches=launches,
+    )
+    print(f"# imu and chunks {json.dumps(out)}")
+    gate = max(0.10, 0.001 * path)
+    require(ate_scan < gate, f"imu: process_scan ATE {ate_scan:.4f} m >= {gate:.4f} m")
+    require(ate_chunk < gate, f"imu: process_chunk ATE {ate_chunk:.4f} m >= {gate:.4f} m")
+    require(dev_max <= 1e-5, f"imu: process_chunk differs from process_scan by {dev_max:.2e} m")
+    require(len(est_chunk) == n, f"imu: process_chunk gave {len(est_chunk)} poses for {n} frames")
+    require(max(angles) > 1e-4, "imu: every IMU prior passed to the step was the identity")
+    for name, cnt in launches.items():
+        require(cnt["plain"] == 0, f"imu: {name} plain version ran {cnt['plain']} times")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -582,6 +792,14 @@ def main() -> int:
     cli_mxu = drive_cli("pallas_mxu", world)
     oracle = oracle_check(cfg, runner)
 
+    t0 = time.perf_counter()
+    loop_w, loop_scans = loop_world(cfg.shapes.n_raw)
+    print(f"# rendered {len(loop_scans)} loop-world scans in {time.perf_counter() - t0:.1f} s")
+    from direct_lidar_odometry_tpu_torch.config import load_config
+
+    loop = loop_closure_check(loop_config(load_config(str(CFG_PATH))), loop_w, loop_scans)
+    imu_chunk_check(cfg, loop_w, loop_scans[:IMU_FRAMES])
+
     def entry(name, src, replaces, path, launches, cases):
         return dict(name=name, route="cuda", source=f"direct_lidar_odometry_tpu_torch/csrc/{src}",
                     replaces=f"direct_lidar_odometry_tpu/ops/{replaces}", path=path,
@@ -590,7 +808,9 @@ def main() -> int:
                     ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"])
 
     kernels = [
-        entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192", "runner, pallas",
+        entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192",
+              f"runner, pallas; loop closure (forced round: "
+              f"{loop['refine_launches']['nn1_pruned']['cuda']} launches)",
               main_path["launches"], k2),
         entry("cov_pruned", "cov_pruned.cu", "pallas_cov.py:117", "runner, pallas",
               main_path["launches"], k1),

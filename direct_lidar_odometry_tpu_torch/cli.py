@@ -10,11 +10,12 @@ ATE/RPE against ground truth. The flags are the JAX CLI's, plus
 no move to the CPU). KITTI scans are read with the numpy reader.
 
     python -m direct_lidar_odometry_tpu_torch --synthetic 30 --config cfg/tpu_dlo.yaml \\
-        --set posegraph.use=false --set nn_backend=pallas_fused --eval --map-ply map.ply
+        --set nn_backend=pallas_fused --eval --map-ply map.ply
     python -m direct_lidar_odometry_tpu_torch --kitti /data/kitti --sequence 00 \\
-        --config cfg/tpu_dlo.yaml --set posegraph.use=false --eval
+        --config cfg/tpu_dlo.yaml --eval
 
-Loop closure (``posegraph.use``), the IMU, host preprocessing and the
+With ``posegraph.use`` (on in ``cfg/tpu_dlo.yaml``) the summary counts the
+loop-closure rounds and the loop edges accepted. Host preprocessing and the
 intensity sidecar are not ported yet: a config that enables them raises
 (``odometry/runner.py``).
 """
@@ -203,6 +204,11 @@ def main(argv=None) -> int:
         "distance_m": round(distance, 2),
         **{k: round(v, 2) for k, v in timing.steady_state().items()},
     }
+    if cfg.posegraph.use:
+        summary.update(
+            refine_rounds=len(runner.refine_log),
+            loop_edges_accepted=sum(e["n_accepted"] for e in runner.refine_log),
+        )
     if args.eval and gt_poses is not None and len(est) > 1:
         gt_rel = np.linalg.inv(gt_poses[0])[None] @ gt_poses[: len(est)]
         ate = evaluation.ate(est, gt_rel, align=False)

@@ -5,10 +5,12 @@ urban-corridor :class:`BoxWorld`, the OS1-64 :class:`BeamModel` and the
 exact ray-cast renderer (``chip_smoke.py``, the CLI's ``--synthetic``), and
 the point-soup :class:`SyntheticWorld` with its closed-loop world,
 :func:`render_scan` and :func:`dump_kitti` (the CLI's ``--kitti`` path,
-tested on a dumped sequence). They are copied, not imported, because
-importing any module of the JAX package runs that package's ``__init__``;
-``tests/test_torch_io.py`` and ``tests/test_torch_cli.py`` check that both
-copies produce identical worlds and scans from the same seed.
+tested on a dumped sequence), and :func:`make_imu_between` (gyro and
+accel samples from the ground truth, for the IMU path). They are copied,
+not imported, because importing any module of the JAX package runs that
+package's ``__init__``; ``tests/test_torch_io.py``,
+``tests/test_torch_cli.py`` and ``tests/test_torch_imu.py`` check that both
+copies produce identical worlds, scans and samples from the same seed.
 """
 
 from __future__ import annotations
@@ -622,3 +624,41 @@ def render_scan(
     # radial range noise (real LiDAR noise is along the beam)
     pts_s = pts_s * (1.0 + rng.normal(scale=noise, size=len(pts_s)) / r)[:, None]
     return pts_s.astype(np.float32)
+
+
+def make_imu_between(
+    world: SyntheticWorld, frame: int, rate_hz: float, rng, gyro_noise=0.002,
+    gyro_bias=np.zeros(3),
+):
+    """Synthesize gyro samples between frame-1 and frame from ground truth.
+
+    Returns [S, 7] rows of (stamp, wx, wy, wz, ax, ay, az) in the body frame,
+    mirroring the reference's ImuMeas layout (odom.h:151-164).
+    """
+    if frame == 0:
+        return np.zeros((0, 7))
+    t0, t1 = world.stamps[frame - 1], world.stamps[frame]
+    n = max(int((t1 - t0) * rate_hz), 2)
+    ts = np.linspace(t0, t1, n)
+    R0 = world.poses[frame - 1][:3, :3]
+    R1 = world.poses[frame][:3, :3]
+    # constant body angular velocity over the interval: w = log(R0^T R1)/dt
+    dR = R0.T @ R1
+    cos_t = np.clip((np.trace(dR) - 1) / 2, -1, 1)
+    theta = np.arccos(cos_t)
+    if theta < 1e-9:
+        w = np.zeros(3)
+    else:
+        w = (
+            theta
+            / (2 * np.sin(theta))
+            * np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]])
+        ) / (t1 - t0)
+    out = np.zeros((n, 7))
+    out[:, 0] = ts
+    out[:, 1:4] = w + gyro_bias + rng.normal(scale=gyro_noise, size=(n, 3))
+    # specific force for slow platforms ~= gravity reaction in the BODY
+    # frame (R^T g z-hat): a tilted body reads tilted gravity, which is
+    # what gravity alignment (odom.cc:535-579) consumes
+    out[:, 4:7] = R0.T @ np.array([0, 0, 9.81])
+    return out

@@ -143,14 +143,15 @@ _DTYPES = {
 
 
 def state_to_numpy(state: OdomState) -> dict[str, np.ndarray]:
-    """Flatten a state into numpy arrays keyed by field path."""
+    """Flatten a state into numpy arrays keyed by field path. The arrays are
+    copies, also on the CPU: later steps write the ring in place."""
     out = {}
     for name, value in state._asdict().items():
         if name == "keyframes":
             for kname, kvalue in value._asdict().items():
-                out[f"keyframes.{kname}"] = kvalue.detach().cpu().numpy()
+                out[f"keyframes.{kname}"] = kvalue.detach().to("cpu", copy=True).numpy()
         else:
-            out[name] = value.detach().cpu().numpy()
+            out[name] = value.detach().to("cpu", copy=True).numpy()
     return out
 
 

@@ -7,8 +7,7 @@ Counterpart of the JAX package's ``ops/voxel.py`` (replaces
    min corner (clamped to 1024 cells per axis);
 2. sort by a key that is bijective with the voxel, so one sort groups
    equal voxels;
-3. mark segment starts, number segments by prefix sum and scatter-add
-   points into per-voxel accumulators;
+3. mark segment starts and number segments by prefix sum;
 4. centroid = sum / count, emitted compacted to the front.
 
 The reference's keys and Bresenham products are uint32; here they are
@@ -16,8 +15,13 @@ int64 holding the same values, with explicit 32-bit wraparound where the
 reference relies on it (:func:`_scramble`). Sorts are stable; the
 reference's ``lax.sort`` leaves the order of equal keys unspecified, so
 outputs agree with it as sets (centroids to float rounding), not slot by
-slot. ``index_add_`` has no drop mode: scatters go into ``cap + 1`` rows
-and the last row, the "dropped" slot, is discarded.
+slot. Dropped points go to slot ``cap``, which is discarded.
+
+A voxel's sum is the difference of two float64 prefix sums over the
+sorted points, not a float scatter-add: on the card ``index_add_`` of
+floats accumulates through atomics in no fixed order, so two runs over the
+same frames would differ in the last bits of the centroids and their
+trajectories would drift apart.
 """
 
 from __future__ import annotations
@@ -68,17 +72,25 @@ def _scramble(ids: torch.Tensor) -> torch.Tensor:
 def _segment_mean(
     spts: torch.Tensor, slot: torch.Tensor, cap: int
 ) -> PointCloud:
-    """Scatter-add sorted points into ``cap`` voxel slots (slot ``cap`` =
-    dropped) and emit the centroids compacted to the front."""
+    """Mean of the sorted points per voxel slot in [0, cap) (slot ``cap`` =
+    dropped), emitted compacted to the front. The rows of one slot are
+    contiguous, so its sum is ``prefix[last + 1] - prefix[last + 1 - count]``
+    over float64 prefix sums of the kept rows: the same bits on every run.
+    Dropped rows are zeroed first (the 1e6 pad would cost the prefix its
+    precision)."""
     n = spts.shape[0]
+    dev = spts.device
     slot = torch.clamp(slot, max=cap)
-    sums = torch.zeros((cap + 1, 3), dtype=torch.float32, device=spts.device)
-    sums.index_add_(0, slot, spts)
-    counts = torch.zeros((cap + 1,), dtype=torch.float32, device=spts.device)
-    counts.index_add_(0, slot, torch.ones((n,), dtype=torch.float32, device=spts.device))
-    sums, counts = sums[:cap], counts[:cap]
+    counts = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
+    counts.index_add_(0, slot, torch.ones((n,), dtype=torch.int64, device=dev))  # exact in any order
+    last = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, slot, torch.arange(n, device=dev), reduce="amax")
+    prefix = torch.zeros((n + 1, 3), dtype=torch.float64, device=dev)
+    prefix[1:] = torch.cumsum(torch.where((slot < cap)[:, None], spts, 0.0).to(torch.float64), dim=0)
+    counts, last = counts[:cap], last[:cap]
+    sums = prefix[last + 1] - prefix[last + 1 - counts]
     out_mask = counts > 0
-    centroids = sums / torch.clamp(counts, min=1.0)[..., None]
+    centroids = (sums / torch.clamp(counts, min=1)[..., None]).to(torch.float32)
     centroids = torch.where(out_mask[..., None], centroids, PAD_VALUE)
     return PointCloud(points=centroids, mask=out_mask)
 

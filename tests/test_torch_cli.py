@@ -8,6 +8,7 @@ identical to their originals.
 
 import dataclasses
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +27,14 @@ from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
 from direct_lidar_odometry_tpu_torch.utils import checkpoint as tckpt, profiling as tprof
 from tests.test_pallas_e2e import _scans, pallas_cfg, sparse_world  # noqa: F401
 
-SMALL = [
+SHAPES = [
     "--set", "shapes.n_raw=8192", "--set", "shapes.n_scan=2048",
     "--set", "shapes.n_keyframe=1024", "--set", "shapes.max_keyframes=16",
     "--set", "shapes.max_submap_kf=4", "--set", "shapes.n_submap_flat=4096",
-    "--set", "shapes.hull_directions=16", "--set", "posegraph.use=false",
+    "--set", "shapes.hull_directions=16",
 ]
+SMALL = SHAPES + ["--set", "posegraph.use=false"]
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _run_cli(argv, capsys):
@@ -86,6 +89,19 @@ def test_cli_kitti_path_in_process(tmp_path, capsys):
                           capsys)
     assert summary["frames"] == 6
     assert summary["ate_rmse_m"] < 0.15, summary
+
+
+def test_cli_shipped_config_with_loop_closure(tmp_path, capsys):
+    """cfg/tpu_dlo.yaml as shipped (posegraph on) at small shapes: the run
+    exits 0 and the summary carries the loop-closure counts. check_every=3
+    makes the runner ask for a round (none is due: too few keyframes)."""
+    summary, _ = _run_cli(
+        ["--synthetic", "6", "--config", str(REPO / "cfg" / "tpu_dlo.yaml"), "--device", "cpu",
+         "--quiet", "--eval", "--out-dir", str(tmp_path), "--set", "posegraph.check_every=3"]
+        + SHAPES, capsys)
+    assert summary["frames"] == 6
+    assert summary["refine_rounds"] == 0 and summary["loop_edges_accepted"] == 0
+    assert summary["ate_rmse_m"] < 0.5
 
 
 def test_cli_device_cuda_without_card_raises(tmp_path):

@@ -97,7 +97,10 @@ def test_port_imports_no_jax():
         "direct_lidar_odometry_tpu_torch.cli, "
         "direct_lidar_odometry_tpu_torch.utils.checkpoint, "
         "direct_lidar_odometry_tpu_torch.odometry.mapper, "
-        "direct_lidar_odometry_tpu_torch.ops.cuda_gicp\n"
+        "direct_lidar_odometry_tpu_torch.ops.cuda_gicp, "
+        "direct_lidar_odometry_tpu_torch.odometry.loopclosure, "
+        "direct_lidar_odometry_tpu_torch.odometry.imu, "
+        "direct_lidar_odometry_tpu_torch.parallel.posegraph\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -274,6 +277,26 @@ def test_voxel_filters_match_reference_as_sets(fn, res, cap):
     if fn == "voxel_downsample_morton":
         # output in Z order of the voxel grid, as the reference's
         np.testing.assert_allclose(_np(out.points)[:n], np.asarray(ref.points)[:n], atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", ["voxel_downsample_morton", "voxel_downsample"])
+def test_voxel_centroids_are_exact_float64_means(fn):
+    """Each centroid is its voxel's float64 mean rounded once to float32:
+    the sums are prefix-sum differences, independent of accumulation order
+    (a float scatter-add on the card is not)."""
+    pts, mask = _cloud(8, n=4096, extent=12.0)
+    res = 0.5
+    out = getattr(tvoxel, fn)(tcloud.PointCloud(_t(pts), _t(mask)), res, 4096)
+    p = pts[mask].astype(np.float64)
+    origin = pts[mask].min(axis=0)
+    vox = np.clip(np.floor((pts[mask] - origin) / np.float32(res)), 0, 1023).astype(np.int64)
+    _, group = np.unique(vox, axis=0, return_inverse=True)
+    group = group.reshape(-1)
+    means = np.zeros((group.max() + 1, 3))
+    np.add.at(means, group, p)
+    means /= np.bincount(group)[:, None]
+    np.testing.assert_array_equal(_as_sorted_rows(_np(out.points), _np(out.mask)),
+                                  _as_sorted_rows(means.astype(np.float32), np.ones(len(means), bool)))
 
 
 # --------------------------------------------------------------------- eigh3

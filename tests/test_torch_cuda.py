@@ -193,3 +193,58 @@ def test_runner_on_cuda_uses_kernels(dev, backend):
     if backend != "pallas":
         assert cuda_nn.launches["cuda"] == 0
     assert np.isfinite(runner.trajectory()).all()
+
+
+def _drifted_loop_graph(k=96, radius=15.0, seed=3):
+    """A circle of ``k`` keyframe poses that drifted over eight keyframes
+    half way round, chained from the drifted estimates (the chain edges of
+    the drifting stretch down-weighted, as the health weighting of
+    ``loopclosure.build_refinement_graph`` does), plus one exact loop edge
+    (0, k-1); with the ground-truth positions."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.parallel import posegraph
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(k) / k
+    gt = np.tile(np.eye(4), (k, 1, 1))
+    c, s = np.cos(a + np.pi / 2), np.sin(a + np.pi / 2)
+    gt[:, 0, 0], gt[:, 0, 1], gt[:, 1, 0], gt[:, 1, 1] = c, -s, s, c
+    gt[:, :3, 3] = np.column_stack([radius * np.cos(a), radius * np.sin(a), np.zeros(k)])
+    gt = np.linalg.inv(gt[0])[None] @ gt
+    est = gt.copy()
+    drift = np.cumsum(rng.normal(scale=0.05, size=(8, 3)), axis=0)
+    for t in range(k // 2, k):
+        est[t, :3, 3] += drift[min(t - k // 2, 7)]
+    est = torch.from_numpy(est.astype(np.float32))
+    chain = posegraph.odometry_chain_graph(
+        est[:, :3, 3], se3.rotmat_to_quat(est[:, :3, :3]), torch.tensor(k))
+    loop_rel = torch.from_numpy((np.linalg.inv(gt[0]) @ gt[k - 1]).astype(np.float32))[None]
+    graph = posegraph.PoseGraph(
+        poses=chain.poses, pose_mask=chain.pose_mask,
+        edges=torch.cat([chain.edges, torch.tensor([[0, k - 1]])]),
+        rel=torch.cat([chain.rel, loop_rel]),
+        edge_mask=torch.cat([chain.edge_mask, torch.tensor([True])]),
+        weights=torch.cat([torch.where((chain.edges[:, 1] >= k // 2) & (chain.edges[:, 1] < k // 2 + 8),
+                                       0.01, chain.weights), torch.tensor([2.0])]),
+    )
+    return graph, gt[:, :3, 3]
+
+
+def test_posegraph_refine_on_card_matches_cpu(dev):
+    """The dense Gauss-Newton on the card agrees with the CPU run within
+    1e-4 m: the einsums and the [6K, 6K] solve stay in full float32 (TF32
+    off), and the loop edge repairs the drifted half."""
+    from direct_lidar_odometry_tpu_torch.parallel import posegraph
+
+    graph, gt_pos = _drifted_loop_graph()
+    torch.backends.cuda.matmul.allow_tf32 = True  # refine must pin it off itself
+    cpu_poses, cpu_err = posegraph.refine(graph, iterations=10)
+    card = posegraph.PoseGraph(*(t.to(dev) for t in graph))
+    card_poses, card_err = posegraph.refine(card, iterations=10)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = card_poses.cpu().numpy()
+    np.testing.assert_allclose(got[:, :3, 3], cpu_poses.numpy()[:, :3, 3], atol=1e-4)
+    assert abs(float(card_err) - float(cpu_err)) <= 1e-3 * abs(float(cpu_err)) + 1e-6
+    before = np.linalg.norm(graph.poses.numpy()[:, :3, 3] - gt_pos, axis=-1).mean()
+    after = np.linalg.norm(got[:, :3, 3] - gt_pos, axis=-1).mean()
+    assert after < before

@@ -1,6 +1,8 @@
 """Parity of the port's odometry modules (adaptive, hulls, keyframes, submap,
 state) with the JAX package, on identical numpy inputs."""
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -194,11 +196,24 @@ def test_runner_refuses_missing_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"imu.use": True}, {"posegraph.use": True}, {"host_preprocess": True},
-    {"map.carry_intensity": True}, {"nn_backend": "hashgrid"},
+    {"host_preprocess": True}, {"map.carry_intensity": True}, {"nn_backend": "hashgrid"},
 ])
 def test_runner_refuses_unported_options(override):
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
 
     with pytest.raises(NotImplementedError, match="not yet ported"):
         OdometryRunner(tcfg.load_config(None, override), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"imu.use": True}, {"posegraph.use": True}, {"gravity_align": True},
+])
+def test_runner_constructs_with_ported_options(override):
+    """The IMU prior, gravity alignment and loop closure are ported; the
+    shipped config (posegraph on) constructs as well."""
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+
+    runner = OdometryRunner(tcfg.load_config(None, override), device="cpu")
+    assert (runner.imu is not None) == runner.cfg.imu.use
+    shipped = Path(__file__).resolve().parent.parent / "cfg" / "tpu_dlo.yaml"
+    OdometryRunner(tcfg.load_config(str(shipped), override), device="cpu")
