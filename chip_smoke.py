@@ -10,21 +10,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    sm_90a) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the per-frame path at ``cfg/tpu_dlo.yaml`` sizes, from
-   Morton-sorted clouds of rendered OS1-64 scans: K2 (1-NN) and K4 (its
-   distance-expansion variant) with 32768 queries against a 65536-point
-   submap at r = 0.5, 1.0, 1.5; K1 (radius moments) over a 32768-point
-   scan at r = 0.75 and a 16384-point keyframe at r = 1.5; K3 (fused GICP
+   Morton-sorted clouds of rendered OS1-64 scans: K2 (1-NN; idx and d2
+   bitwise equal to the plain version) with 32768 queries against the
+   65536-point submap at r = 0.5, 1.0, 1.5 (S2M), against the previous
+   32768-point scan at r = 1.0 (S2S) and at a loop edge's shape (a
+   16384-point keyframe against another at the 2 m loop gate); K4 (the
+   distance-expansion variant) at the S2M shapes; K1 (radius moments)
+   over a 32768-point scan at r = 0.75 and a 16384-point keyframe at
+   r = 1.5; K3 (fused GICP
    linearization) at the S2M shape (32768-point scan with K1 normals
    against the 65536-point submap with keyframe normals, r = 0.5) and the
    S2S shape (32768 x 32768, r = 1.0), cold and warm-started; K5
    (exhaustive 1-NN) at 32768 x 65536; K6 (exhaustive moments) over the
-   32768-point scan at r = 0.75. Prints agreement and median times (CUDA
-   events, 20 runs);
+   32768-point scan at r = 0.75. K1 and K2 run twice and must repeat bit
+   for bit. Prints agreement, median times (CUDA events, 20 runs), the
+   pairs each kernel evaluates on these inputs (its visited chunks, or
+   every valid target) and its bound (FLOP over the H100's fp32 peak or
+   bytes over its memory rate, the larger), and the time of a
+   library call that computes the same function where one exists;
 4. drive ``OdometryRunner(cfg, device="cuda")`` (backend "pallas",
    ``cfg/tpu_dlo.yaml`` as shipped, loop closure on) over 30 frames of the
    ray-cast urban world with every launch counter reset just before, and
    check the trajectory (ATE), the S2M correspondences of every frame,
-   that K1 and K2 were launched and that no plain version ran;
+   that K1 and K2 were launched, that no plain version ran and that no
+   128-query candidate list was built (``cuda_nn.candidate_calls``); then
+   profile six steady frames of a fresh runner: device operations
+   (kernels, copies, sets) per frame, their summed and their merged
+   (overlap counted once) device time, by kind and by name, against the
+   wall time of the same profiled window;
 5. call the port's CLI (``cli.main``) in-process on the same 30 frames at
    full widths, once on backend "pallas_fused" (K3) and once on
    "pallas_mxu" (K4), with ``--eval --map-ply --checkpoint``, counters reset
@@ -64,6 +77,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -75,12 +89,17 @@ BURST = range(40, 80)   # phase 7's degraded stretch
 IMU_FRAMES = 40         # phase 8: the phase-7 scans before the burst
 CHUNK = 8
 TIMING_RUNS = 20
+SLEEP_CYCLES = 5_000_000  # ~3 ms of device sleep ahead of each timed call
 K2_TOL_REL = 2.0**-14   # near-tie slack between two winners' d2
 K2_BORDER = 1e-6        # |d2 - r^2| <= K2_BORDER * r^2 counts as on the boundary
 K2_FOUND_AGREE = 0.9999
 K1_ATOL, K1_RTOL = 1e-3, 1e-5
 K4_SLACK = 2e-3          # m^2: the expansion's cancellation error at map-scale coordinates
 K3_REL = 2e-4            # max|dH| <= K3_REL * max|H|, the same form for b and the error
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+PROFILED_FRAMES = 6
 REPO = Path(__file__).resolve().parent
 CFG_PATH = REPO / "cfg" / "tpu_dlo.yaml"
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
@@ -120,18 +139,43 @@ def read_counters() -> dict:
 
 
 def cuda_median_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """Median device time of one call of ``fn`` between two CUDA events.
+    Each run queues the events and the call behind a device sleep of
+    SLEEP_CYCLES, so the device runs the call's work back to back and the
+    events do not time the host's dispatch of it (a wrapper's Python costs
+    more than a short kernel)."""
     fn()  # warm-up
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take (ms): the larger of the FLOP over
+    the fp32 peak and the bytes over the memory rate, and which it is."""
+    t_op = flop / PEAK_FP32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors: each input read once, each output written once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def with_bound(case: dict, flop: float, moved: int) -> dict:
+    t, by = bound(flop, moved)
+    case.update(flop=flop, bytes=moved, bound_ms=t, bound_by=by, bound_share=t / case["ms"])
+    return case
 
 
 def make_world():
@@ -148,11 +192,15 @@ def make_world():
 
 
 def kernel_inputs(cfg, world, scans, dev):
-    """Morton-sorted clouds as the per-frame path builds them: the frame-4
-    scan in the world frame with its K1 normals rotated along (queries of
-    K2, K4, K3), a submap of the frame 0-3 keyframe clouds with their
-    normals (the S2M target), the frame-3 scan in the world frame with its
-    normals (the S2S target), the frame-0 scan and keyframe (K1, K6)."""
+    """Morton-sorted clouds as the per-frame path builds them: ``queries``,
+    the frame-4 scan in the world frame with its K1 normals rotated along
+    (queries of K2, K4, K3); ``submap``, the frame 0-3 keyframe clouds with
+    their normals (the S2M target); ``s2s``, the frame-3 scan in the world
+    frame with its normals (the S2S target); ``scan0`` and ``kf0``, the
+    frame-0 scan and keyframe (K1, K6); and a loop edge's shape,
+    ``edge_src``, the frame-3 keyframe cloud, against ``edge_tgt``, the
+    frame-0 keyframe as a GICP target (both in the world frame, as the
+    keyframe store holds them)."""
     from direct_lidar_odometry_tpu_torch.core import cloud as cl, se3
     from direct_lidar_odometry_tpu_torch.odometry import keyframes, pipeline
     from direct_lidar_odometry_tpu_torch.ops import morton
@@ -173,19 +221,20 @@ def kernel_inputs(cfg, world, scans, dev):
         return gicp.GicpSource(pts.contiguous(), scan.mask,
                                (nrm.normals @ pose[:3, :3].T).contiguous(), nrm.valid)
 
-    kfs = []
+    kfs, kf_clouds = [], []
     for t in range(4):
         scan, pose = scan_at(t)
         kc, kn = keyframes.make_keyframe_cloud(scan, pose, cfg)
         kfs.append((kc.points, kc.mask, kn.normals, kn.valid))
+        kf_clouds.append(kc)
         if t == 0:
-            scan0, kf0 = scan, kc
+            scan0 = scan
     sm_pts, sm_msk, sm_nrm, sm_val = (torch.cat(parts) for parts in zip(*kfs))
     z = morton.sort_order(sm_pts, sm_msk)
     submap = gicp.make_target(*(a[z].contiguous() for a in (sm_pts, sm_msk, sm_nrm, sm_val)))
-    s3 = world_scan(3)
-    s2s_target = gicp.make_target(*s3)
-    return world_scan(4), submap, s2s_target, scan0, kf0
+    return SimpleNamespace(
+        queries=world_scan(4), submap=submap, s2s=gicp.make_target(*world_scan(3)),
+        scan0=scan0, kf0=kf_clouds[0], edge_src=kf_clouds[3], edge_tgt=gicp.make_target(*kfs[0]))
 
 
 def candidates(queries, targets, radius):
@@ -197,7 +246,7 @@ def candidates(queries, targets, radius):
 
 
 def check_nn1(name, kernel, plain, queries, targets, radius):
-    """A pruned 1-NN kernel (K2 or K4) against its plain version: found
+    """A candidate-list 1-NN kernel (K4) against its plain version: found
     agrees except on the r^2 boundary, winners' d2 within 2^-14 relative."""
     cand, counts = candidates(queries, targets, radius)
     args = (queries.points, queries.mask, targets.points, targets.mask)
@@ -233,12 +282,71 @@ def check_nn1(name, kernel, plain, queries, targets, radius):
     return case, ik
 
 
-def check_k2(queries, targets, radius):
+def check_k2(queries, targets, radius, label):
+    """K2 against its plain version: idx and d2 bitwise equal, and two
+    launches bitwise equal. The pairs are counted from the kernel's own
+    candidate lists (its ``visits`` output)."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_nn
 
-    case, _ = check_nn1("K2", cuda_nn.nn1_pruned, cuda_nn.nn1_plain, queries, targets, radius)
+    q, t = queries.points, targets.points
+    args = (q, queries.mask, t, targets.mask, targets.chunk_lo, targets.chunk_hi, radius)
+    visits = torch.zeros(q.shape[0] // cuda_nn.SUB_TILE, dtype=torch.int32, device=q.device)
+    ik, dk = cuda_nn.nn1_pruned(*args, visits)
+    ik2, dk2 = cuda_nn.nn1_pruned(*args)
+    ip, dp = cuda_nn.nn1_plain(q, queries.mask, t, targets.mask, radius)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ik, ip)) and bool(torch.equal(dk, dp))
+    repeat = bool(torch.equal(ik, ik2)) and bool(torch.equal(dk, dk2))
+    fk = ik >= 0
+    live = visits[visits > 0].float()
+    pairs = int(visits.sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
+    ms = cuda_median_ms(lambda: cuda_nn.nn1_pruned(*args))
+    plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_plain(q, queries.mask, t, targets.mask, radius))
+    case = dict(
+        shape=label, radius=radius, queries=int(q.shape[0]), valid=int(queries.mask.sum()),
+        targets=int(t.shape[0]), chunks=int(targets.chunk_lo.shape[1]),
+        live_subtiles=int(live.numel()), subtiles=int(visits.numel()),
+        candidates_mean=float(live.mean()), candidates_max=int(live.max()), pairs=pairs,
+        found=int(fk.sum()), identical=same, repeatable=repeat,
+        max_abs_err=float(torch.abs(dk[fk] - dp[fk]).max()) if fk.any() else 0.0,
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+    )
+    # per pair 3 subtractions, 3 products, 2 additions (no FMA contraction)
+    with_bound(case, 8.0 * pairs, nbytes(*args[:6], ik, dk))
     print(f"# K2 nn1_pruned {case}")
+    require(same, f"K2 {label} r={radius}: idx or d2 differ from the plain version")
+    require(repeat, f"K2 {label} r={radius}: two launches differ")
+    require(int(fk.sum()) > 1000, f"K2 {label} r={radius}: only {int(fk.sum())} queries found a neighbour")
     return case
+
+
+def k4_visited_chunks(queries, targets, cand, counts, radius) -> int:
+    """The (tile, chunk) visits of K4 on these inputs, by replaying its
+    early exit: a tile walks its gap-sorted list and stops at the first
+    chunk whose quantized gap exceeds every query's bound (r^2 for a valid
+    query, 0 for an invalid one, lowered by each visited chunk's nearest
+    expansion d2 below it, from the plain version in the kernel's order)."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    q, qm, t, tm = queries.points, queries.mask, targets.points, targets.mask
+    n_chunks, chunk = t.shape[0] // cuda_nn.CHUNK, cuda_nn.CHUNK
+    nearest = torch.stack([  # [Q, C]: each chunk's nearest d2 below r^2, else +inf
+        cuda_nn.nn1_mxu_plain(q, qm, t[c * chunk:(c + 1) * chunk].contiguous(),
+                              tm[c * chunk:(c + 1) * chunk].contiguous(), radius)[1]
+        for c in range(n_chunks)], dim=1)
+    n_tiles, n_c = cand.shape
+    gap_unit = float(np.float32(float(radius) * float(radius) / cuda_nn._GAP_SCALE))
+    gap = (cand >> cuda_nn.IDX_BITS).to(torch.float32) * gap_unit            # [tiles, n_c]
+    col = (cand & ((1 << cuda_nn.IDX_BITS) - 1)).long().clamp(max=n_chunks - 1)
+    seen = torch.gather(nearest.view(n_tiles, cuda_nn.TILE, n_chunks), 2,
+                        col[:, None, :].expand(-1, cuda_nn.TILE, -1))           # [tiles, TILE, n_c]
+    start = torch.where(qm, cuda_nn.f32_radius2(radius), 0.0).view(n_tiles, cuda_nn.TILE, 1)
+    before = torch.cat([start, torch.minimum(start, torch.cummin(seen, dim=2).values[..., :-1])],
+                       dim=2)                                                 # bound before chunk k
+    listed = torch.arange(n_c, device=cand.device)[None, :] < counts[:, None]
+    stop = listed & ~torch.any(gap[:, None, :] <= before, dim=1)
+    first_stop = torch.where(stop.any(dim=1), stop.int().argmax(dim=1), counts.long())
+    return int(first_stop.sum())
 
 
 def check_k4(queries, targets, radius):
@@ -265,7 +373,15 @@ def check_k4(queries, targets, radius):
     gap = float((dxk[both] - de[both]).max()) if both.any() else 0.0
     reported = bool(torch.equal(d2[found], dxk[found])) and bool(torch.equal(idx[found], ik[found].long()))
     case.update(vs_exact_found_differ=int((fk != fe).sum()), vs_exact_max_d2_gap=gap,
-                vs_exact_idx_same=float((ik[both] == ie[both]).float().mean()))
+                vs_exact_idx_same=float((ik[both] == ie[both]).float().mean()), library_ms=None)
+    # the chunks K4 visits before its early exit; per pair 3 products and 2
+    # additions for q.t, |q|^2 + |t|^2, 2 q.t, the subtraction and the max
+    cand, counts = candidates(queries, targets, radius)
+    visited = k4_visited_chunks(queries, targets, cand, counts, radius)
+    pairs = visited * cuda_nn.TILE * cuda_nn.CHUNK
+    case.update(pairs=pairs, listed_chunks=int(counts.sum()), visited_chunks=visited)
+    with_bound(case, 9.0 * pairs, nbytes(queries.points, queries.mask, targets.points,
+                                         targets.mask, cand, counts, ik, de))
     print(f"# K4 nn1_pruned_mxu {case}")
     require(border_ok, f"K4 r={radius}: found differs from the exact search off the r^2 slack")
     require(gap < K4_SLACK, f"K4 r={radius}: a winner is {gap:.2e} m^2 beyond the nearest")
@@ -295,25 +411,40 @@ def moments_agree(name, mk, mp, cloud, rows, radius):
     return n_cnt_diff, float(err.max())
 
 
-def check_k1(cloud, radius):
-    from direct_lidar_odometry_tpu_torch.ops import cuda_cov
+def check_k1(cloud, radius, label):
+    """K1 over a cloud against itself: counts identical except through a
+    pair on the r^2 boundary, moments within K1_ATOL + K1_RTOL |plain|, two
+    launches bitwise equal; pairs from the kernel's own candidate lists."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_nn, morton
 
-    cand, counts = candidates(cloud, cloud, radius)
-    args = (cloud.points, cloud.mask, cloud.points, cloud.mask)
-    mk = cuda_cov.cov_pruned(*args, cand, counts, radius)
-    mp = cuda_cov.cov_plain(*args, radius)
+    p, m = cloud.points, cloud.mask
+    clo, chi = morton.chunk_aabbs(p, m, morton.TARGET_CHUNK)
+    args = (p, m, p, m, clo, chi, radius)
+    visits = torch.zeros(p.shape[0] // cuda_nn.SUB_TILE, dtype=torch.int32, device=p.device)
+    mk = cuda_cov.cov_pruned(*args, visits)
+    mk2 = cuda_cov.cov_pruned(*args)
+    mp = cuda_cov.cov_plain(p, m, p, m, radius)
     torch.cuda.synchronize()
-    v = cloud.mask
-    n_cnt_diff, max_err = moments_agree("K1", mk, mp, cloud, v, radius)
-    ms = cuda_median_ms(lambda: cuda_cov.cov_pruned(*args, cand, counts, radius))
-    plain_ms = cuda_median_ms(lambda: cuda_cov.cov_plain(*args, radius))
-    prep_ms = cuda_median_ms(lambda: candidates(cloud, cloud, radius))
+    n_cnt_diff, max_err = moments_agree("K1", mk, mp, cloud, m, radius)
+    repeat = bool(torch.equal(mk, mk2))
+    live = visits[visits > 0].float()
+    pairs = int(visits.sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
+    in_radius = float(mp[m, 0].sum())
+    ms = cuda_median_ms(lambda: cuda_cov.cov_pruned(*args))
+    plain_ms = cuda_median_ms(lambda: cuda_cov.cov_plain(p, m, p, m, radius))
     case = dict(
-        radius=radius, points=int(cloud.points.shape[0]), valid=int(v.sum()),
-        mean_neighbours=float(mp[v, 0].mean()), n_count_diff=n_cnt_diff,
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, candidate_ms=prep_ms,
+        shape=label, radius=radius, points=int(p.shape[0]), valid=int(m.sum()),
+        chunks=int(clo.shape[1]), live_subtiles=int(live.numel()), subtiles=int(visits.numel()),
+        candidates_mean=float(live.mean()), candidates_max=int(live.max()), pairs=pairs,
+        in_radius_pairs=in_radius, mean_neighbours=float(mp[m, 0].mean()),
+        n_count_diff=n_cnt_diff, repeatable=repeat, max_abs_err=max_err,
+        ms=ms, plain_ms=plain_ms, library_ms=None,
     )
+    # 8 FLOP per pair for the distance, 16 more inside the radius (the
+    # count, 3 offset sums, 6 products and 6 sums)
+    with_bound(case, 8.0 * pairs + 16.0 * in_radius, nbytes(p, m, p, m, clo, chi, mk))
     print(f"# K1 cov_pruned {case}")
+    require(repeat, f"K1 {label} r={radius}: two launches differ")
     return case
 
 
@@ -332,7 +463,13 @@ def check_k6(cloud, radius):
                                                          cloud.points, every, radius))
     case = dict(radius=radius, points=int(cloud.points.shape[0]), valid=int(cloud.mask.sum()),
                 mean_neighbours=float(mp[cloud.mask, 0].mean()), n_count_diff=n_cnt_diff,
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None)
+    # every query against every valid target (an invalid one is never in
+    # the radius) at 8 FLOP a pair, 16 more inside the radius
+    pairs = cloud.points.shape[0] * int(cloud.mask.sum())
+    case["pairs"] = pairs
+    with_bound(case, 8.0 * pairs + 16.0 * float(mp[:, 0].sum()),
+               nbytes(cloud.points, cloud.mask, cloud.points, mk))
     print(f"# K6 cov_exhaustive {case}")
     return case
 
@@ -350,9 +487,16 @@ def check_k5(queries, targets):
     max_err = float(torch.abs(dk[v] - dp[v]).max())
     ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive(*args))
     plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive_plain(*args))
+    # the nearest library yardstick: all pairwise distances, then the minimum
+    # (targets as they are, invalid ones at the pad coordinate)
+    library_ms = cuda_median_ms(lambda: torch.cdist(args[0], args[1]).min(dim=1))
     case = dict(queries=int(queries.points.shape[0]), targets=int(targets.points.shape[0]),
                 identical=same, within_0p5m=int((v & (dk < 0.25)).sum()),
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+    # every query against every valid target, 8 FLOP a pair
+    pairs = args[0].shape[0] * int(targets.mask.sum())
+    case["pairs"] = pairs
+    with_bound(case, 8.0 * pairs, nbytes(*args, ik, dk))
     print(f"# K5 nn1_exhaustive {case}")
     require(same, "K5: idx or d2 differ from the plain version")
     return case
@@ -365,7 +509,7 @@ def check_k3(src, target, radius, label):
     bit."""
     from direct_lidar_odometry_tpu_torch.core import se3
     from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud
-    from direct_lidar_odometry_tpu_torch.ops import cuda_gicp
+    from direct_lidar_odometry_tpu_torch.ops import cuda_gicp, cuda_nn
     from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
 
     qw = src.mask & src.normals_valid
@@ -412,8 +556,15 @@ def check_k3(src, target, radius, label):
         error_rel=derr / max(float(sp[27].abs()), 1e-30), seeded_equals_cold=seeded_same,
         visits_cold=float(hk[:, 29].sum()), visits_seeded=float(hs[:, 29].sum()),
         candidates=float(hk[:, 30].sum()), ms=ms, seeded_ms=seeded_ms, plain_ms=plain_ms,
-        candidate_ms=prep_ms,
+        candidate_ms=prep_ms, library_ms=None,
     )
+    # the cold pass's visited pairs at 8 FLOP each, plus ~150 FLOP per
+    # valid query (the kernel skips the others) for the Mahalanobis matrix
+    # and the H/b terms
+    pairs = float(hk[:, 29].sum()) * cuda_nn.TILE * cuda_nn.CHUNK
+    case["pairs"] = pairs
+    with_bound(case, 8.0 * pairs + 150.0 * int(qw.sum()),
+               nbytes(src.points, src.normals, qw, cold, *tgt, cand, counts, hk, pk, ik))
     print(f"# K3 fused_linearize {case}")
     require(corr_ok, f"K3 {label}: correspondences differ beyond 2^-14 near-ties")
     require(dh <= K3_REL * float(sp[:21].abs().max()), f"K3 {label}: H differs by {dh:.3e}")
@@ -431,12 +582,17 @@ def drive(cfg, world, scans, device="cuda"):
     runner = OdometryRunner(cfg, device=device)
     reset_counters()
     sync.reset()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()  # phase 3's library yardstick held ~9 GB
     reads = []
     for t, scan in enumerate(scans):
         before = sync.counts["host_reads"]
         runner.process_scan(scan, float(world.stamps[t]), sync=True)
         reads.append(sync.counts["host_reads"] - before)
     launches = read_counters()
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    candidate_calls = cuda_nn.candidate_calls["calls"]
 
     est = runner.trajectory()
     rmse, path = ate_of(est, world)
@@ -451,7 +607,9 @@ def drive(cfg, world, scans, device="cuda"):
         min_s2m_num_corr=min(corr),
         s2s_iterations=[s.result.s2s_iterations for s in runner.stats[1:]],
         s2m_iterations=[s.result.s2m_iterations for s in runner.stats[1:]],
-        launches=launches,
+        launches=launches, candidate_chunks_calls=candidate_calls,
+        k2_launches_per_frame=launches["nn1_pruned"]["cuda"] / (len(est) - 1),
+        k1_launches_per_frame=launches["cov_pruned"]["cuda"] / (len(est) - 1),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
     print(f"# main path {json.dumps(out)}")
@@ -462,7 +620,72 @@ def drive(cfg, world, scans, device="cuda"):
         require(launches[name]["cuda"] > 0, f"{name} kernel was never launched on the main path")
     for name, cnt in launches.items():
         require(cnt["plain"] == 0, f"{name} plain version ran {cnt['plain']} times on the main path")
+    require(candidate_calls == 0, f"candidate_chunks ran {candidate_calls} times on the main path")
     return out, runner
+
+
+def device_ops_per_frame(cfg, world, scans, device="cuda"):
+    """Phase 4, continued: PROFILED_FRAMES steady frames of a fresh runner
+    on the main path under torch.profiler (the frames before are the
+    runner's warm-up). Per frame: the device operations (kernels, copies,
+    sets), their summed device time, the time the device was busy (their
+    intervals merged, overlaps counted once), each by kind, the eight
+    operations that take the most time, and the wall time of the same
+    profiled window, so the idle share compares two times taken under one
+    protocol (the profiler slows the host, so the share is higher than
+    without it). Reports null where the profiler sees no device activity;
+    it does not gate the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+
+    runner = OdometryRunner(cfg, device=device)
+    first = 1 + WARMUP
+    for t in range(first):
+        runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
+    torch.cuda.synchronize()
+    frames = range(first, first + PROFILED_FRAMES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in frames:
+            runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = len(frames)
+    out = dict(frames=n, device_ops_per_frame=None, profiled_wall_ms_per_frame=wall_ms / n)
+    if ops:
+        def kind(name: str) -> str:
+            return "memcpy" if name.startswith("Memcpy") else (
+                "memset" if name.startswith("Memset") else "kernel")
+
+        summed, busy, count, by_name = {}, {}, {}, {}
+        for k in ("kernel", "memcpy", "memset", "all"):
+            spans = sorted((e.time_range.start, e.time_range.end) for e in ops
+                           if k == "all" or kind(e.name) == k)
+            summed[k] = sum(b - a for a, b in spans) / 1e3 / n
+            count[k] = len(spans) / n
+            merged, end = 0, None
+            for a, b in spans:
+                if end is None or a > end:
+                    merged += b - a
+                    end = b
+                elif b > end:
+                    merged += b - end
+                    end = b
+            busy[k] = merged / 1e3 / n
+        for e in ops:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out.update(
+            device_ops_per_frame=count["all"], ops_per_frame_by_kind=count,
+            device_event_ms_per_frame=summed["all"], device_busy_ms_per_frame=busy["all"],
+            event_ms_per_frame_by_kind=summed, busy_ms_per_frame_by_kind=busy,
+            idle_share_profiled=1.0 - busy["all"] / (wall_ms / n),
+            top_ms_per_frame=[[name[:80], ms] for name, ms in top],
+        )
+    print(f"# main path device ops {json.dumps(out)}")
+    return out
 
 
 def drive_cli(backend, world, device="cuda"):
@@ -779,15 +1002,18 @@ def main() -> int:
     from direct_lidar_odometry_tpu_torch.utils.precision import pin_float32
 
     pin_float32()
-    queries, submap, s2s_target, scan0, kf0 = kernel_inputs(cfg, world, scans, dev)
-    k2 = [check_k2(queries, submap, r) for r in (0.5, 1.0, 1.5)]
-    k4 = [check_k4(queries, submap, r) for r in (0.5, 1.0, 1.5)]
-    k1 = [check_k1(scan0, 0.75), check_k1(kf0, 1.5)]
-    k3 = [check_k3(queries, submap, 0.5, "S2M"), check_k3(queries, s2s_target, 1.0, "S2S")]
-    k5 = check_k5(queries, submap)
-    k6 = check_k6(scan0, 0.75)
+    inp = kernel_inputs(cfg, world, scans, dev)
+    k2 = [check_k2(inp.queries, inp.submap, r, "S2M") for r in (0.5, 1.0, 1.5)]
+    k2.append(check_k2(inp.queries, inp.s2s, 1.0, "S2S"))
+    k2.append(check_k2(inp.edge_src, inp.edge_tgt, cfg.posegraph.loop_corr_distance, "loop edge"))
+    k4 = [check_k4(inp.queries, inp.submap, r) for r in (0.5, 1.0, 1.5)]
+    k1 = [check_k1(inp.scan0, 0.75, "scan"), check_k1(inp.kf0, 1.5, "keyframe")]
+    k3 = [check_k3(inp.queries, inp.submap, 0.5, "S2M"), check_k3(inp.queries, inp.s2s, 1.0, "S2S")]
+    k5 = check_k5(inp.queries, inp.submap)
+    k6 = check_k6(inp.scan0, 0.75)
 
     main_path, runner = drive(cfg, world, scans)
+    device_ops_per_frame(cfg, world, scans)
     cli_fused = drive_cli("pallas_fused", world)
     cli_mxu = drive_cli("pallas_mxu", world)
     oracle = oracle_check(cfg, runner)
@@ -805,7 +1031,9 @@ def main() -> int:
                     replaces=f"direct_lidar_odometry_tpu/ops/{replaces}", path=path,
                     launches=launches[name]["cuda"],
                     max_abs_err=max(c["max_abs_err"] for c in cases),
-                    ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"])
+                    ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+                    bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
+                    library_ms=cases[0]["library_ms"])
 
     kernels = [
         entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192",
@@ -816,7 +1044,7 @@ def main() -> int:
               main_path["launches"], k1),
         entry("fused_linearize", "fused_linearize.cu", "pallas_gicp.py:68", "cli, pallas_fused",
               cli_fused["launches"], k3),
-        entry("nn1_pruned_mxu", "nn1_pruned.cu", "pallas_nn.py:200", "cli, pallas_mxu",
+        entry("nn1_pruned_mxu", "nn1_pruned_mxu.cu", "pallas_nn.py:200", "cli, pallas_mxu",
               cli_mxu["launches"], k4),
         entry("nn1_exhaustive", "nn1_exhaustive.cu", "pallas_nn.py:38",
               "oracle: query_1nn", oracle["launches"], [k5]),

@@ -1,150 +1,142 @@
-// Fixed-radius 1-NN over a Morton-sorted target cloud, by branch-and-bound
-// over gap-sorted candidate chunks: kernel K2 (exact distance) and its
-// expansion variant K4. sm_90a.
+// Fixed-radius 1-NN over a Morton-sorted target cloud, by sub-tiles that
+// pick their own candidate chunks: kernel K2. sm_90a.
 //
-// Replaces the TPU kernels direct_lidar_odometry_tpu/ops/pallas_nn.py:
-// _nn1_pruned_kernel (K2, body _pruned_kernel_body with mxu=False), the
-// correspondence search of every GICP iteration on the "pallas" backend,
-// and _nn1_pruned_kernel_mxu (K4, mxu=True), the search of the
-// "pallas_mxu" backend.
+// Replaces the TPU kernel direct_lidar_odometry_tpu/ops/pallas_nn.py:
+// _nn1_pruned_kernel (body _pruned_kernel_body with mxu=False), the
+// correspondence search of every GICP iteration on the "pallas" backend and
+// of the loop-edge GICP.
 //
-// What it computes: for each query q of a 128-query tile, the index of the
-// nearest target t with d2(q, t) < r^2 (ties go to the lower target index),
-// or -1. K2 uses the coordinate-difference distance over valid targets
-// only. K4 uses d2 = max((|q|^2 + |t|^2) - 2 q.t, 0) over targets whose
-// invalid entries the wrapper folded to the finite padding coordinate 1e6
-// (an infinite coordinate would give inf - inf = NaN in the expansion), with
-// |t|^2 precomputed by the wrapper: its winner may differ from K2's among
-// near-ties within the expansion's cancellation error, which the public
-// entry tolerates by recomputing the winner's exact d2. Each query's bound
-// starts at r^2 (0 for invalid queries, so they never hold the tile open).
-// The TPU kernel ran K4's cross term on its matrix unit at HIGHEST
-// precision; here it is three fp32 products on the CUDA cores, never TF32
-// (TF32's error at 30-60 m coordinates is metres^2).
+// What it computes: for each valid query q, the index of the nearest valid
+// target t with d2(q, t) < r^2, d2 = (dx*dx + dy*dy) + dz*dz rounded as
+// written with dx = qx - tx, ties to the lower target index; -1 and +inf
+// where there is none (and for invalid queries). The wrapper passes the
+// target's [3, C] chunk AABBs; the kernel selects each sub-tile's candidate
+// chunks itself (subtile_search.cuh).
 //
-// What bounds it on the H100: FP32 issue on the distance loop, about 10
-// instructions per pair (K4 about the same: 3 products, 4 adds, a max, a
-// compare and a select); memory traffic is one 6 KB chunk read per visited
-// (tile, chunk), served mostly from L2 since every tile of a frame reads
-// the same target cloud. Design: one thread per query keeps its (d2, idx)
-// minimum in registers; the block stages each visited chunk in shared
-// memory with coalesced loads and every thread then reads the same shared
-// address in lockstep (a broadcast, no bank conflicts). The early exit is
-// one __syncthreads_or per chunk, which is also the barrier that protects
-// the shared chunk before the next load. The TPU kernel's
-// packed-mantissa min-reduce is dropped: registers hold the index exactly,
-// so K2's d2 is exact. Known limit of this first version: 128 threads per
-// block and one block per tile leave most of each SM's thread slots empty
-// at 256 tiles per call.
+// What bounds it on the H100: FP32 issue on the distance loop, about 14
+// instructions per pair (a 16-byte shared broadcast, 3 subtractions, 3
+// products, 2 additions, a compare and two selects); the bytes are small
+// (the clouds once, each chunk a 6 KB read from L2 per visiting sub-tile).
+// Only a third of a scan's 32768 slots hold a valid point (invalid ones
+// sort last), so one block of 128 threads per 128-query tile, each thread
+// walking all 512 targets of every candidate chunk alone, would leave ~85
+// live blocks of 4 warps on 132 SMs with up to 15 x 512 dependent
+// iterations a thread. Instead a block of 256 threads owns 32 queries and
+// each warp scans a 64-target slice of every candidate chunk: ~330 live
+// blocks of 8 warps, the longest thread walking 64 targets per candidate,
+// and the next chunk's copy overlapping the compute. Each thread
+// keeps a strict-< minimum over its slices in ascending target order (so
+// the first of equal d2 wins), and the block merges its 8 partial minima of
+// each query as packed 64-bit keys (float bits of d2 << 32 | index): d2 >= 0
+// orders as unsigned, equal d2 fall to the lower index, so the merge is
+// exact and independent of order. The bound starts at r^2 (0 for invalid
+// queries), so a d2 equal to r^2 is never found. The TPU kernel's gap-sorted
+// branch-and-bound exit is dropped: it skipped ~2 % of the candidate chunks
+// at the per-frame shapes and changes no result. No tensor cores: TF32's
+// error at 30-60 m coordinates is metres^2, and the neighbours are exact.
 
-#include "chunk_ops.cuh"
+#include "subtile_search.cuh"
 
 namespace {
 
 using namespace dlo;
 
-template <bool kExpansion>
-__global__ void __launch_bounds__(kTile) nn1_pruned_kernel(
-    const float* __restrict__ queries,   // [Q, 3]
-    const uint8_t* __restrict__ qmask,   // [Q]
-    const float* __restrict__ targets,   // [T, 3] (K4: invalid folded to 1e6)
-    const uint8_t* __restrict__ tmask,   // [T] (K2 only)
-    const float* __restrict__ t2,        // [T] |t|^2 (K4 only)
-    const int32_t* __restrict__ cand,    // [Qc, n_c] packed gap+index words
-    const int32_t* __restrict__ counts,  // [Qc]
-    int n_c, float radius2, float gap_unit,
-    int32_t* __restrict__ out_idx,       // [Q]
-    float* __restrict__ out_d2) {        // [Q]
-  __shared__ float s_x[kChunk];
-  __shared__ float s_y[kChunk];
-  __shared__ float s_z[kChunk];
-  __shared__ float s_t2[kExpansion ? kChunk : 1];
+__global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
+    const float* __restrict__ queries,    // [Q, 3]
+    const uint8_t* __restrict__ qmask,    // [Q]
+    const float* __restrict__ targets,    // [T, 3], T = 512 C
+    const uint8_t* __restrict__ tmask,    // [T]
+    const float* __restrict__ chunk_lo,   // [3, C] masked chunk AABBs
+    const float* __restrict__ chunk_hi,   // [3, C]
+    int n_chunks, float radius2,
+    int32_t* __restrict__ out_idx,        // [Q]
+    float* __restrict__ out_d2,           // [Q]
+    int32_t* __restrict__ visits) {       // [Q / 32] candidate chunks, or null
+  __shared__ float4 s_buf[2][kChunk];
+  __shared__ uint32_t s_bits[kBitWords];
 
-  const int tile = blockIdx.x;
-  const int q = tile * kTile + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * kSub + lane;
   const float qx = queries[3 * q + 0];
   const float qy = queries[3 * q + 1];
   const float qz = queries[3 * q + 2];
-  const float q2 = kExpansion ? dist2_rn(qx, qy, qz) : 0.0f;
-  float best = qmask[q] ? radius2 : 0.0f;
+  const bool valid = qmask[q] != 0;
+
+  float lo[3], hi[3];
+  if (!subtile_aabb(qx, qy, qz, valid, lo, hi)) {  // the same in every warp
+    if (warp == 0) {
+      out_idx[q] = -1;
+      out_d2[q] = INFINITY;
+    }
+    if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = 0;
+    return;
+  }
+  select_candidates(lo, hi, chunk_lo, chunk_hi, n_chunks, radius2, s_bits);
+  __syncthreads();
+  const int n_words = (n_chunks + 31) >> 5;
+  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = count_candidates(s_bits, n_words);
+
+  float best = valid ? radius2 : 0.0f;
   int best_idx = -1;
-
-  // The walk, the staging and the inner loop are spelled out in the kernel
-  // body: built from helper functions instead, K2 ran 25-45 % slower on the
-  // H100 at the slice shapes with the same instruction count per pair.
-  const int cnt = counts[tile];
-  const int32_t* row = cand + static_cast<size_t>(tile) * n_c;
-  for (int k = 0; k < cnt; ++k) {
-    const int32_t word = row[k];
-    const float gap = static_cast<float>(word >> kIdxBits) * gap_unit;
-    // block-uniform exit: stop once the gap exceeds every query's bound
-    if (!__syncthreads_or(gap <= best)) break;
-    const int base = (word & ((1 << kIdxBits) - 1)) * kChunk;
-    for (int i = threadIdx.x; i < kChunk; i += kTile) {
-      if (kExpansion) {
-        s_x[i] = targets[3 * (base + i) + 0];
-        s_y[i] = targets[3 * (base + i) + 1];
-        s_z[i] = targets[3 * (base + i) + 2];
-        s_t2[i] = t2[base + i];
-      } else {
-        // invalid targets at +inf: their d2 is +inf and never wins
-        const bool ok = tmask[base + i] != 0;
-        s_x[i] = ok ? targets[3 * (base + i) + 0] : INFINITY;
-        s_y[i] = ok ? targets[3 * (base + i) + 1] : INFINITY;
-        s_z[i] = ok ? targets[3 * (base + i) + 2] : INFINITY;
-      }
-    }
-    __syncthreads();
+  int c = next_candidate(s_bits, n_words, 0);
+  bool ok0 = false, ok1 = false;
+  if (c >= 0) stage_issue(s_buf[0], targets, tmask, c, ok0, ok1);
+  // The inner loop is spelled out in the kernel body: built from helper
+  // functions, an earlier K2 ran 25-45 % slower with the same instructions.
+  for (int k = 0; c >= 0; ++k) {
+    float4* buf = s_buf[k & 1];
+    stage_finish(buf, ok0, ok1);
+    __syncthreads();  // chunk c has landed; every warp is done with the other buffer
+    const int next = next_candidate(s_bits, n_words, c + 1);
+    if (next >= 0) stage_issue(s_buf[(k + 1) & 1], targets, tmask, next, ok0, ok1);
+    const float4* sp = buf + warp * kSlice;
+    const int base = c * kChunk + warp * kSlice;
 #pragma unroll 8
-    for (int i = 0; i < kChunk; ++i) {
-      float d2;
-      if (kExpansion) {
-        const float g = __fadd_rn(__fadd_rn(__fmul_rn(qx, s_x[i]), __fmul_rn(qy, s_y[i])),
-                                  __fmul_rn(qz, s_z[i]));
-        d2 = fmaxf(__fsub_rn(__fadd_rn(q2, s_t2[i]), __fmul_rn(2.0f, g)), 0.0f);
-      } else {
-        d2 = dist2_rn(qx - s_x[i], qy - s_y[i], qz - s_z[i]);
-      }
-      const int gi = base + i;
-      if (d2 < best || (d2 == best && best_idx >= 0 && gi < best_idx)) {
+    for (int i = 0; i < kSlice; ++i) {
+      const float4 t = sp[i];
+      const float d2 = dist2_rn(qx - t.x, qy - t.y, qz - t.z);
+      if (d2 < best) {
         best = d2;
-        best_idx = gi;
+        best_idx = base + i;
       }
     }
+    c = next;
   }
-  out_idx[q] = best_idx;
-  out_d2[q] = best_idx >= 0 ? best : INFINITY;
-}
 
-template <bool kExpansion>
-int launch(const void* queries, const void* qmask, const void* targets, const void* tmask,
-           const void* t2, const void* cand, const void* counts, int n_tiles, int n_c,
-           float radius2, float gap_unit, void* out_idx, void* out_d2, void* stream) {
-  if (n_tiles > 0) {
-    nn1_pruned_kernel<kExpansion><<<n_tiles, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
-        static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
-        static_cast<const float*>(t2), static_cast<const int32_t*>(cand),
-        static_cast<const int32_t*>(counts), n_c, radius2, gap_unit,
-        static_cast<int32_t*>(out_idx), static_cast<float*>(out_d2));
+  __syncthreads();  // every warp is done reading the chunks: reuse the buffer
+  auto* s_key = reinterpret_cast<unsigned long long*>(&s_buf[0][0]);  // [kWarps][kSub]
+  s_key[threadIdx.x] = (static_cast<unsigned long long>(__float_as_uint(best)) << 32) |
+                       static_cast<uint32_t>(best_idx);
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long key = s_key[lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const unsigned long long other = s_key[w * kSub + lane];
+      key = other < key ? other : key;
+    }
+    const uint32_t idx = static_cast<uint32_t>(key);
+    const bool found = idx != 0xffffffffu;
+    out_idx[q] = found ? static_cast<int32_t>(idx) : -1;
+    out_d2[q] = found ? __uint_as_float(static_cast<uint32_t>(key >> 32)) : INFINITY;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int dlo_nn1_pruned(
     const void* queries, const void* qmask, const void* targets, const void* tmask,
-    const void* cand, const void* counts, int n_tiles, int n_c,
-    float radius2, float gap_unit, void* out_idx, void* out_d2, void* stream) {
-  return launch<false>(queries, qmask, targets, tmask, nullptr, cand, counts, n_tiles, n_c,
-                       radius2, gap_unit, out_idx, out_d2, stream);
-}
-
-extern "C" int dlo_nn1_pruned_mxu(
-    const void* queries, const void* qmask, const void* targets, const void* t2,
-    const void* cand, const void* counts, int n_tiles, int n_c,
-    float radius2, float gap_unit, void* out_idx, void* out_d2, void* stream) {
-  return launch<true>(queries, qmask, targets, nullptr, t2, cand, counts, n_tiles, n_c,
-                      radius2, gap_unit, out_idx, out_d2, stream);
+    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, float radius2,
+    void* out_idx, void* out_d2, void* visits, void* stream) {
+  if (n_queries % kSub != 0 || n_chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_queries > 0) {
+    nn1_pruned_kernel<<<n_queries / kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
+        static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
+        static_cast<const float*>(chunk_lo), static_cast<const float*>(chunk_hi),
+        n_chunks, radius2, static_cast<int32_t*>(out_idx), static_cast<float*>(out_d2),
+        static_cast<int32_t*>(visits));
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,11 @@ Counterpart of the JAX package's ``ops/pallas_cov.py``: the pruned path
 the per-point covariances behind every scan's and every keyframe's normals,
 and the exhaustive ``radius_moments``.
 
-- :func:`cov_pruned` is the kernel's wrapper. On a CUDA tensor it launches
-  ``csrc/cov_pruned.cu`` over the candidate chunk lists of
-  :func:`ops.cuda_nn.candidate_chunks`; on a CPU tensor it runs
-  :func:`cov_plain`, the exhaustive plain PyTorch version.
+- :func:`cov_pruned` is kernel K1's wrapper. It takes the cloud's chunk
+  AABBs; on a CUDA tensor it launches ``csrc/cov_pruned.cu``, which picks
+  the candidate chunks of each 32-query sub-tile itself (as
+  :func:`ops.cuda_nn.subtile_candidates` computes them); on a CPU tensor it
+  runs :func:`cov_plain`, the exhaustive plain PyTorch version.
 - :func:`radius_moments_sorted` is the public entry with the JAX package's
   signature.
 - :func:`cov_exhaustive` is kernel K6's wrapper (``csrc/cov_exhaustive.cu``,
@@ -29,14 +30,14 @@ from __future__ import annotations
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
+from direct_lidar_odometry_tpu_torch.ops import cuda_build
 from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
     TILE,
     check_exhaustive_inputs,
-    check_kernel_inputs,
-    plain_query_step,
-    candidate_chunks,
+    check_search_inputs,
     f32_radius2,
+    plain_query_step,
+    plain_visits,
 )
 
 N_MOMENTS = 10
@@ -89,20 +90,24 @@ def cov_plain(
 def cov_pruned(
     points: torch.Tensor, mask: torch.Tensor,
     queries: torch.Tensor, query_mask: torch.Tensor,
-    cand: torch.Tensor, counts: torch.Tensor,
-    radius: float,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
+    radius: float, visits: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Wrapper of kernel K1: [Q, 10] moments as :func:`cov_plain`.
 
-    points [T,3] f32 Morton-sorted, T % 512 == 0; queries [Q,3] f32 with
-    Q % 128 == 0; cand/counts from :func:`candidate_chunks` over the query
-    tiles. A CUDA tensor launches the kernel on the current stream (no
-    allocation inside, no synchronization); a CPU tensor runs the plain
-    version, which ignores the candidate lists.
+    points [T,3] f32 Morton-sorted, T % 512 == 0 and T <= 512 * 1024;
+    chunk_lo/chunk_hi its [3, T//512] masked chunk AABBs; queries [Q,3] f32
+    with Q % 128 == 0. The kernel selects the candidate chunks of each
+    32-query sub-tile itself; ``visits`` (optional, int32 [Q // 32])
+    receives each sub-tile's candidate count. A CUDA tensor launches the
+    kernel on the current stream (no allocation inside, no
+    synchronization); a CPU tensor runs the plain version and fills
+    ``visits`` from :func:`ops.cuda_nn.subtile_candidates`.
     """
-    check_kernel_inputs(queries, query_mask, points, mask, cand, counts)
+    check_search_inputs(queries, query_mask, points, mask, chunk_lo, chunk_hi, visits)
     if queries.device.type == "cpu":
         launches["plain"] += 1
+        plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius)
         return cov_plain(points, mask, queries, query_mask, radius)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
@@ -111,8 +116,8 @@ def cov_pruned(
     with torch.cuda.device(queries.device):
         err = cuda_build.library().dlo_cov_pruned(
             queries.data_ptr(), query_mask.data_ptr(), points.data_ptr(), mask.data_ptr(),
-            cand.data_ptr(), counts.data_ptr(), q_total // TILE, cand.shape[1],
-            f32_radius2(radius), out.data_ptr(),
+            chunk_lo.data_ptr(), chunk_hi.data_ptr(), q_total, chunk_lo.shape[1],
+            f32_radius2(radius), out.data_ptr(), None if visits is None else visits.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
     cuda_build.check(err, "cov_pruned")
@@ -134,9 +139,7 @@ def radius_moments_sorted(
     ``chunk_lo``/``chunk_hi`` are the cloud's [3, T//512] chunk AABBs.
     Matches the exhaustive moments for every valid query.
     """
-    qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
-    cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
-    return cov_pruned(points, mask, queries, query_mask, cand, counts, radius)
+    return cov_pruned(points, mask, queries, query_mask, chunk_lo, chunk_hi, radius)
 
 
 def cov_exhaustive(

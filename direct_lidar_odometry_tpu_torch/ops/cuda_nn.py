@@ -6,14 +6,17 @@ Counterpart of the JAX package's ``ops/pallas_nn.py``: the pruned path
 correspondence search of every GICP iteration, and the exhaustive
 ``query_1nn``.
 
-- :func:`candidate_chunks` builds, per 128-query tile, the list of
-  512-point target chunks whose AABB gap to the tile is <= r, sorted by
-  gap. Plain tensor ops, as the JAX package computes it outside its kernel.
-- :func:`nn1_pruned` is the kernel's wrapper. On a CUDA tensor it launches
-  ``csrc/nn1_pruned.cu`` (branch-and-bound over the candidate lists); on a
-  CPU tensor it runs :func:`nn1_plain`, the exhaustive plain PyTorch
-  version of the same function. Nothing falls back from one to the other.
-- :func:`nn1_pruned_mxu` is kernel K4's wrapper (``csrc/nn1_pruned.cu``
+- :func:`nn1_pruned` is kernel K2's wrapper. It takes the target's chunk
+  AABBs; on a CUDA tensor it launches ``csrc/nn1_pruned.cu``, which picks
+  the candidate chunks of each 32-query sub-tile itself
+  (:func:`subtile_candidates` is that selection in plain PyTorch); on a CPU
+  tensor it runs :func:`nn1_plain`, the exhaustive plain PyTorch version
+  of the same function. Nothing falls back from one to the other.
+- :func:`candidate_chunks` builds, per 128-query tile, the gap-sorted list
+  of 512-point target chunks whose AABB gap to the tile is <= r: plain
+  tensor ops, as the JAX package computes them outside its kernel, for the
+  branch-and-bound kernels K3 and K4. ``candidate_calls`` counts its calls.
+- :func:`nn1_pruned_mxu` is kernel K4's wrapper (``csrc/nn1_pruned_mxu.cu``
   with the distance expansion ``max((|q|^2 + |t|^2) - 2 q.t, 0)``); its
   plain version is :func:`nn1_mxu_plain`.
 - :func:`query_1nn_sorted` is the public entry with the JAX package's
@@ -36,7 +39,8 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
 
-TILE = 128                    # queries per tile (one CUDA block)
+TILE = 128                    # queries per tile (one CUDA block of K3-K6)
+SUB_TILE = 32                 # queries per sub-tile (one CUDA block of K1, K2)
 CHUNK = morton.TARGET_CHUNK   # targets per Morton chunk
 
 # Packed candidate word: low 10 bits = chunk index (C <= 1024), upper 21
@@ -46,10 +50,12 @@ CHUNK = morton.TARGET_CHUNK   # targets per Morton chunk
 IDX_BITS = 10
 _GAP_SCALE = (1 << 21) - 1
 _NOT_CANDIDATE = 0x7FFFFFFF
+MAX_CHUNKS = 1 << IDX_BITS    # chunks per target cloud, every pruned kernel
 
 launches = {"cuda": 0, "plain": 0}
 mxu_launches = {"cuda": 0, "plain": 0}
 exhaustive_launches = {"cuda": 0, "plain": 0}
+candidate_calls = {"calls": 0}
 
 # invalid targets of the expansion kernel are folded to this finite
 # coordinate (an infinite one gives inf - inf = NaN in the expansion)
@@ -57,7 +63,7 @@ _EXPANSION_PAD = 1e6
 
 
 def reset_launches() -> None:
-    for counter in (launches, mxu_launches, exhaustive_launches):
+    for counter in (launches, mxu_launches, exhaustive_launches, candidate_calls):
         for k in counter:
             counter[k] = 0
 
@@ -81,8 +87,9 @@ def candidate_chunks(
     target within ``radius`` of any query in the tile lies in a candidate
     chunk; the ascending-gap order makes the kernel's early exit exact.
     """
+    candidate_calls["calls"] += 1
     c = chunk_lo.shape[1]
-    if c > (1 << IDX_BITS):
+    if c > MAX_CHUNKS:
         raise ValueError(f"{c} chunks exceed the {IDX_BITS}-bit packed index")
     g1 = chunk_lo.T[None, :, :] - qhi.T[:, None, :]   # [Qc, C, 3]
     g2 = qlo.T[:, None, :] - chunk_hi.T[None, :, :]
@@ -97,6 +104,41 @@ def candidate_chunks(
     cand = torch.sort(packed, dim=1).values
     counts = torch.sum(visit, dim=1, dtype=torch.int32)
     return cand.contiguous(), counts.contiguous()
+
+
+def subtile_gap2(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor, sub: int = SUB_TILE,
+) -> torch.Tensor:
+    """Squared AABB gaps of every ``sub``-query sub-tile to every chunk, as
+    kernels K1 and K2 compute them inside the kernel
+    (``csrc/subtile_search.cuh``): f32 [Q // sub, C].
+
+    queries [Q,3] with Q % sub == 0, chunk_lo/chunk_hi [3, C] (masked chunk
+    AABBs, :func:`ops.morton.chunk_aabbs`). The gap is
+    (gx*gx + gy*gy) + gz*gz with gx = max(clo - qhi, qlo - chi, 0) over the
+    sub-tile's masked AABB [qlo, qhi]. Rounding is monotone, so it never
+    exceeds the rounded d^2 of a valid query and a valid target of the pair.
+    Sub-tiles without a valid query and empty chunks (boxes of +inf, -inf)
+    give +inf, never NaN.
+    """
+    qlo, qhi = morton.chunk_aabbs(queries, query_mask, sub)  # [3, Q // sub]
+    below = chunk_lo[:, None, :] - qhi[:, :, None]           # [3, Q // sub, C]
+    above = qlo[:, :, None] - chunk_hi[:, None, :]
+    g = torch.clamp(torch.maximum(below, above), min=0.0)
+    return (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2]
+
+
+def subtile_candidates(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
+    radius: float, sub: int = SUB_TILE,
+) -> torch.Tensor:
+    """The candidate chunks of every sub-tile, as K1 and K2 select them:
+    bool [Q // sub, C], True where :func:`subtile_gap2` <= f32(r^2). Every
+    target within r of a valid query lies in a candidate chunk of the
+    query's sub-tile."""
+    return subtile_gap2(queries, query_mask, chunk_lo, chunk_hi, sub) <= f32_radius2(radius)
 
 
 def plain_query_step(n_targets: int, device: torch.device) -> int:
@@ -188,24 +230,66 @@ def nn1_exhaustive_plain(
     return torch.where(torch.isinf(dmin), -1, amin.to(torch.int32)), dmin
 
 
-def check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts):
-    tensors = dict(queries=queries, query_mask=query_mask, targets=targets,
-                   target_mask=target_mask, cand=cand, counts=counts)
+def _check_tensors(expect: dict, **tensors) -> None:
+    """Every tensor contiguous, on the queries' device, of its ``expect`` dtype."""
+    device = tensors["queries"].device
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != queries.device:
-            raise ValueError(f"{name} is on {t.device}, queries on {queries.device}")
-    expect = dict(queries=torch.float32, targets=torch.float32, query_mask=torch.bool,
-                  target_mask=torch.bool, cand=torch.int32, counts=torch.int32)
-    for name, dt in expect.items():
-        if tensors[name].dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {tensors[name].dtype}")
-    q_total, t_total = queries.shape[0], targets.shape[0]
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, queries on {device}")
+    for name, t in tensors.items():
+        if t.dtype != expect[name]:
+            raise ValueError(f"{name} must be {expect[name]}, got {t.dtype}")
+
+
+def _check_sizes(q_total: int, t_total: int) -> None:
     if q_total % TILE or t_total % CHUNK:
         raise ValueError(f"need Q % {TILE} == 0 and T % {CHUNK} == 0, got Q={q_total} T={t_total}")
+
+
+def check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts):
+    """Inputs of the candidate-list kernels K3/K4."""
+    _check_tensors(dict(queries=torch.float32, targets=torch.float32, query_mask=torch.bool,
+                        target_mask=torch.bool, cand=torch.int32, counts=torch.int32),
+                   queries=queries, query_mask=query_mask, targets=targets,
+                   target_mask=target_mask, cand=cand, counts=counts)
+    q_total, t_total = queries.shape[0], targets.shape[0]
+    _check_sizes(q_total, t_total)
     if cand.shape != (q_total // TILE, t_total // CHUNK) or counts.shape != (q_total // TILE,):
         raise ValueError(f"candidate table {tuple(cand.shape)} does not match Q={q_total} T={t_total}")
+
+
+def check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi,
+                        visits=None):
+    """Inputs of the sub-tile kernels K1/K2: the clouds, the targets' [3, C]
+    chunk AABBs with C = T // 512 <= 1024, and the optional int32
+    [Q // 32] ``visits`` output."""
+    tensors = dict(queries=queries, query_mask=query_mask, targets=targets,
+                   target_mask=target_mask, chunk_lo=chunk_lo, chunk_hi=chunk_hi)
+    if visits is not None:
+        tensors["visits"] = visits
+    _check_tensors(dict(queries=torch.float32, targets=torch.float32, query_mask=torch.bool,
+                        target_mask=torch.bool, chunk_lo=torch.float32,
+                        chunk_hi=torch.float32, visits=torch.int32), **tensors)
+    q_total, t_total = queries.shape[0], targets.shape[0]
+    _check_sizes(q_total, t_total)
+    n_chunks = t_total // CHUNK
+    if chunk_lo.shape != (3, n_chunks) or chunk_hi.shape != (3, n_chunks):
+        raise ValueError(f"chunk AABBs {tuple(chunk_lo.shape)} / {tuple(chunk_hi.shape)} "
+                         f"do not match T={t_total}")
+    if n_chunks > MAX_CHUNKS:
+        raise ValueError(f"{n_chunks} chunks exceed the kernels' {MAX_CHUNKS}")
+    if visits is not None and visits.shape != (q_total // SUB_TILE,):
+        raise ValueError(f"visits {tuple(visits.shape)} does not match Q={q_total}")
+
+
+def plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius) -> None:
+    """The CPU route of K1/K2's ``visits`` output: each sub-tile's candidate
+    count from :func:`subtile_candidates`."""
+    if visits is not None:
+        cand = subtile_candidates(queries, query_mask, chunk_lo, chunk_hi, radius)
+        visits.copy_(cand.sum(dim=1, dtype=torch.int32))
 
 
 def check_exhaustive_inputs(queries, targets, target_mask):
@@ -227,34 +311,39 @@ def check_exhaustive_inputs(queries, targets, target_mask):
 def nn1_pruned(
     queries: torch.Tensor, query_mask: torch.Tensor,
     targets: torch.Tensor, target_mask: torch.Tensor,
-    cand: torch.Tensor, counts: torch.Tensor,
-    radius: float,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
+    radius: float, visits: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Wrapper of kernel K2: (idx int32 [Q], d2 f32 [Q]) as :func:`nn1_plain`.
 
     queries [Q,3] f32 with Q % 128 == 0; targets [T,3] f32 Morton-sorted
-    with T % 512 == 0; cand/counts from :func:`candidate_chunks` over the
-    query tiles. A CUDA tensor launches the kernel on the current stream
-    (no allocation inside, no synchronization); a CPU tensor runs the plain
-    version, which ignores the candidate lists.
+    with T % 512 == 0 and T <= 512 * 1024; chunk_lo/chunk_hi the targets'
+    [3, T//512] masked chunk AABBs (:func:`ops.morton.chunk_aabbs`, computed
+    once per target cloud). The kernel selects the candidate chunks of each
+    32-query sub-tile itself. ``visits`` (optional, int32 [Q // 32])
+    receives each sub-tile's candidate count: the kernel evaluates
+    32 * 512 * visits.sum() pairs. A CUDA tensor launches the kernel on the
+    current stream (no allocation inside, no synchronization); a CPU tensor
+    runs the plain version and fills ``visits`` from
+    :func:`subtile_candidates`.
     """
-    check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts)
+    check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi, visits)
     if queries.device.type == "cpu":
         launches["plain"] += 1
+        plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius)
         return nn1_plain(queries, query_mask, targets, target_mask, radius)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q_total = queries.shape[0]
     idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
     d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
-    r2 = float(radius) * float(radius)
-    gap_unit = float(np.float32(r2 / _GAP_SCALE))
     with torch.cuda.device(queries.device):
         err = cuda_build.library().dlo_nn1_pruned(
             queries.data_ptr(), query_mask.data_ptr(), targets.data_ptr(),
-            target_mask.data_ptr(), cand.data_ptr(), counts.data_ptr(),
-            q_total // TILE, cand.shape[1], f32_radius2(radius), gap_unit,
-            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(queries.device).cuda_stream,
+            target_mask.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
+            q_total, chunk_lo.shape[1], f32_radius2(radius), idx.data_ptr(), d2.data_ptr(),
+            None if visits is None else visits.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
         )
     cuda_build.check(err, "nn1_pruned")
     launches["cuda"] += 1
@@ -313,10 +402,14 @@ def query_1nn_sorted(
     may differ among near-ties and borderline radius hits, the reported d2
     stays exact.
     """
-    qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
-    cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
-    search = nn1_pruned_mxu if mxu else nn1_pruned
-    best_idx, _ = search(queries, query_mask, target_points, target_mask, cand, counts, radius)
+    if mxu:
+        qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
+        cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
+        best_idx, _ = nn1_pruned_mxu(queries, query_mask, target_points, target_mask,
+                                     cand, counts, radius)
+    else:
+        best_idx, _ = nn1_pruned(queries, query_mask, target_points, target_mask,
+                                 chunk_lo, chunk_hi, radius)
     best_idx = best_idx.to(torch.int64)
     # the winner's d2 from the index, in the public contract's own form
     sel = target_points[torch.clamp(best_idx, min=0)]

@@ -46,19 +46,40 @@ def _candidates(qp, qm, tp, tm, radius):
     return cuda_nn.candidate_chunks(qlo, qhi, tlo, thi, radius)
 
 
+def _search_kernels_match_plain(qp, qm, tp, tm, radius):
+    """K2 and K1 against their plain versions: K2's idx and d2 bitwise
+    equal, K1's counts identical and moments within 1e-3 + 1e-5 |plain|,
+    each kernel bitwise equal over two launches, and both kernels' candidate
+    counts equal to the plain selection's. Returns (K2 idx, K1 moments,
+    candidate counts)."""
+    clo, chi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
+    n_sub = qp.shape[0] // cuda_nn.SUB_TILE
+    v_nn = torch.full((n_sub,), -1, dtype=torch.int32, device=qp.device)
+    v_cov = torch.full((n_sub,), -1, dtype=torch.int32, device=qp.device)
+    before = (cuda_nn.launches["cuda"], cuda_cov.launches["cuda"])
+    ik, dk = cuda_nn.nn1_pruned(qp, qm, tp, tm, clo, chi, radius, v_nn)
+    ik2, dk2 = cuda_nn.nn1_pruned(qp, qm, tp, tm, clo, chi, radius)
+    mk = cuda_cov.cov_pruned(tp, tm, qp, qm, clo, chi, radius, v_cov)
+    mk2 = cuda_cov.cov_pruned(tp, tm, qp, qm, clo, chi, radius)
+    ip, dp = cuda_nn.nn1_plain(qp, qm, tp, tm, radius)
+    mp = cuda_cov.cov_plain(tp, tm, qp, qm, radius)
+    want = cuda_nn.subtile_candidates(qp, qm, clo, chi, radius).sum(dim=1, dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert (cuda_nn.launches["cuda"], cuda_cov.launches["cuda"]) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert torch.equal(ik, ik2) and torch.equal(dk, dk2) and torch.equal(mk, mk2)
+    assert torch.equal(mk[:, 0], mp[:, 0])
+    torch.testing.assert_close(mk, mp, atol=1e-3, rtol=1e-5)
+    assert torch.equal(v_nn, want) and torch.equal(v_cov, want)
+    return ik, mk, want
+
+
 @pytest.mark.parametrize("radius", [0.5, 1.0, 1.5, 5.0])
 def test_nn1_kernel_matches_plain(dev, radius):
     """Same distance formula and tie rule: idx and d2 bit-identical."""
     tp, tm = _sorted_cloud(0, 8192, dev)
     qp, qm = _sorted_cloud(1, 4096, dev)
-    cand, counts = _candidates(qp, qm, tp, tm, radius)
-    before = cuda_nn.launches["cuda"]
-    ik, dk = cuda_nn.nn1_pruned(qp, qm, tp, tm, cand, counts, radius)
-    ip, dp = cuda_nn.nn1_plain(qp, qm, tp, tm, radius)
-    torch.cuda.synchronize()
-    assert cuda_nn.launches["cuda"] == before + 1
-    assert torch.equal(ik, ip)
-    assert torch.equal(dk, dp)
+    ik, _, _ = _search_kernels_match_plain(qp, qm, tp, tm, radius)
     assert (ik >= 0).sum() > 100
 
 
@@ -66,15 +87,77 @@ def test_nn1_kernel_matches_plain(dev, radius):
 def test_cov_kernel_matches_plain(dev, radius):
     """Neighbour counts exact; moments to summation-order rounding."""
     tp, tm = _sorted_cloud(2, 8192, dev, extent=8.0)
-    cand, counts = _candidates(tp, tm, tp, tm, radius)
-    mk = cuda_cov.cov_pruned(tp, tm, tp, tm, cand, counts, radius)
-    mp = cuda_cov.cov_plain(tp, tm, tp, tm, radius)
-    torch.cuda.synchronize()
-    assert torch.equal(mk[:, 0], mp[:, 0])
-    torch.testing.assert_close(mk, mp, atol=1e-3, rtol=1e-5)
-    assert float(mp[tm, 0].mean()) > 4
+    _, mk, _ = _search_kernels_match_plain(tp, tm, tp, tm, radius)
+    assert float(mk[tm, 0].mean()) > 4
 
 
+def _lattice(dev, offset):
+    """A 32 x 32 x 4 lattice of spacing 1 m (4096 points, all exact in f32),
+    shifted by ``offset``, Morton-sorted."""
+    g = np.stack(np.meshgrid(np.arange(32.0), np.arange(32.0), np.arange(4.0),
+                             indexing="ij"), axis=-1).reshape(-1, 3)
+    p = torch.from_numpy((g + np.asarray(offset)).astype(np.float32)).to(dev)
+    m = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+    order = morton.sort_order(p, m)
+    return p[order].contiguous(), m[order].contiguous()
+
+
+@pytest.mark.parametrize("case", [
+    "c1024", "spanning", "invalid_tiles", "duplicates", "on_radius",
+])
+def test_search_kernels_adversarial(dev, case):
+    """K2 and K1 on inputs that stress the in-kernel selection, the merge
+    and the boundary rules, each against its plain version
+    (:func:`_search_kernels_match_plain`)."""
+    radius = 1.0
+    if case == "c1024":  # the most chunks a target may have
+        tp, tm = _sorted_cloud(10, 512 * 1024, dev, extent=60.0)
+        qp, qm = _sorted_cloud(11, 2048, dev, extent=60.0)
+    elif case == "spanning":  # unsorted queries: every sub-tile spans the cloud
+        tp, tm = _sorted_cloud(12, 32768, dev, extent=12.0)
+        qp, qm = _sorted_cloud(13, 4096, dev, extent=12.0)
+        perm = torch.from_numpy(np.random.default_rng(14).permutation(4096)).to(dev)
+        qp, qm = qp[perm].contiguous(), qm[perm].contiguous()
+    elif case == "invalid_tiles":  # whole invalid sub-tiles, an empty chunk
+        tp, tm = _sorted_cloud(15, 8192, dev)
+        qp, qm = _sorted_cloud(16, 4096, dev)
+        qm = qm.clone()
+        qm[:32] = False
+        qm[96:224] = False
+        qm[1000:1010] = False
+        tm = tm.clone()
+        tm[1024:1536] = False
+    elif case == "duplicates":  # every target four times: ties to the lower index
+        base, bm = _sorted_cloud(17, 2048, dev)
+        # copies in other chunks and other warp slices, one pair adjacent
+        tp = torch.cat([base, base.roll(37, 0), base.roll(300, 0), base]).contiguous()
+        tm = torch.cat([bm, bm.roll(37, 0), bm.roll(300, 0), bm]).contiguous()
+        dup = torch.argsort(base[:, 0])[:256]
+        tp[dup + 1] = tp[dup]
+        tm[dup + 1] = tm[dup]
+        qp, qm = _sorted_cloud(18, 4096, dev)
+    else:  # queries half way between lattice points: nearest targets at exactly r
+        radius = 0.5
+        tp, tm = _lattice(dev, (0.0, 0.0, 0.0))
+        qp, qm = _lattice(dev, (0.5, 0.0, 0.0))
+    ik, mk, visits = _search_kernels_match_plain(qp, qm, tp, tm, radius)
+    n_chunks = tp.shape[0] // morton.TARGET_CHUNK
+    if case == "c1024":
+        assert n_chunks == 1024 and (ik >= 0).sum() > 10
+    elif case == "spanning":
+        assert int(visits.max()) > 32 and (ik >= 0).sum() > 100
+    elif case == "invalid_tiles":
+        assert int(visits[0]) == 0 and int(visits[3:7].max()) == 0
+        assert (ik[~qm] == -1).all() and (mk[~qm] == 0).all()
+    elif case == "duplicates":
+        win = ik[ik >= 0].long()
+        assert win.numel() > 100
+        same = (tp[None, :, :] == tp[win][:, None, :]).all(dim=-1) & tm[None, :]
+        assert torch.equal(same.int().argmax(dim=1), win)  # the first copy wins
+    else:  # d2 == r^2 is never found (strict), always counted (inclusive)
+        assert (ik == -1).all()
+        interior = (qp[:, 0] < 31.0)
+        assert (mk[interior, 0] == 2).all()
 @pytest.mark.parametrize("radius", [0.5, 1.0, 1.5])
 def test_nn1_mxu_kernel_matches_plain(dev, radius):
     """K4 and its plain version evaluate the expansion in the same order:

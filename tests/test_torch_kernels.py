@@ -7,10 +7,13 @@ own tests do. The kernels themselves run only on a card: see
 ``tests/test_torch_cuda.py``.
 """
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from direct_lidar_odometry_tpu.ops import morton as jmorton, pallas_cov, pallas_nn
 from direct_lidar_odometry_tpu.registration import covariance as jcov
@@ -150,14 +153,140 @@ def test_wrappers_route_cpu_to_plain_and_count():
     assert cuda_cov.launches == {"cuda": 0, "plain": 1}
 
 
-def test_wrappers_reject_non_contiguous_and_bad_shapes():
+def _bad_call(case):
+    """One call of a kernel wrapper with one wrong input, and the error it
+    must raise."""
     rng = np.random.default_rng(7)
     tp, tm = _sorted_cloud(rng, 2048)
     p, m = _t(tp), _t(tm)
     clo, chi = tmorton.chunk_aabbs(p, m, 512)
+    if case == "non_contiguous":
+        return lambda: cuda_nn.nn1_pruned(p[::2], m[::2], p, m, clo, chi, 1.0), "contiguous"
+    if case == "query_count":
+        return lambda: cuda_cov.cov_pruned(p, m, p[:100], m[:100], clo, chi, 1.0), "need Q"
+    if case == "chunk_aabb_shape":
+        lo2, hi2 = clo[:, :2].contiguous(), chi[:, :2].contiguous()
+        return lambda: cuda_nn.nn1_pruned(p, m, p, m, lo2, hi2, 1.0), "chunk AABBs"
+    if case == "chunk_aabb_dtype":
+        return lambda: cuda_cov.cov_pruned(p, m, p, m, clo.double(), chi, 1.0), "chunk_lo must be"
+    if case == "too_many_chunks":
+        big = torch.zeros((512 * 1025, 3))
+        bm = torch.zeros(512 * 1025, dtype=torch.bool)
+        blo, bhi = tmorton.chunk_aabbs(big, bm, 512)
+        return lambda: cuda_nn.nn1_pruned(p, m, big, bm, blo, bhi, 1.0), "exceed"
+    if case == "visits_dtype":
+        v = torch.zeros(2048 // 32, dtype=torch.int64)
+        return lambda: cuda_nn.nn1_pruned(p, m, p, m, clo, chi, 1.0, v), "visits must be"
+    if case == "visits_shape":
+        v = torch.zeros(2048 // 128, dtype=torch.int32)
+        return lambda: cuda_cov.cov_pruned(p, m, p, m, clo, chi, 1.0, v), "visits"
+    assert case == "candidate_table"  # K4 still takes the 128-query lists
     qlo, qhi = tmorton.chunk_aabbs(p[::2].contiguous(), m[::2].contiguous(), 128)
     cand, counts = cuda_nn.candidate_chunks(qlo, qhi, clo, chi, 1.0)
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_nn.nn1_pruned(p[::2], m[::2], p, m, cand, counts, 1.0)
-    with pytest.raises(ValueError, match="need Q"):
-        cuda_cov.cov_pruned(p[:100], m[:100], p, m, cand, counts, 1.0)
+    return lambda: cuda_nn.nn1_pruned_mxu(p, m, p, m, cand, counts, 1.0), "candidate table"
+
+
+@pytest.mark.parametrize("case", [
+    "non_contiguous", "query_count", "chunk_aabb_shape", "chunk_aabb_dtype",
+    "too_many_chunks", "visits_dtype", "visits_shape", "candidate_table",
+])
+def test_wrappers_reject_non_contiguous_and_bad_shapes(case):
+    call, match = _bad_call(case)
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_search_entries_select_inside_the_kernel():
+    """query_1nn_sorted and radius_moments_sorted build no candidate lists
+    (K4's route still does); the CPU route's ``visits`` are the plain
+    selection's candidate counts, and its results the plain versions'."""
+    rng = np.random.default_rng(8)
+    tp, tm = _sorted_cloud(rng, 2048)
+    p, m = _t(tp), _t(tm)
+    clo, chi = tmorton.chunk_aabbs(p, m, 512)
+    cuda_nn.reset_launches()
+    cuda_nn.query_1nn_sorted(p, m, clo, chi, p, m, 1.0)
+    cuda_cov.radius_moments_sorted(p, m, clo, chi, p, m, 1.0)
+    assert cuda_nn.candidate_calls == {"calls": 0}
+    cuda_nn.query_1nn_sorted(p, m, clo, chi, p, m, 1.0, mxu=True)
+    assert cuda_nn.candidate_calls == {"calls": 1}
+    cuda_nn.reset_launches()
+    assert cuda_nn.candidate_calls == {"calls": 0}
+
+    want = cuda_nn.subtile_candidates(p, m, clo, chi, 1.0).sum(dim=1, dtype=torch.int32)
+    v_nn = torch.full((2048 // 32,), -1, dtype=torch.int32)
+    v_cov = torch.full((2048 // 32,), -1, dtype=torch.int32)
+    idx, d2 = cuda_nn.nn1_pruned(p, m, p, m, clo, chi, 1.0, v_nn)
+    mom = cuda_cov.cov_pruned(p, m, p, m, clo, chi, 1.0, v_cov)
+    assert torch.equal(v_nn, want) and torch.equal(v_cov, want)
+    assert 0 < int(want.sum()) < want.numel() * 4  # selects, and prunes
+    i_p, d_p = cuda_nn.nn1_plain(p, m, p, m, 1.0)
+    assert torch.equal(idx, i_p) and torch.equal(d2, d_p)
+    assert torch.equal(mom, cuda_cov.cov_plain(p, m, p, m, 1.0))
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(
+    seed=st.integers(0, 2**31 - 1),
+    sub=st.sampled_from([16, 32, 64, 128]),
+    chunk=st.sampled_from([16, 64, 128]),
+    radius=st.floats(0.05, 3.0),
+    extent=st.floats(0.5, 30.0),
+    valid_frac=st.floats(0.0, 1.0),
+    dead_tile=st.booleans(),
+    dead_chunk=st.booleans(),
+)
+def test_subtile_selection_covers_every_neighbour(
+    seed, sub, chunk, radius, extent, valid_frac, dead_tile, dead_chunk,
+):
+    """The selection math the K1/K2 kernels mirror: for sub-tiles of 16-128
+    queries, every valid target within r of a valid query (d2 rounded as the
+    kernels round it, inclusive) lies in a chunk on that query's sub-tile's
+    candidate list; sub-tiles without a valid query and empty chunks give
+    +inf gaps, no candidate and no NaN."""
+    rng = np.random.default_rng(seed)
+    n_q, n_t = 256, 512
+
+    def cloud(n, frac):
+        pts = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+        mask = rng.random(n) < frac
+        pts[~mask] = 1e6
+        return _t(pts), _t(mask)
+
+    qp, qm = tmorton.sort_cloud(*cloud(n_q, valid_frac))
+    tp, tm = cloud(n_t, max(valid_frac, 0.5))
+    # a few targets at (about) r from a query, where rounding decides
+    near = rng.integers(0, n_q, 16)
+    tp[:16] = qp[near] + torch.tensor([radius, 0.0, 0.0])
+    tm[:16] = qm[near]
+    tp, tm = tmorton.sort_cloud(tp, tm)
+    qm, tm = qm.clone(), tm.clone()
+    if dead_tile:
+        qm[sub:2 * sub] = False
+    if dead_chunk:
+        tm[chunk:2 * chunk] = False
+
+    clo, chi = tmorton.chunk_aabbs(tp, tm, chunk)
+    gap2 = cuda_nn.subtile_gap2(qp, qm, clo, chi, sub)
+    cand = cuda_nn.subtile_candidates(qp, qm, clo, chi, radius, sub)
+    assert gap2.shape == (n_q // sub, n_t // chunk) and not torch.isnan(gap2).any()
+    d = qp[:, None, :] - tp[None, :, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    within = (d2 <= cuda_nn.f32_radius2(radius)) & qm[:, None] & tm[None, :]
+    qi, ti = torch.nonzero(within, as_tuple=True)
+    assert cand[qi // sub, ti // chunk].all()
+    dead_q = ~qm.reshape(-1, sub).any(dim=1)
+    dead_c = ~tm.reshape(-1, chunk).any(dim=1)
+    assert torch.isinf(gap2[dead_q]).all() and torch.isinf(gap2[:, dead_c]).all()
+    assert not cand[dead_q].any() and not cand[:, dead_c].any()
+    # the gaps of live pairs are the float64 box gaps up to f32 rounding
+    def boxes(p, m, n):
+        p = np.where(m.numpy()[:, None], p.numpy().astype(np.float64), np.nan).reshape(-1, n, 3)
+        with np.errstate(all="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN boxes of dead rows
+            return np.nanmin(p, axis=1), np.nanmax(p, axis=1)
+    (qlo, qhi), (clo64, chi64) = boxes(qp, qm, sub), boxes(tp, tm, chunk)
+    g = np.maximum(np.maximum(clo64[None] - qhi[:, None], qlo[:, None] - chi64[None]), 0.0)
+    live = ~dead_q.numpy()[:, None] & ~dead_c.numpy()[None, :]
+    np.testing.assert_allclose(gap2.numpy()[live], np.sum(g * g, axis=-1)[live],
+                               rtol=1e-5, atol=1e-5)
