@@ -15,29 +15,31 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    65536-point submap at r = 0.5, 1.0, 1.5 (S2M), against the previous
    32768-point scan at r = 1.0 (S2S) and at a loop edge's shape (a
    16384-point keyframe against another at the 2 m loop gate); K4 (the
-   distance-expansion variant) at the S2M shapes; K1 (radius moments)
-   over a 32768-point scan at r = 0.75 and a 16384-point keyframe at
-   r = 1.5; K3 (fused GICP
-   linearization) at the S2M shape (32768-point scan with K1 normals
-   against the 65536-point submap with keyframe normals, r = 0.5) and the
-   S2S shape (32768 x 32768, r = 1.0), cold and warm-started; K5
-   (exhaustive 1-NN) at 32768 x 65536; K6 (exhaustive moments) over the
-   32768-point scan at r = 0.75. K1 and K2 run twice and must repeat bit
-   for bit. Prints agreement, median times (CUDA events, 20 runs), the
-   pairs each kernel evaluates on these inputs (its visited chunks, or
-   every valid target) and its bound (FLOP over the H100's fp32 peak or
-   bytes over its memory rate, the larger), and the time of a
-   library call that computes the same function where one exists;
+   distance-expansion variant; idx and d2 bitwise equal to its plain
+   version except on the r^2 boundary) at the S2M shapes; K1 (radius
+   moments) over a 32768-point scan at r = 0.75 and a 16384-point
+   keyframe at r = 1.5; K3 (fused GICP linearization) at the S2M shape
+   (32768-point scan with K1 normals against the 65536-point submap with
+   keyframe normals, r = 0.5) and the S2S shape (32768 x 32768, r = 1.0),
+   cold and warm-started (seeded == cold bit for bit, its selection counts
+   equal to the plain version's); K5 (exhaustive 1-NN) at 32768 x 65536;
+   K6 (exhaustive moments) over the 32768-point scan at r = 0.75. K1-K4
+   run twice and must repeat bit for bit. Prints agreement, median times
+   (CUDA events, 20 runs), the pairs each kernel evaluates on these inputs
+   (its own candidate counts, or every valid target) and its bound (FLOP
+   over the H100's fp32 peak or bytes over its memory rate, the larger),
+   and the time of a library call that computes the same function where
+   one exists;
 4. drive ``OdometryRunner(cfg, device="cuda")`` (backend "pallas",
    ``cfg/tpu_dlo.yaml`` as shipped, loop closure on) over 30 frames of the
    ray-cast urban world with every launch counter reset just before, and
    check the trajectory (ATE), the S2M correspondences of every frame,
-   that K1 and K2 were launched, that no plain version ran and that no
-   128-query candidate list was built (``cuda_nn.candidate_calls``); then
-   profile six steady frames of a fresh runner: device operations
-   (kernels, copies, sets) per frame, their summed and their merged
-   (overlap counted once) device time, by kind and by name, against the
-   wall time of the same profiled window;
+   that K1 and K2 were launched and that no plain version ran; then, on
+   each backend ("pallas", "pallas_fused", "pallas_mxu"), profile six
+   steady frames of a fresh runner: device operations (kernels, copies,
+   sets) per frame, their summed and their merged (overlap counted once)
+   device time, by kind and by name, against the wall time of the same
+   profiled window;
 5. call the port's CLI (``cli.main``) in-process on the same 30 frames at
    full widths, once on backend "pallas_fused" (K3) and once on
    "pallas_mxu" (K4), with ``--eval --map-ply --checkpoint``, counters reset
@@ -95,6 +97,7 @@ K2_BORDER = 1e-6        # |d2 - r^2| <= K2_BORDER * r^2 counts as on the boundar
 K2_FOUND_AGREE = 0.9999
 K1_ATOL, K1_RTOL = 1e-3, 1e-5
 K4_SLACK = 2e-3          # m^2: the expansion's cancellation error at map-scale coordinates
+BACKENDS = ("pallas", "pallas_fused", "pallas_mxu")
 K3_REL = 2e-4            # max|dH| <= K3_REL * max|H|, the same form for b and the error
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
@@ -237,51 +240,6 @@ def kernel_inputs(cfg, world, scans, dev):
         scan0=scan0, kf0=kf_clouds[0], edge_src=kf_clouds[3], edge_tgt=gicp.make_target(*kfs[0]))
 
 
-def candidates(queries, targets, radius):
-    from direct_lidar_odometry_tpu_torch.ops import cuda_nn, morton
-
-    qlo, qhi = morton.chunk_aabbs(queries.points, queries.mask, cuda_nn.TILE)
-    tlo, thi = morton.chunk_aabbs(targets.points, targets.mask, morton.TARGET_CHUNK)
-    return cuda_nn.candidate_chunks(qlo, qhi, tlo, thi, radius)
-
-
-def check_nn1(name, kernel, plain, queries, targets, radius):
-    """A candidate-list 1-NN kernel (K4) against its plain version: found
-    agrees except on the r^2 boundary, winners' d2 within 2^-14 relative."""
-    cand, counts = candidates(queries, targets, radius)
-    args = (queries.points, queries.mask, targets.points, targets.mask)
-    ik, dk = kernel(*args, cand, counts, radius)
-    ip, dp = plain(*args, radius)
-    torch.cuda.synchronize()
-    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
-
-    r2 = cuda_nn.f32_radius2(radius)
-    fk, fp = ik >= 0, ip >= 0
-    valid = queries.mask
-    agree = float(((fk == fp) | ~valid).float().mean())
-    dis = fk != fp
-    d_dis = torch.where(fk, dk, dp)[dis]
-    dis_ok = bool(torch.all(torch.abs(d_dis - r2) <= K2_BORDER * r2)) if dis.any() else True
-    both = fk & fp
-    diff = torch.abs(dk[both] - dp[both])
-    near_tie = diff <= K2_TOL_REL * torch.maximum(dk[both], dp[both])
-    max_err = float(diff.max()) if both.any() else 0.0
-    idx_same = float((ik[both] == ip[both]).float().mean()) if both.any() else 1.0
-    ms = cuda_median_ms(lambda: kernel(*args, cand, counts, radius))
-    plain_ms = cuda_median_ms(lambda: plain(*args, radius))
-    prep_ms = cuda_median_ms(lambda: candidates(queries, targets, radius))
-    case = dict(
-        radius=radius, queries=int(queries.points.shape[0]), targets=int(targets.points.shape[0]),
-        found=int(fk.sum()), found_agree=agree, n_disagree=int(dis.sum()), idx_same=idx_same,
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, candidate_ms=prep_ms,
-    )
-    require(agree >= K2_FOUND_AGREE, f"{name} r={radius}: found agrees on {agree:.6f} < {K2_FOUND_AGREE}")
-    require(dis_ok, f"{name} r={radius}: a found disagreement lies off the r^2 boundary")
-    require(bool(torch.all(near_tie)), f"{name} r={radius}: winners' d2 differ beyond 2^-14 relative")
-    require(int(fk.sum()) > 1000, f"{name} r={radius}: only {int(fk.sum())} queries found a neighbour")
-    return case, ik
-
-
 def check_k2(queries, targets, radius, label):
     """K2 against its plain version: idx and d2 bitwise equal, and two
     launches bitwise equal. The pairs are counted from the kernel's own
@@ -320,69 +278,67 @@ def check_k2(queries, targets, radius, label):
     return case
 
 
-def k4_visited_chunks(queries, targets, cand, counts, radius) -> int:
-    """The (tile, chunk) visits of K4 on these inputs, by replaying its
-    early exit: a tile walks its gap-sorted list and stops at the first
-    chunk whose quantized gap exceeds every query's bound (r^2 for a valid
-    query, 0 for an invalid one, lowered by each visited chunk's nearest
-    expansion d2 below it, from the plain version in the kernel's order)."""
+def check_k4(queries, targets, radius):
+    """K4 against its plain version (the same expansion in the same order):
+    idx and d2 bitwise equal except found-disagreements within K2_BORDER of
+    r^2, two launches bitwise equal, its candidate counts (``visits``, from
+    which the pairs come) equal to the plain selection's; then against the
+    exact search: found differs only within K4_SLACK of r^2, the winner's
+    exact d2 within K4_SLACK of the nearest, and the public entry reports
+    the winner's exact d2."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_nn
 
     q, qm, t, tm = queries.points, queries.mask, targets.points, targets.mask
-    n_chunks, chunk = t.shape[0] // cuda_nn.CHUNK, cuda_nn.CHUNK
-    nearest = torch.stack([  # [Q, C]: each chunk's nearest d2 below r^2, else +inf
-        cuda_nn.nn1_mxu_plain(q, qm, t[c * chunk:(c + 1) * chunk].contiguous(),
-                              tm[c * chunk:(c + 1) * chunk].contiguous(), radius)[1]
-        for c in range(n_chunks)], dim=1)
-    n_tiles, n_c = cand.shape
-    gap_unit = float(np.float32(float(radius) * float(radius) / cuda_nn._GAP_SCALE))
-    gap = (cand >> cuda_nn.IDX_BITS).to(torch.float32) * gap_unit            # [tiles, n_c]
-    col = (cand & ((1 << cuda_nn.IDX_BITS) - 1)).long().clamp(max=n_chunks - 1)
-    seen = torch.gather(nearest.view(n_tiles, cuda_nn.TILE, n_chunks), 2,
-                        col[:, None, :].expand(-1, cuda_nn.TILE, -1))           # [tiles, TILE, n_c]
-    start = torch.where(qm, cuda_nn.f32_radius2(radius), 0.0).view(n_tiles, cuda_nn.TILE, 1)
-    before = torch.cat([start, torch.minimum(start, torch.cummin(seen, dim=2).values[..., :-1])],
-                       dim=2)                                                 # bound before chunk k
-    listed = torch.arange(n_c, device=cand.device)[None, :] < counts[:, None]
-    stop = listed & ~torch.any(gap[:, None, :] <= before, dim=1)
-    first_stop = torch.where(stop.any(dim=1), stop.int().argmax(dim=1), counts.long())
-    return int(first_stop.sum())
-
-
-def check_k4(queries, targets, radius):
-    """K4 against its plain version (the same expansion in the same order),
-    then against the exact search: found differs only within K4_SLACK of
-    r^2, the winner's exact d2 within K4_SLACK of the nearest, and the
-    public entry reports the winner's exact d2."""
-    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
-
-    case, ik = check_nn1("K4", cuda_nn.nn1_pruned_mxu, cuda_nn.nn1_mxu_plain,
-                         queries, targets, radius)
-    ie, de = cuda_nn.nn1_plain(queries.points, queries.mask, targets.points, targets.mask, radius)
-    idx, d2, found = cuda_nn.query_1nn_sorted(
-        targets.points, targets.mask, targets.chunk_lo, targets.chunk_hi,
-        queries.points, queries.mask, radius, mxu=True)
+    args = (q, qm, t, tm, targets.chunk_lo, targets.chunk_hi, radius)
+    visits = torch.zeros(q.shape[0] // cuda_nn.SUB_TILE, dtype=torch.int32, device=q.device)
+    ik, dk = cuda_nn.nn1_pruned_mxu(*args, visits)
+    ik2, dk2 = cuda_nn.nn1_pruned_mxu(*args)
+    ip, dp = cuda_nn.nn1_mxu_plain(q, qm, t, tm, radius)
+    want = cuda_nn.expansion_candidates(q, qm, targets.chunk_lo, targets.chunk_hi, radius)
+    ie, de = cuda_nn.nn1_plain(q, qm, t, tm, radius)
+    idx, d2, found = cuda_nn.query_1nn_sorted(t, tm, targets.chunk_lo, targets.chunk_hi, q, qm,
+                                              radius, mxu=True)
     torch.cuda.synchronize()
     r2 = cuda_nn.f32_radius2(radius)
-    fk, fe = ik >= 0, ie >= 0
-    win = targets.points[ik.clamp(min=0).long()]
-    dxk = torch.sum((queries.points - win) ** 2, dim=-1)  # K4 winner's exact d2
+    fk, fp, fe = ik >= 0, ip >= 0, ie >= 0
+    differ = (ik != ip) | (dk != dp)
+    on_border = (fk != fp) & (torch.abs(torch.where(fk, dk, dp) - r2) <= K2_BORDER * r2)
+    same = not bool((differ & ~on_border).any())
+    repeat = bool(torch.equal(ik, ik2)) and bool(torch.equal(dk, dk2))
+    visits_same = bool(torch.equal(visits, want.sum(dim=1, dtype=torch.int32)))
+    both_p = fk & fp
+    win = t[ik.clamp(min=0).long()]
+    dxk = torch.sum((q - win) ** 2, dim=-1)  # K4 winner's exact d2
     only_k, only_e, both = fk & ~fe, fe & ~fk, fk & fe
     border_ok = bool(torch.all(torch.abs(dxk[only_k] - r2) < K4_SLACK)) and bool(
         torch.all(torch.abs(de[only_e] - r2) < K4_SLACK))
     gap = float((dxk[both] - de[both]).max()) if both.any() else 0.0
     reported = bool(torch.equal(d2[found], dxk[found])) and bool(torch.equal(idx[found], ik[found].long()))
-    case.update(vs_exact_found_differ=int((fk != fe).sum()), vs_exact_max_d2_gap=gap,
-                vs_exact_idx_same=float((ik[both] == ie[both]).float().mean()), library_ms=None)
-    # the chunks K4 visits before its early exit; per pair 3 products and 2
-    # additions for q.t, |q|^2 + |t|^2, 2 q.t, the subtraction and the max
-    cand, counts = candidates(queries, targets, radius)
-    visited = k4_visited_chunks(queries, targets, cand, counts, radius)
-    pairs = visited * cuda_nn.TILE * cuda_nn.CHUNK
-    case.update(pairs=pairs, listed_chunks=int(counts.sum()), visited_chunks=visited)
-    with_bound(case, 9.0 * pairs, nbytes(queries.points, queries.mask, targets.points,
-                                         targets.mask, cand, counts, ik, de))
+    live = visits[visits > 0].float()
+    pairs = int(visits.sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
+    ms = cuda_median_ms(lambda: cuda_nn.nn1_pruned_mxu(*args))
+    plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_mxu_plain(q, qm, t, tm, radius))
+    case = dict(
+        radius=radius, queries=int(q.shape[0]), targets=int(t.shape[0]),
+        live_subtiles=int(live.numel()), candidates_mean=float(live.mean()),
+        candidates_max=int(live.max()), exact_candidates=int(cuda_nn.subtile_candidates(
+            q, qm, targets.chunk_lo, targets.chunk_hi, radius).sum()), pairs=pairs,
+        found=int(fk.sum()), identical=bool(not differ.any()), n_border=int(on_border.sum()),
+        repeatable=repeat, visits_equal_plain=visits_same,
+        max_abs_err=float(torch.abs(dk[both_p] - dp[both_p]).max()) if both_p.any() else 0.0,
+        vs_exact_found_differ=int((fk != fe).sum()), vs_exact_max_d2_gap=gap,
+        vs_exact_idx_same=float((ik[both] == ie[both]).float().mean()),
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+    )
+    # per pair 3 products and 2 additions for q.t, |q|^2 + |t|^2, 2 q.t, the
+    # subtraction and the max; 5 more per staged target for |t|^2
+    with_bound(case, 9.0 * pairs + 5.0 * pairs / cuda_nn.SUB_TILE,
+               nbytes(*args[:6], ik, dk))
     print(f"# K4 nn1_pruned_mxu {case}")
+    require(same, f"K4 r={radius}: idx or d2 differ from the plain version off the r^2 boundary")
+    require(repeat, f"K4 r={radius}: two launches differ")
+    require(visits_same, f"K4 r={radius}: its candidate counts differ from the plain selection's")
+    require(int(fk.sum()) > 1000, f"K4 r={radius}: only {int(fk.sum())} queries found a neighbour")
     require(border_ok, f"K4 r={radius}: found differs from the exact search off the r^2 slack")
     require(gap < K4_SLACK, f"K4 r={radius}: a winner is {gap:.2e} m^2 beyond the nearest")
     require(reported, f"K4 r={radius}: the public entry's d2 is not the winner's exact d2")
@@ -504,31 +460,32 @@ def check_k5(queries, targets):
 
 def check_k3(src, target, radius, label):
     """K3 against its plain version at one GICP shape: correspondences equal
-    except 2^-14 near-ties, tile sums within K3_REL of their scale, and a
-    warm start (seeds from a perturbed pose) equal to the cold pass bit for
-    bit."""
+    except 2^-14 near-ties, sub-tile sums within K3_REL of their scale, the
+    selection counts (slots 29/30) equal to the plain version's cold and
+    warm-started, a warm start (seeds from a perturbed pose) equal to the
+    cold pass bit for bit, and two launches equal bit for bit."""
     from direct_lidar_odometry_tpu_torch.core import se3
-    from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud
     from direct_lidar_odometry_tpu_torch.ops import cuda_gicp, cuda_nn
     from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
 
     qw = src.mask & src.normals_valid
-    cand, counts = candidates(PointCloud(src.points, qw), target, radius)
-    tgt = (target.points, target.mask, target.normals, target.normals_valid)
+    tgt = (target.points, target.mask, target.normals, target.normals_valid,
+           target.chunk_lo, target.chunk_hi)
     cold = torch.full((src.points.shape[0],), -1, dtype=torch.int32, device=qw.device)
 
-    def run(fn, p, m, seed, cand_, counts_):
-        return fn(p, m, qw, seed, *tgt, cand_, counts_, radius, PLANE_EPS)
+    def run(fn, p, m, seed):
+        return fn(p, m, qw, seed, *tgt, radius, PLANE_EPS)
 
-    hk, pk, ik = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, cold, cand, counts)
-    hp, pp, ip = run(cuda_gicp.fused_linearize_plain, src.points, src.normals, cold, cand, counts)
+    hk, pk, ik = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, cold)
+    hk2, pk2, ik2 = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, cold)
+    hp, pp, ip = run(cuda_gicp.fused_linearize_plain, src.points, src.normals, cold)
     # seeds: the correspondences of a pose 5 cm / 0.1 degree away
     delta = se3.se3_exp(torch.tensor([0.002, -0.001, 0.002, 0.05, -0.04, 0.03], device=qw.device))
     p_b = torch.where(src.mask[:, None], se3.transform_points(delta, src.points), 1e6).contiguous()
     m_b = (src.normals @ delta[:3, :3].T).contiguous()
-    cand_b, counts_b = candidates(PointCloud(p_b, qw), target, radius)
-    _, _, seed = run(cuda_gicp.fused_linearize_pruned, p_b, m_b, cold, cand_b, counts_b)
-    hs, ps, is_ = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, seed, cand, counts)
+    _, _, seed = run(cuda_gicp.fused_linearize_pruned, p_b, m_b, cold)
+    hs, ps, is_ = run(cuda_gicp.fused_linearize_pruned, src.points, src.normals, seed)
+    hsp, _, _ = run(cuda_gicp.fused_linearize_plain, src.points, src.normals, seed)
     torch.cuda.synchronize()
 
     fk, fp = ik >= 0, ip >= 0
@@ -540,37 +497,44 @@ def check_k3(src, target, radius, label):
     db = float((sk[21:27] - sp[21:27]).abs().max())
     derr = float((sk[27] - sp[27]).abs())
     seeded_same = (bool(torch.equal(is_, ik)) and bool(torch.equal(hs[:, :29], hk[:, :29]))
-                   and bool(torch.equal(ps, pk)))
+                   and bool(torch.equal(hs[:, 30], hk[:, 30])) and bool(torch.equal(ps, pk)))
+    slots_same = (bool(torch.equal(hk[:, 29:31], hp[:, 29:31]))
+                  and bool(torch.equal(hs[:, 29:31], hsp[:, 29:31])))
+    repeat = bool(torch.equal(hk, hk2)) and bool(torch.equal(pk, pk2)) and bool(torch.equal(ik, ik2))
     ms = cuda_median_ms(lambda: run(cuda_gicp.fused_linearize_pruned, src.points, src.normals,
-                                    cold, cand, counts))
+                                    cold))
     seeded_ms = cuda_median_ms(lambda: run(cuda_gicp.fused_linearize_pruned, src.points,
-                                           src.normals, seed, cand, counts))
+                                           src.normals, seed))
     plain_ms = cuda_median_ms(lambda: run(cuda_gicp.fused_linearize_plain, src.points,
-                                          src.normals, cold, cand, counts))
-    prep_ms = cuda_median_ms(lambda: candidates(PointCloud(src.points, qw), target, radius))
+                                          src.normals, cold))
+    live = hk[:, 29][hk[:, 29] > 0]
     case = dict(
-        shape=label, radius=radius, queries=int(src.points.shape[0]),
+        shape=label, radius=radius, queries=int(src.points.shape[0]), weighted=int(qw.sum()),
         targets=int(target.points.shape[0]), n_corr=int(sp[28]), n_corr_kernel=int(sk[28]),
         corr_differ=int(dis.sum()), max_abs_err=max(dh, db), max_h_err=dh,
         max_abs_h=float(sp[:21].abs().max()), max_b_err=db, max_abs_b=float(sp[21:27].abs().max()),
         error_rel=derr / max(float(sp[27].abs()), 1e-30), seeded_equals_cold=seeded_same,
+        slots_equal_plain=slots_same, repeatable=repeat, live_subtiles=int(live.numel()),
+        candidates_mean=float(live.mean()), candidates_max=int(live.max()),
         visits_cold=float(hk[:, 29].sum()), visits_seeded=float(hs[:, 29].sum()),
         candidates=float(hk[:, 30].sum()), ms=ms, seeded_ms=seeded_ms, plain_ms=plain_ms,
-        candidate_ms=prep_ms, library_ms=None,
+        library_ms=None,
     )
     # the cold pass's visited pairs at 8 FLOP each, plus ~150 FLOP per
-    # valid query (the kernel skips the others) for the Mahalanobis matrix
-    # and the H/b terms
-    pairs = float(hk[:, 29].sum()) * cuda_nn.TILE * cuda_nn.CHUNK
+    # weighted query (the others skip the epilogue's maths) for the
+    # Mahalanobis matrix and the H/b terms
+    pairs = float(hk[:, 29].sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
     case["pairs"] = pairs
     with_bound(case, 8.0 * pairs + 150.0 * int(qw.sum()),
-               nbytes(src.points, src.normals, qw, cold, *tgt, cand, counts, hk, pk, ik))
+               nbytes(src.points, src.normals, qw, cold, *tgt, hk, pk, ik))
     print(f"# K3 fused_linearize {case}")
     require(corr_ok, f"K3 {label}: correspondences differ beyond 2^-14 near-ties")
     require(dh <= K3_REL * float(sp[:21].abs().max()), f"K3 {label}: H differs by {dh:.3e}")
     require(db <= K3_REL * float(sp[21:27].abs().max()), f"K3 {label}: b differs by {db:.3e}")
     require(case["error_rel"] <= K3_REL, f"K3 {label}: error differs by {case['error_rel']:.2e}")
     require(seeded_same, f"K3 {label}: the warm-started pass differs from the cold one")
+    require(slots_same, f"K3 {label}: slots 29/30 differ from the plain version's selection")
+    require(repeat, f"K3 {label}: two launches differ")
     require(int(sp[28]) > 1000, f"K3 {label}: only {int(sp[28])} correspondences")
     return case
 
@@ -590,10 +554,6 @@ def drive(cfg, world, scans, device="cuda"):
         runner.process_scan(scan, float(world.stamps[t]), sync=True)
         reads.append(sync.counts["host_reads"] - before)
     launches = read_counters()
-    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
-
-    candidate_calls = cuda_nn.candidate_calls["calls"]
-
     est = runner.trajectory()
     rmse, path = ate_of(est, world)
     frame_ms = [s.wall_ms for s in runner.stats]
@@ -607,7 +567,7 @@ def drive(cfg, world, scans, device="cuda"):
         min_s2m_num_corr=min(corr),
         s2s_iterations=[s.result.s2s_iterations for s in runner.stats[1:]],
         s2m_iterations=[s.result.s2m_iterations for s in runner.stats[1:]],
-        launches=launches, candidate_chunks_calls=candidate_calls,
+        launches=launches,
         k2_launches_per_frame=launches["nn1_pruned"]["cuda"] / (len(est) - 1),
         k1_launches_per_frame=launches["cov_pruned"]["cuda"] / (len(est) - 1),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -620,13 +580,12 @@ def drive(cfg, world, scans, device="cuda"):
         require(launches[name]["cuda"] > 0, f"{name} kernel was never launched on the main path")
     for name, cnt in launches.items():
         require(cnt["plain"] == 0, f"{name} plain version ran {cnt['plain']} times on the main path")
-    require(candidate_calls == 0, f"candidate_chunks ran {candidate_calls} times on the main path")
     return out, runner
 
 
 def device_ops_per_frame(cfg, world, scans, device="cuda"):
     """Phase 4, continued: PROFILED_FRAMES steady frames of a fresh runner
-    on the main path under torch.profiler (the frames before are the
+    on ``cfg``'s backend under torch.profiler (the frames before are the
     runner's warm-up). Per frame: the device operations (kernels, copies,
     sets), their summed device time, the time the device was busy (their
     intervals merged, overlaps counted once), each by kind, the eight
@@ -653,7 +612,8 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     n = len(frames)
-    out = dict(frames=n, device_ops_per_frame=None, profiled_wall_ms_per_frame=wall_ms / n)
+    out = dict(backend=cfg.nn_backend, frames=n, device_ops_per_frame=None,
+               profiled_wall_ms_per_frame=wall_ms / n)
     if ops:
         def kind(name: str) -> str:
             return "memcpy" if name.startswith("Memcpy") else (
@@ -684,7 +644,7 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
             idle_share_profiled=1.0 - busy["all"] / (wall_ms / n),
             top_ms_per_frame=[[name[:80], ms] for name, ms in top],
         )
-    print(f"# main path device ops {json.dumps(out)}")
+    print(f"# device ops {cfg.nn_backend} {json.dumps(out)}")
     return out
 
 
@@ -1013,7 +973,8 @@ def main() -> int:
     k6 = check_k6(inp.scan0, 0.75)
 
     main_path, runner = drive(cfg, world, scans)
-    device_ops_per_frame(cfg, world, scans)
+    for backend in BACKENDS:
+        device_ops_per_frame(slice_config(backend), world, scans)
     cli_fused = drive_cli("pallas_fused", world)
     cli_mxu = drive_cli("pallas_mxu", world)
     oracle = oracle_check(cfg, runner)
@@ -1044,7 +1005,7 @@ def main() -> int:
               main_path["launches"], k1),
         entry("fused_linearize", "fused_linearize.cu", "pallas_gicp.py:68", "cli, pallas_fused",
               cli_fused["launches"], k3),
-        entry("nn1_pruned_mxu", "nn1_pruned_mxu.cu", "pallas_nn.py:200", "cli, pallas_mxu",
+        entry("nn1_pruned_mxu", "nn1_pruned.cu", "pallas_nn.py:200", "cli, pallas_mxu",
               cli_mxu["launches"], k4),
         entry("nn1_exhaustive", "nn1_exhaustive.cu", "pallas_nn.py:38",
               "oracle: query_1nn", oracle["launches"], [k5]),

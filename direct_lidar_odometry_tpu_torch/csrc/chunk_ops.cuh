@@ -2,8 +2,8 @@
 // six), staging a 512-point target chunk in shared memory (K5, K6) and the
 // radius-moment update (K6). The pruned kernels (K1-K4) spell their inner
 // loops out in the kernel body: built from helper functions, an earlier K2
-// ran 25-45 % slower on the H100 (see nn1_pruned_mxu.cu); K1 and K2 share
-// their candidate selection and staging (subtile_search.cuh). sm_90a.
+// ran 25-45 % slower on the H100; they share their candidate selection and
+// staging (subtile_search.cuh). sm_90a.
 //
 // Every distance is spelled with __fmul_rn/__fadd_rn in the order
 // ((dx*dx + dy*dy) + dz*dz), the order the plain PyTorch versions evaluate,
@@ -18,9 +18,8 @@
 
 namespace dlo {
 
-constexpr int kTile = 128;    // queries per block, one thread each (K3-K6)
-constexpr int kChunk = 512;   // targets per Morton chunk (ops/morton.py TARGET_CHUNK)
-constexpr int kIdxBits = 10;  // packed candidate word: chunk index bits (K3, K4)
+constexpr int kTile = 128;   // queries per block, one thread each (K5, K6)
+constexpr int kChunk = 512;  // targets per Morton chunk (ops/morton.py TARGET_CHUNK)
 
 __device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));

@@ -1,10 +1,12 @@
 // Fixed-radius 1-NN over a Morton-sorted target cloud, by sub-tiles that
-// pick their own candidate chunks: kernel K2. sm_90a.
+// pick their own candidate chunks: kernels K2 (exact distance) and K4 (the
+// distance expansion), one body templated on kExpansion. sm_90a.
 //
-// Replaces the TPU kernel direct_lidar_odometry_tpu/ops/pallas_nn.py:
-// _nn1_pruned_kernel (body _pruned_kernel_body with mxu=False), the
+// Replaces the TPU kernels direct_lidar_odometry_tpu/ops/pallas_nn.py:
+// _nn1_pruned_kernel (K2; body _pruned_kernel_body with mxu=False), the
 // correspondence search of every GICP iteration on the "pallas" backend and
-// of the loop-edge GICP.
+// of the loop-edge GICP, and _nn1_pruned_kernel_mxu (K4; mxu=True), the
+// search of the "pallas_mxu" backend.
 //
 // What it computes: for each valid query q, the index of the nearest valid
 // target t with d2(q, t) < r^2, d2 = (dx*dx + dy*dy) + dz*dz rounded as
@@ -34,6 +36,20 @@
 // branch-and-bound exit is dropped: it skipped ~2 % of the candidate chunks
 // at the per-frame shapes and changes no result. No tensor cores: TF32's
 // error at 30-60 m coordinates is metres^2, and the neighbours are exact.
+//
+// K4 (kExpansion) is the same search on d2 = max((|q|^2 + |t|^2) - 2 q.t, 0)
+// with q.t = (qx*tx + qy*ty) + qz*tz and |.|^2 in the same order, every
+// step rounded as written (nvcc would contract it into FMAs), the order of
+// its plain version ops/cuda_nn.py nn1_mxu_plain. The TPU kernel ran the
+// cross term on its matrix unit; here it is three fp32 products on the CUDA
+// cores. |t|^2 is computed in staging into the w lane of the staged float4;
+// invalid targets are staged as {0, 0, 0, +inf}, so their d2 is +inf (the
+// plain version folds them to the finite pad 1e6 instead: neither reports
+// a winner there, so the outputs are equal). Its selection adds the
+// expansion's rounding slack to r^2 (subtile_search.cuh), so K4 finds what
+// the exhaustive plain version finds, bit for bit; the winner may differ
+// from K2's among near-ties, which the public entry tolerates by
+// recomputing the winner's exact d2. About 14 instructions per pair, as K2.
 
 #include "subtile_search.cuh"
 
@@ -41,6 +57,7 @@ namespace {
 
 using namespace dlo;
 
+template <bool kExpansion>
 __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
     const float* __restrict__ queries,    // [Q, 3]
     const uint8_t* __restrict__ qmask,    // [Q]
@@ -62,6 +79,7 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
   const float qy = queries[3 * q + 1];
   const float qz = queries[3 * q + 2];
   const bool valid = qmask[q] != 0;
+  const float q2 = kExpansion ? dist2_rn(qx, qy, qz) : 0.0f;
 
   float lo[3], hi[3];
   if (!subtile_aabb(qx, qy, qz, valid, lo, hi)) {  // the same in every warp
@@ -72,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
     if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = 0;
     return;
   }
-  select_candidates(lo, hi, chunk_lo, chunk_hi, n_chunks, radius2, s_bits);
+  select_candidates<kExpansion>(lo, hi, chunk_lo, chunk_hi, n_chunks, radius2, s_bits);
   __syncthreads();
   const int n_words = (n_chunks + 31) >> 5;
   if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = count_candidates(s_bits, n_words);
@@ -86,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
   // functions, an earlier K2 ran 25-45 % slower with the same instructions.
   for (int k = 0; c >= 0; ++k) {
     float4* buf = s_buf[k & 1];
-    stage_finish(buf, ok0, ok1);
+    stage_finish<kExpansion>(buf, ok0, ok1);
     __syncthreads();  // chunk c has landed; every warp is done with the other buffer
     const int next = next_candidate(s_bits, n_words, c + 1);
     if (next >= 0) stage_issue(s_buf[(k + 1) & 1], targets, tmask, next, ok0, ok1);
@@ -95,7 +113,14 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
 #pragma unroll 8
     for (int i = 0; i < kSlice; ++i) {
       const float4 t = sp[i];
-      const float d2 = dist2_rn(qx - t.x, qy - t.y, qz - t.z);
+      float d2;
+      if constexpr (kExpansion) {
+        const float g = __fadd_rn(__fadd_rn(__fmul_rn(qx, t.x), __fmul_rn(qy, t.y)),
+                                  __fmul_rn(qz, t.z));
+        d2 = fmaxf(__fsub_rn(__fadd_rn(q2, t.w), __fmul_rn(2.0f, g)), 0.0f);
+      } else {
+        d2 = dist2_rn(qx - t.x, qy - t.y, qz - t.z);
+      }
       if (d2 < best) {
         best = d2;
         best_idx = base + i;
@@ -123,20 +148,37 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
   }
 }
 
+template <bool kExpansion>
+int launch(const void* queries, const void* qmask, const void* targets, const void* tmask,
+           const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks,
+           float radius2, void* out_idx, void* out_d2, void* visits, void* stream) {
+  if (n_queries % kSub != 0 || n_chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_queries > 0) {
+    nn1_pruned_kernel<kExpansion>
+        <<<n_queries / kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
+            static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
+            static_cast<const float*>(chunk_lo), static_cast<const float*>(chunk_hi),
+            n_chunks, radius2, static_cast<int32_t*>(out_idx), static_cast<float*>(out_d2),
+            static_cast<int32_t*>(visits));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int dlo_nn1_pruned(
     const void* queries, const void* qmask, const void* targets, const void* tmask,
     const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, float radius2,
     void* out_idx, void* out_d2, void* visits, void* stream) {
-  if (n_queries % kSub != 0 || n_chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_queries > 0) {
-    nn1_pruned_kernel<<<n_queries / kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
-        static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
-        static_cast<const float*>(chunk_lo), static_cast<const float*>(chunk_hi),
-        n_chunks, radius2, static_cast<int32_t*>(out_idx), static_cast<float*>(out_d2),
-        static_cast<int32_t*>(visits));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(queries, qmask, targets, tmask, chunk_lo, chunk_hi, n_queries, n_chunks,
+                       radius2, out_idx, out_d2, visits, stream);
+}
+
+extern "C" int dlo_nn1_pruned_mxu(
+    const void* queries, const void* qmask, const void* targets, const void* tmask,
+    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, float radius2,
+    void* out_idx, void* out_d2, void* visits, void* stream) {
+  return launch<true>(queries, qmask, targets, tmask, chunk_lo, chunk_hi, n_queries, n_chunks,
+                      radius2, out_idx, out_d2, visits, stream);
 }

@@ -1,6 +1,6 @@
-// The sub-tile search shared by the pruned kernels K1 (cov_pruned.cu) and
-// K2 (nn1_pruned.cu): candidate selection inside the kernel and staging of
-// the candidate chunks. sm_90a.
+// The sub-tile search shared by the pruned kernels K1 (cov_pruned.cu), K2
+// and K4 (nn1_pruned.cu) and K3 (fused_linearize.cu): candidate selection
+// inside the kernel and staging of the candidate chunks. sm_90a.
 //
 // Work split: a block owns one sub-tile of kSub = 32 consecutive queries
 // (lane i of every warp holds query i) and runs kWarps = 8 warps. Every
@@ -15,11 +15,19 @@
 // barrier; the warps split the target's chunk AABBs into groups of 32, one
 // lane per chunk, and a chunk is a candidate iff its squared gap to the box,
 // (gx*gx + gy*gy) + gz*gz with gx = max(clo - qhi, qlo - chi, 0) rounded
-// as written, is <= r^2. The candidates are kept as a bitmap in shared
+// as written, is <= the bound (r^2; K3 passes a lower one where seeds allow
+// it). The candidates are kept as a bitmap in shared
 // memory (one __ballot_sync word per 32 chunks, C <= kMaxChunks) and walked
 // in ascending chunk index. Rounding is monotone, so the gap^2 of a chunk
 // is never above the rounded d^2 of any valid query of the sub-tile and any
 // valid target of the chunk: no target within r is ever missed.
+//
+// K4's distance expansion can read a pair up to ~8u (|q|^2 + |t|^2 + r^2)
+// below its rounded d^2 (u = 2^-24), so its selection (kExpansion) adds
+// (|q|max^2 + |t|max^2 + r^2) * 2^-19 to r^2, with the maxima over the box
+// corners (ops/cuda_nn.py expansion_candidates): every target whose
+// expansion d2 is < r^2 then lies in a candidate chunk, and K4 finds what
+// its exhaustive plain version finds.
 //
 // Staging: the copy of the next candidate chunk is in flight (cp.async,
 // 4-byte pieces into one float4 per target, so the inner loops read one
@@ -27,7 +35,10 @@
 // Each thread copies two targets and, once its copies have landed, writes
 // +inf over the invalid ones among them; the barrier that follows publishes
 // the chunk. An invalid target's distance to any finite query is then +inf:
-// it never wins a minimum and always fails a radius test.
+// it never wins a minimum and always fails a radius test. With kExpansion
+// the thread writes |t|^2 into the w lane of its valid targets and
+// {0, 0, 0, +inf} over the invalid ones, so the expansion reads +inf there
+// (the +inf coordinates of K2 would give inf - inf = NaN).
 
 #pragma once
 
@@ -42,6 +53,7 @@ constexpr int kSlice = kChunk / kWarps;  // targets per warp per chunk
 constexpr int kMaxChunks = 1024;         // bitmap capacity: T <= 524288
 constexpr int kBitWords = kMaxChunks / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kExpansionSlack = 1.0f / (1 << 19);  // K4's selection slack, see above
 static_assert(kSub == 32, "a sub-tile is one warp's lanes");
 static_assert(kChunk == 2 * kThreads, "each thread stages two targets of a chunk");
 
@@ -66,15 +78,27 @@ __device__ __forceinline__ bool subtile_aabb(float qx, float qy, float qz, bool 
   return __any_sync(kFullMask, valid);
 }
 
+// |p|^2 of the box corner farthest from the origin, (x*x + y*y) + z*z
+// rounded as written: no point of the box [lo, hi] has a larger |p|^2.
+__device__ __forceinline__ float corner_norm2(float lo0, float lo1, float lo2, float hi0,
+                                              float hi1, float hi2) {
+  return dist2_rn(fmaxf(fabsf(lo0), fabsf(hi0)), fmaxf(fabsf(lo1), fabsf(hi1)),
+                  fmaxf(fabsf(lo2), fabsf(hi2)));
+}
+
 // Candidate bitmap of the sub-tile box [lo, hi] against the [3, C] chunk
-// AABBs: bit c of bits[c / 32] is set iff gap^2 <= r^2. Writes the words
-// [0, ceil(C / 32)); the caller's barrier publishes them.
+// AABBs: bit c of bits[c / 32] is set iff gap^2 <= bound2 (with
+// kExpansion: iff gap^2 is finite and <= bound2 plus the slack above).
+// Writes the words [0, ceil(C / 32)); the caller's barrier publishes them.
+template <bool kExpansion = false>
 __device__ __forceinline__ void select_candidates(const float* lo, const float* hi,
                                                   const float* __restrict__ chunk_lo,
                                                   const float* __restrict__ chunk_hi,
-                                                  int n_chunks, float radius2, uint32_t* bits) {
+                                                  int n_chunks, float bound2, uint32_t* bits) {
   const int lane = threadIdx.x & 31;
   const int n_words = (n_chunks + 31) >> 5;
+  float q_norm2 = 0.0f;
+  if constexpr (kExpansion) q_norm2 = corner_norm2(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2]);
   for (int w = threadIdx.x >> 5; w < n_words; w += kWarps) {
     const int c = (w << 5) + lane;
     bool cand = false;
@@ -86,7 +110,18 @@ __device__ __forceinline__ void select_candidates(const float* lo, const float* 
         const float above = __fsub_rn(lo[a], chunk_hi[a * n_chunks + c]);
         g[a] = fmaxf(fmaxf(below, above), 0.0f);
       }
-      cand = dist2_rn(g[0], g[1], g[2]) <= radius2;
+      const float gap2 = dist2_rn(g[0], g[1], g[2]);
+      if constexpr (kExpansion) {
+        const float t_norm2 = corner_norm2(chunk_lo[c], chunk_lo[n_chunks + c],
+                                           chunk_lo[2 * n_chunks + c], chunk_hi[c],
+                                           chunk_hi[n_chunks + c], chunk_hi[2 * n_chunks + c]);
+        const float slack =
+            __fmul_rn(__fadd_rn(__fadd_rn(q_norm2, t_norm2), bound2), kExpansionSlack);
+        // an empty chunk's box (+inf, -inf) gives gap^2 = slack = +inf
+        cand = gap2 < INFINITY && gap2 <= __fadd_rn(bound2, slack);
+      } else {
+        cand = gap2 <= bound2;
+      }
     }
     const uint32_t word = __ballot_sync(kFullMask, cand);
     if (lane == 0) bits[w] = word;
@@ -135,13 +170,25 @@ __device__ __forceinline__ void stage_issue(float4* buf, const float* __restrict
   ok1 = tmask[g1] != 0;
 }
 
-// Wait for this thread's copies and put its invalid targets at +inf; a
+// Wait for this thread's copies and put its invalid targets at +inf (with
+// kExpansion: |t|^2 into w, {0, 0, 0, +inf} for invalid targets); a
 // __syncthreads after this makes the whole chunk visible.
+template <bool kExpansion = false>
 __device__ __forceinline__ void stage_finish(float4* buf, bool ok0, bool ok1) {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  const float4 far = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
-  if (!ok0) buf[threadIdx.x] = far;
-  if (!ok1) buf[threadIdx.x + kThreads] = far;
+  if constexpr (kExpansion) {
+    const float4 far = make_float4(0.0f, 0.0f, 0.0f, INFINITY);
+    float4& t0 = buf[threadIdx.x];
+    float4& t1 = buf[threadIdx.x + kThreads];
+    t0.w = dist2_rn(t0.x, t0.y, t0.z);
+    t1.w = dist2_rn(t1.x, t1.y, t1.z);
+    if (!ok0) t0 = far;
+    if (!ok1) t1 = far;
+  } else {
+    const float4 far = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
+    if (!ok0) buf[threadIdx.x] = far;
+    if (!ok1) buf[threadIdx.x + kThreads] = far;
+  }
 }
 
 }  // namespace dlo

@@ -6,26 +6,29 @@ Counterpart of the JAX package's ``ops/pallas_gicp.py``
 ``"pallas_fused"`` backend.
 
 - :func:`fused_linearize_pruned` is the kernel's wrapper. On a CUDA tensor
-  it launches ``csrc/fused_linearize.cu`` over the query tiles' candidate
-  chunk lists; on a CPU tensor it runs :func:`fused_linearize_plain`, the
-  plain PyTorch version (exhaustive 1-NN, the same per-query maths and the
-  same per-tile sums). Nothing falls back from one to the other.
+  it launches ``csrc/fused_linearize.cu``, whose 32-query sub-tiles select
+  their candidate chunks from the target's chunk AABBs themselves (K2's
+  search); on a CPU tensor it runs :func:`fused_linearize_plain`, the plain
+  PyTorch version (exhaustive 1-NN, the same per-query maths, the same
+  per-sub-tile sums and the kernel's selection counts). Nothing falls back
+  from one to the other.
 - :func:`fused_linearize` is the public entry with the JAX package's
-  signature: it builds the candidate lists from the tiles of
-  ``query_weight`` (not of the source mask), runs the kernel and unpacks
-  the tile sums into H [6,6], b [6], the error, n_corr and the two
-  branch-and-bound diagnostics, plus the frozen payload the LM gain test
-  needs.
+  signature: it runs the kernel over the sub-tiles of ``query_weight`` (not
+  of the source mask) and unpacks the row sums into H [6,6], b [6], the
+  error, n_corr and the two selection diagnostics, plus the frozen payload
+  the LM gain test needs.
 
-Per-tile row layout of ``hb [Qc, 32]`` (summed over tiles by the caller):
+Per-sub-tile row layout of ``hb [Q // 32, 32]`` (summed over the rows by
+the caller):
   0:6    upper triangle of H_tl = sum w S^T M S  (00, 01, 02, 11, 12, 22)
   6:15   S M, row-major (H_tr = -sum S^T M = +sum S M)
   15:21  upper triangle of H_br = sum w M
   21:27  b = [sum S^T M e, -sum M e]
   27     error = sum e^T M e
   28     n_corr = sum w
-  29     chunks visited by the branch-and-bound
-  30     candidate chunks listed
+  29     chunks visited: squared AABB gap <= B, the largest bound of the
+         sub-tile's weighted queries (a seed's d2 where seeded, else r^2)
+  30     candidate chunks: squared AABB gap <= r^2
 Payload ``pay [Q, 8]``: mu_b xyz, n_b xyz, w, best d2 (the search's final
 bound: r^2 where nothing was found, 0 for queries of weight 0); zero
 point and normal where w = 0.
@@ -40,15 +43,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
+from direct_lidar_odometry_tpu_torch.ops import cuda_build
 from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
-    CHUNK,
-    TILE,
-    _GAP_SCALE,
-    candidate_chunks,
-    check_kernel_inputs,
+    SUB_TILE,
+    check_search_inputs,
     f32_radius2,
     nn1_plain,
+    subtile_gap2,
 )
 
 N_SLOTS = 32
@@ -74,8 +75,8 @@ class FusedLinearization(NamedTuple):
     weight: torch.Tensor         # [Q] f32 0/1
     best_d2: torch.Tensor        # [Q]
     corr: torch.Tensor           # [Q] int32 target index, -1 = none
-    bb_visits: torch.Tensor      # f32 total chunk visits across tiles
-    bb_candidates: torch.Tensor  # f32 total candidate-list length across tiles
+    bb_visits: torch.Tensor      # f32 chunks visited, summed over 32-query sub-tiles
+    bb_candidates: torch.Tensor  # f32 candidate chunks at r, summed over sub-tiles
 
 
 def _query_slots(p, m, mu_b, n_b, plane_eps: float) -> torch.Tensor:
@@ -130,18 +131,36 @@ def _query_slots(p, m, mu_b, n_b, plane_eps: float) -> torch.Tensor:
     ], dim=-1)
 
 
+def seed_bounds(p_t, query_weight, seed, targets, target_mask, radius: float) -> torch.Tensor:
+    """Each sub-tile's selection bound B in K3: the largest per-query bound
+    over its weighted queries, the seed's d2 ((dx*dx + dy*dy) + dz*dz) where
+    the seed names a valid target strictly inside r^2, r^2 otherwise; 0 for
+    a sub-tile without a weighted query. f32 [Q // 32]."""
+    r2 = f32_radius2(radius)
+    j = seed.to(torch.int64)
+    ok = query_weight & (j >= 0) & (j < targets.shape[0])
+    j = torch.where(ok, j, 0)
+    ok = ok & target_mask[j]
+    d = p_t - targets[j]
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    seeded = ok & (d2 < r2)
+    own = torch.where(query_weight, torch.where(seeded, d2, r2), 0.0)
+    return own.reshape(-1, SUB_TILE).amax(dim=1)
+
+
 def fused_linearize_plain(
     p_t, m_rot, query_weight, seed,
     targets, target_mask, target_normals, target_normals_valid,
-    cand, counts, radius: float, plane_eps: float,
+    chunk_lo, chunk_hi, radius: float, plane_eps: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K3: (hb [Qc, 32], pay [Q, 8], idx int32 [Q]).
+    """Plain PyTorch version of K3: (hb [Q // 32, 32], pay [Q, 8], idx int32 [Q]).
 
     Exhaustive 1-NN (:func:`ops.cuda_nn.nn1_plain`, the kernel's distance
     and tie rule) over the queries of weight 1, then the kernel's per-query
-    maths and per-tile sums. The seed only tightens the kernel's search
-    bound and never changes its result, so an exhaustive search ignores
-    it; slot 29 counts every chunk as visited.
+    maths and per-sub-tile sums. The seed changes which chunks the kernel
+    visits, never its result, so the exhaustive search ignores it; slots
+    29/30 count the kernel's selection (:func:`ops.cuda_nn.subtile_gap2`
+    against :func:`seed_bounds` and against r^2).
     """
     idx, d2 = nn1_plain(p_t, query_weight, targets, target_mask, radius)
     found = idx >= 0
@@ -151,13 +170,13 @@ def fused_linearize_plain(
     n_b = torch.where(w[:, None], target_normals[j], 0.0)
     wf = w.to(torch.float32)
     vals = torch.where(w[:, None], _query_slots(p_t, m_rot, mu_b, n_b, plane_eps), 0.0)
-    q_total = p_t.shape[0]
-    qc = q_total // TILE
-    sums = torch.cat([vals, wf[:, None]], dim=1).reshape(qc, TILE, _QUERY_SLOTS).sum(1)
-    n_chunks = -(-targets.shape[0] // CHUNK)
-    diag = torch.stack([torch.full_like(sums[:, 0], float(n_chunks)), counts.to(torch.float32)], 1)
-    hb = torch.cat([sums, diag, torch.zeros_like(sums[:, :1])], dim=1)
+    n_sub = p_t.shape[0] // SUB_TILE
+    sums = torch.cat([vals, wf[:, None]], dim=1).reshape(n_sub, SUB_TILE, _QUERY_SLOTS).sum(1)
     r2 = f32_radius2(radius)
+    gap2 = subtile_gap2(p_t, query_weight, chunk_lo, chunk_hi)
+    bounds = seed_bounds(p_t, query_weight, seed, targets, target_mask, radius)
+    diag = torch.stack([(gap2 <= bounds[:, None]).sum(1), (gap2 <= r2).sum(1)], 1)
+    hb = torch.cat([sums, diag.to(torch.float32), torch.zeros_like(sums[:, :1])], dim=1)
     best = torch.where(found, d2, torch.where(query_weight, r2, 0.0))
     pay = torch.cat([mu_b, n_b, wf[:, None], best[:, None]], dim=1)
     return hb, pay, torch.where(w, idx, -1)
@@ -166,19 +185,20 @@ def fused_linearize_plain(
 def fused_linearize_pruned(
     p_t, m_rot, query_weight, seed,
     targets, target_mask, target_normals, target_normals_valid,
-    cand, counts, radius: float, plane_eps: float,
+    chunk_lo, chunk_hi, radius: float, plane_eps: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Wrapper of kernel K3: (hb [Qc, 32], pay [Q, 8], idx int32 [Q]) as
-    :func:`fused_linearize_plain`.
+    """Wrapper of kernel K3: (hb [Q // 32, 32], pay [Q, 8], idx int32 [Q])
+    as :func:`fused_linearize_plain`.
 
     p_t/m_rot [Q,3] f32 with Q % 128 == 0, query_weight [Q] bool, seed [Q]
     int32 (-1 = cold); targets/target_normals [T,3] f32 Morton-sorted with
-    T % 512 == 0, target_mask/target_normals_valid [T] bool; cand/counts
-    from :func:`ops.cuda_nn.candidate_chunks` over the tiles of
-    query_weight. A CUDA tensor launches the kernel on the current stream
-    (no allocation inside, no synchronization).
+    T % 512 == 0 and T <= 512 * 1024, target_mask/target_normals_valid [T]
+    bool; chunk_lo/chunk_hi the targets' [3, T//512] masked chunk AABBs.
+    The kernel selects the candidate chunks of each 32-query sub-tile of
+    query_weight itself. A CUDA tensor launches the kernel on the current
+    stream (no allocation inside, no synchronization).
     """
-    check_kernel_inputs(p_t, query_weight, targets, target_mask, cand, counts)
+    check_search_inputs(p_t, query_weight, targets, target_mask, chunk_lo, chunk_hi)
     extra = dict(m_rot=(m_rot, torch.float32, p_t.shape), seed=(seed, torch.int32, (p_t.shape[0],)),
                  target_normals=(target_normals, torch.float32, targets.shape),
                  target_normals_valid=(target_normals_valid, torch.bool, (targets.shape[0],)))
@@ -189,23 +209,20 @@ def fused_linearize_pruned(
     if p_t.device.type == "cpu":
         launches["plain"] += 1
         return fused_linearize_plain(p_t, m_rot, query_weight, seed, targets, target_mask,
-                                     target_normals, target_normals_valid, cand, counts,
+                                     target_normals, target_normals_valid, chunk_lo, chunk_hi,
                                      radius, plane_eps)
     if p_t.device.type != "cuda":
         raise ValueError(f"unsupported device {p_t.device}")
     q_total = p_t.shape[0]
-    qc = q_total // TILE
-    hb = torch.empty((qc, N_SLOTS), dtype=torch.float32, device=p_t.device)
+    hb = torch.empty((q_total // SUB_TILE, N_SLOTS), dtype=torch.float32, device=p_t.device)
     pay = torch.empty((q_total, 8), dtype=torch.float32, device=p_t.device)
     idx = torch.empty((q_total,), dtype=torch.int32, device=p_t.device)
-    gap_unit = float(np.float32(float(radius) * float(radius) / _GAP_SCALE))
     with torch.cuda.device(p_t.device):
         err = cuda_build.library().dlo_fused_linearize(
             p_t.data_ptr(), m_rot.data_ptr(), query_weight.data_ptr(), seed.data_ptr(),
             targets.data_ptr(), target_mask.data_ptr(), target_normals.data_ptr(),
-            target_normals_valid.data_ptr(), cand.data_ptr(), counts.data_ptr(),
-            qc, cand.shape[1], f32_radius2(radius), gap_unit,
-            float(np.float32(1.0 - plane_eps)),
+            target_normals_valid.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
+            q_total, chunk_lo.shape[1], f32_radius2(radius), float(np.float32(1.0 - plane_eps)),
             hb.data_ptr(), pay.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(p_t.device).cuda_stream,
         )
@@ -234,20 +251,20 @@ def fused_linearize(
     rotated source normals ``R n_a``, ``query_weight`` [Q] bool the source
     mask & normals_valid. Returns H, b, the error, n_corr and the frozen
     payload (mu_b, n_b, weight, best_d2, corr). ``seed_corr`` [Q] (or None):
-    previous-iteration correspondences that warm-start the branch-and-bound;
-    the result is exactly the unseeded one.
+    previous-iteration correspondences that warm-start the search (they may
+    shrink each sub-tile's chunk selection); the result is exactly the
+    unseeded one. ``bb_visits`` / ``bb_candidates`` count chunks per
+    32-query sub-tile: the kernel evaluates 32 * 512 * bb_visits pairs.
     """
     p_t = p_t.contiguous()
     m_rot = m_rot.contiguous()
-    qlo, qhi = morton.chunk_aabbs(p_t, query_weight, TILE)
-    cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
     if seed_corr is None:
         seed = torch.full(query_weight.shape, -1, dtype=torch.int32, device=p_t.device)
     else:
         seed = seed_corr.to(torch.int32).contiguous()
     hb, pay, corr = fused_linearize_pruned(
         p_t, m_rot, query_weight, seed, target_points, target_mask,
-        target_normals, target_normals_valid, cand, counts, radius, plane_eps,
+        target_normals, target_normals_valid, chunk_lo, chunk_hi, radius, plane_eps,
     )
     sums = torch.sum(hb, dim=0)
     h00, h01, h02, h11, h12, h22 = sums[0:6].unbind()

@@ -2,9 +2,8 @@
 and the exhaustive kernel K5.
 
 Counterpart of the JAX package's ``ops/pallas_nn.py``: the pruned path
-(``candidate_chunks``, ``_pruned_1nn_one``, ``query_1nn_sorted``), the
-correspondence search of every GICP iteration, and the exhaustive
-``query_1nn``.
+(``_pruned_1nn_one``, ``query_1nn_sorted``), the correspondence search of
+every GICP iteration, and the exhaustive ``query_1nn``.
 
 - :func:`nn1_pruned` is kernel K2's wrapper. It takes the target's chunk
   AABBs; on a CUDA tensor it launches ``csrc/nn1_pruned.cu``, which picks
@@ -12,13 +11,10 @@ correspondence search of every GICP iteration, and the exhaustive
   (:func:`subtile_candidates` is that selection in plain PyTorch); on a CPU
   tensor it runs :func:`nn1_plain`, the exhaustive plain PyTorch version
   of the same function. Nothing falls back from one to the other.
-- :func:`candidate_chunks` builds, per 128-query tile, the gap-sorted list
-  of 512-point target chunks whose AABB gap to the tile is <= r: plain
-  tensor ops, as the JAX package computes them outside its kernel, for the
-  branch-and-bound kernels K3 and K4. ``candidate_calls`` counts its calls.
-- :func:`nn1_pruned_mxu` is kernel K4's wrapper (``csrc/nn1_pruned_mxu.cu``
-  with the distance expansion ``max((|q|^2 + |t|^2) - 2 q.t, 0)``); its
-  plain version is :func:`nn1_mxu_plain`.
+- :func:`nn1_pruned_mxu` is kernel K4's wrapper: the same kernel body on
+  the distance expansion ``max((|q|^2 + |t|^2) - 2 q.t, 0)``, with the
+  same inputs; its selection is :func:`expansion_candidates` and its
+  plain version :func:`nn1_mxu_plain`.
 - :func:`query_1nn_sorted` is the public entry with the JAX package's
   contract: it recomputes the winner's exact d2 after the search
   (``mxu=True`` selects K4).
@@ -39,31 +35,24 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
 
-TILE = 128                    # queries per tile (one CUDA block of K3-K6)
-SUB_TILE = 32                 # queries per sub-tile (one CUDA block of K1, K2)
+TILE = 128                    # queries per tile (one CUDA block of K5, K6)
+SUB_TILE = 32                 # queries per sub-tile (one CUDA block of K1-K4)
 CHUNK = morton.TARGET_CHUNK   # targets per Morton chunk
-
-# Packed candidate word: low 10 bits = chunk index (C <= 1024), upper 21
-# bits = the tile-chunk AABB squared gap, floor-quantized to r^2/_GAP_SCALE
-# units. Floor keeps the branch-and-bound exit conservative (quantized gap
-# <= true gap, so "quantized gap > bound" implies "gap > bound").
-IDX_BITS = 10
-_GAP_SCALE = (1 << 21) - 1
-_NOT_CANDIDATE = 0x7FFFFFFF
-MAX_CHUNKS = 1 << IDX_BITS    # chunks per target cloud, every pruned kernel
+MAX_CHUNKS = 1024             # chunks per target cloud, every pruned kernel
 
 launches = {"cuda": 0, "plain": 0}
 mxu_launches = {"cuda": 0, "plain": 0}
 exhaustive_launches = {"cuda": 0, "plain": 0}
-candidate_calls = {"calls": 0}
 
-# invalid targets of the expansion kernel are folded to this finite
-# coordinate (an infinite one gives inf - inf = NaN in the expansion)
+# the plain expansion folds invalid targets to this finite coordinate (an
+# infinite one gives inf - inf = NaN in the expansion)
 _EXPANSION_PAD = 1e6
+# K4's selection slack factor (csrc/subtile_search.cuh kExpansionSlack)
+EXPANSION_SLACK = 2.0**-19
 
 
 def reset_launches() -> None:
-    for counter in (launches, mxu_launches, exhaustive_launches, candidate_calls):
+    for counter in (launches, mxu_launches, exhaustive_launches):
         for k in counter:
             counter[k] = 0
 
@@ -73,45 +62,12 @@ def f32_radius2(radius: float) -> float:
     return float(np.float32(float(radius) * float(radius)))
 
 
-def candidate_chunks(
-    qlo: torch.Tensor, qhi: torch.Tensor,
-    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
-    radius: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-query-tile candidate target-chunk lists (the kd-tree analog).
-
-    qlo/qhi [3, Qc], chunk_lo/chunk_hi [3, C] (masked AABBs from
-    :func:`ops.morton.chunk_aabbs`). Returns (cand [Qc, C] int32 packed
-    gap+index words sorted ascending, candidates first; counts [Qc] int32).
-    A chunk is a candidate iff the AABB-AABB squared gap <= r^2, so any
-    target within ``radius`` of any query in the tile lies in a candidate
-    chunk; the ascending-gap order makes the kernel's early exit exact.
-    """
-    candidate_calls["calls"] += 1
-    c = chunk_lo.shape[1]
-    if c > MAX_CHUNKS:
-        raise ValueError(f"{c} chunks exceed the {IDX_BITS}-bit packed index")
-    g1 = chunk_lo.T[None, :, :] - qhi.T[:, None, :]   # [Qc, C, 3]
-    g2 = qlo.T[:, None, :] - chunk_hi.T[None, :, :]
-    g = torch.clamp(torch.maximum(g1, g2), min=0.0)
-    gap2 = torch.sum(g * g, dim=-1)                   # [Qc, C]
-    r2 = float(radius) * float(radius)
-    visit = gap2 <= f32_radius2(radius)
-    gq = torch.clamp(torch.floor(gap2 * (_GAP_SCALE / r2)), 0, _GAP_SCALE).to(torch.int32)
-    idx = torch.arange(c, dtype=torch.int32, device=gap2.device).expand(visit.shape)
-    packed = (gq << IDX_BITS) | idx
-    packed = torch.where(visit, packed, _NOT_CANDIDATE)
-    cand = torch.sort(packed, dim=1).values
-    counts = torch.sum(visit, dim=1, dtype=torch.int32)
-    return cand.contiguous(), counts.contiguous()
-
-
 def subtile_gap2(
     queries: torch.Tensor, query_mask: torch.Tensor,
     chunk_lo: torch.Tensor, chunk_hi: torch.Tensor, sub: int = SUB_TILE,
 ) -> torch.Tensor:
     """Squared AABB gaps of every ``sub``-query sub-tile to every chunk, as
-    kernels K1 and K2 compute them inside the kernel
+    the pruned kernels K1-K4 compute them inside the kernel
     (``csrc/subtile_search.cuh``): f32 [Q // sub, C].
 
     queries [Q,3] with Q % sub == 0, chunk_lo/chunk_hi [3, C] (masked chunk
@@ -134,11 +90,39 @@ def subtile_candidates(
     chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
     radius: float, sub: int = SUB_TILE,
 ) -> torch.Tensor:
-    """The candidate chunks of every sub-tile, as K1 and K2 select them:
+    """The candidate chunks of every sub-tile, as K1-K3 select them at r:
     bool [Q // sub, C], True where :func:`subtile_gap2` <= f32(r^2). Every
     target within r of a valid query lies in a candidate chunk of the
     query's sub-tile."""
     return subtile_gap2(queries, query_mask, chunk_lo, chunk_hi, sub) <= f32_radius2(radius)
+
+
+def _corner_norm2(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """|p|^2 of the [3, N] boxes' corners farthest from the origin, rounded
+    as the kernel rounds it; +inf for empty boxes."""
+    c = torch.maximum(lo.abs(), hi.abs())
+    return (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]
+
+
+def expansion_candidates(
+    queries: torch.Tensor, query_mask: torch.Tensor,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
+    radius: float, sub: int = SUB_TILE,
+) -> torch.Tensor:
+    """K4's candidate chunks of every sub-tile: bool [Q // sub, C], True
+    where :func:`subtile_gap2` is finite and <= r^2 + slack, with slack =
+    ((|q|max^2 + |t|max^2) + r^2) * 2^-19 over the sub-tile's and the
+    chunk's box corners, each step rounded as the kernel rounds it. The
+    expansion can read a pair up to ~8u (|q|^2 + |t|^2 + r^2) below its
+    rounded d^2 (u = 2^-24), so every target whose expansion d2 is < r^2
+    lies in a candidate chunk, and K4 finds what :func:`nn1_mxu_plain`
+    finds."""
+    r2 = f32_radius2(radius)
+    qlo, qhi = morton.chunk_aabbs(queries, query_mask, sub)
+    norms = _corner_norm2(qlo, qhi)[:, None] + _corner_norm2(chunk_lo, chunk_hi)[None, :]
+    bound = r2 + (norms + r2) * EXPANSION_SLACK
+    gap2 = subtile_gap2(queries, query_mask, chunk_lo, chunk_hi, sub)
+    return torch.isfinite(gap2) & (gap2 <= bound)
 
 
 def plain_query_step(n_targets: int, device: torch.device) -> int:
@@ -149,8 +133,9 @@ def plain_query_step(n_targets: int, device: torch.device) -> int:
 
 
 def _expansion_targets(targets: torch.Tensor, target_mask: torch.Tensor):
-    """K4's targets: invalid ones folded to the finite pad, and the |t|^2
-    row (tx*tx + ty*ty) + tz*tz, as the JAX package's wrapper prepares them."""
+    """The plain expansion's targets: invalid ones folded to the finite pad,
+    and the |t|^2 row (tx*tx + ty*ty) + tz*tz, as the JAX package's wrapper
+    prepares them."""
     folded = torch.where(target_mask[:, None], targets, _EXPANSION_PAD).contiguous()
     tx, ty, tz = folded.unbind(-1)
     return folded, ((tx * tx + ty * ty) + tz * tz).contiguous()
@@ -248,21 +233,9 @@ def _check_sizes(q_total: int, t_total: int) -> None:
         raise ValueError(f"need Q % {TILE} == 0 and T % {CHUNK} == 0, got Q={q_total} T={t_total}")
 
 
-def check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts):
-    """Inputs of the candidate-list kernels K3/K4."""
-    _check_tensors(dict(queries=torch.float32, targets=torch.float32, query_mask=torch.bool,
-                        target_mask=torch.bool, cand=torch.int32, counts=torch.int32),
-                   queries=queries, query_mask=query_mask, targets=targets,
-                   target_mask=target_mask, cand=cand, counts=counts)
-    q_total, t_total = queries.shape[0], targets.shape[0]
-    _check_sizes(q_total, t_total)
-    if cand.shape != (q_total // TILE, t_total // CHUNK) or counts.shape != (q_total // TILE,):
-        raise ValueError(f"candidate table {tuple(cand.shape)} does not match Q={q_total} T={t_total}")
-
-
 def check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi,
                         visits=None):
-    """Inputs of the sub-tile kernels K1/K2: the clouds, the targets' [3, C]
+    """Inputs of the sub-tile kernels K1-K4: the clouds, the targets' [3, C]
     chunk AABBs with C = T // 512 <= 1024, and the optional int32
     [Q // 32] ``visits`` output."""
     tensors = dict(queries=queries, query_mask=query_mask, targets=targets,
@@ -284,11 +257,14 @@ def check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chu
         raise ValueError(f"visits {tuple(visits.shape)} does not match Q={q_total}")
 
 
-def plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius) -> None:
-    """The CPU route of K1/K2's ``visits`` output: each sub-tile's candidate
-    count from :func:`subtile_candidates`."""
+def plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius,
+                 expansion: bool = False) -> None:
+    """The CPU route of the ``visits`` output of K1/K2 (each sub-tile's
+    candidate count from :func:`subtile_candidates`) and of K4
+    (``expansion``, from :func:`expansion_candidates`)."""
     if visits is not None:
-        cand = subtile_candidates(queries, query_mask, chunk_lo, chunk_hi, radius)
+        select = expansion_candidates if expansion else subtile_candidates
+        cand = select(queries, query_mask, chunk_lo, chunk_hi, radius)
         visits.copy_(cand.sum(dim=1, dtype=torch.int32))
 
 
@@ -306,6 +282,38 @@ def check_exhaustive_inputs(queries, targets, target_mask):
         raise ValueError(f"target_mask must be bool, got {target_mask.dtype}")
     if queries.shape[0] % TILE:
         raise ValueError(f"need Q % {TILE} == 0, got Q={queries.shape[0]}")
+
+
+def _pruned_search(
+    expansion: bool, queries, query_mask, targets, target_mask, chunk_lo, chunk_hi,
+    radius: float, visits,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 (or with ``expansion`` K4): check, then the plain version on a CPU
+    tensor or the kernel on a CUDA one."""
+    check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi, visits)
+    counter = mxu_launches if expansion else launches
+    if queries.device.type == "cpu":
+        counter["plain"] += 1
+        plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius, expansion)
+        plain = nn1_mxu_plain if expansion else nn1_plain
+        return plain(queries, query_mask, targets, target_mask, radius)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    name = "dlo_nn1_pruned_mxu" if expansion else "dlo_nn1_pruned"
+    q_total = queries.shape[0]
+    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
+    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        err = getattr(cuda_build.library(), name)(
+            queries.data_ptr(), query_mask.data_ptr(), targets.data_ptr(),
+            target_mask.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
+            q_total, chunk_lo.shape[1], f32_radius2(radius), idx.data_ptr(), d2.data_ptr(),
+            None if visits is None else visits.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
+        )
+    cuda_build.check(err, name)
+    counter["cuda"] += 1
+    return idx, d2
 
 
 def nn1_pruned(
@@ -327,60 +335,23 @@ def nn1_pruned(
     runs the plain version and fills ``visits`` from
     :func:`subtile_candidates`.
     """
-    check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi, visits)
-    if queries.device.type == "cpu":
-        launches["plain"] += 1
-        plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius)
-        return nn1_plain(queries, query_mask, targets, target_mask, radius)
-    if queries.device.type != "cuda":
-        raise ValueError(f"unsupported device {queries.device}")
-    q_total = queries.shape[0]
-    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
-    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        err = cuda_build.library().dlo_nn1_pruned(
-            queries.data_ptr(), query_mask.data_ptr(), targets.data_ptr(),
-            target_mask.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
-            q_total, chunk_lo.shape[1], f32_radius2(radius), idx.data_ptr(), d2.data_ptr(),
-            None if visits is None else visits.data_ptr(),
-            torch.cuda.current_stream(queries.device).cuda_stream,
-        )
-    cuda_build.check(err, "nn1_pruned")
-    launches["cuda"] += 1
-    return idx, d2
+    return _pruned_search(False, queries, query_mask, targets, target_mask,
+                          chunk_lo, chunk_hi, radius, visits)
 
 
 def nn1_pruned_mxu(
     queries: torch.Tensor, query_mask: torch.Tensor,
     targets: torch.Tensor, target_mask: torch.Tensor,
-    cand: torch.Tensor, counts: torch.Tensor,
-    radius: float,
+    chunk_lo: torch.Tensor, chunk_hi: torch.Tensor,
+    radius: float, visits: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Wrapper of kernel K4: (idx int32 [Q], expansion d2 f32 [Q]) as
-    :func:`nn1_mxu_plain`, with the inputs of :func:`nn1_pruned`. The
-    wrapper folds invalid targets to the finite pad and computes the
-    |t|^2 row, as the JAX package's wrapper does."""
-    check_kernel_inputs(queries, query_mask, targets, target_mask, cand, counts)
-    if queries.device.type == "cpu":
-        mxu_launches["plain"] += 1
-        return nn1_mxu_plain(queries, query_mask, targets, target_mask, radius)
-    if queries.device.type != "cuda":
-        raise ValueError(f"unsupported device {queries.device}")
-    folded, t2 = _expansion_targets(targets, target_mask)
-    q_total = queries.shape[0]
-    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
-    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
-    gap_unit = float(np.float32(float(radius) * float(radius) / _GAP_SCALE))
-    with torch.cuda.device(queries.device):
-        err = cuda_build.library().dlo_nn1_pruned_mxu(
-            queries.data_ptr(), query_mask.data_ptr(), folded.data_ptr(), t2.data_ptr(),
-            cand.data_ptr(), counts.data_ptr(), q_total // TILE, cand.shape[1],
-            f32_radius2(radius), gap_unit, idx.data_ptr(), d2.data_ptr(),
-            torch.cuda.current_stream(queries.device).cuda_stream,
-        )
-    cuda_build.check(err, "nn1_pruned_mxu")
-    mxu_launches["cuda"] += 1
-    return idx, d2
+    :func:`nn1_mxu_plain`, with the inputs and the ``visits`` output of
+    :func:`nn1_pruned`; the CPU route fills ``visits`` from
+    :func:`expansion_candidates`. The kernel computes |t|^2 and masks the
+    invalid targets itself."""
+    return _pruned_search(True, queries, query_mask, targets, target_mask,
+                          chunk_lo, chunk_hi, radius, visits)
 
 
 def query_1nn_sorted(
@@ -402,14 +373,9 @@ def query_1nn_sorted(
     may differ among near-ties and borderline radius hits, the reported d2
     stays exact.
     """
-    if mxu:
-        qlo, qhi = morton.chunk_aabbs(queries, query_mask, TILE)
-        cand, counts = candidate_chunks(qlo, qhi, chunk_lo, chunk_hi, radius)
-        best_idx, _ = nn1_pruned_mxu(queries, query_mask, target_points, target_mask,
-                                     cand, counts, radius)
-    else:
-        best_idx, _ = nn1_pruned(queries, query_mask, target_points, target_mask,
-                                 chunk_lo, chunk_hi, radius)
+    search = nn1_pruned_mxu if mxu else nn1_pruned
+    best_idx, _ = search(queries, query_mask, target_points, target_mask,
+                         chunk_lo, chunk_hi, radius)
     best_idx = best_idx.to(torch.int64)
     # the winner's d2 from the index, in the public contract's own form
     sel = target_points[torch.clamp(best_idx, min=0)]

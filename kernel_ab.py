@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of the port across source trees on one NVIDIA GPU: the pruned
-searches K2 and K1 at the shapes of ``chip_smoke.py`` phase 3, and the
+kernels K1-K4 at the shapes of ``chip_smoke.py`` phase 3, and the
 per-frame drive of its phase 4.
 
     mkdir -p _scratch/parent          # _scratch/ is in .gitignore
@@ -13,26 +13,33 @@ given, so two trees alternate in one call. A process builds that tree's
 kernels with that tree's builder and goes through that tree's code only by
 what every tree offers:
 
-- ``kernels``: K2 through ``cuda_nn.query_1nn_sorted`` and K1 through
+- ``kernels``: K2 through ``cuda_nn.query_1nn_sorted``, K4 through
+  ``query_1nn_sorted(..., mxu=True)``, K3 through
+  ``cuda_gicp.fused_linearize`` and K1 through
   ``cuda_cov.radius_moments_sorted`` (the JAX package's signatures), at
   S2M r 0.5 / 1.0 / 1.5, S2S r 1.0 and a loop edge (keyframe against
-  keyframe at the loop gate) for K2, scan r 0.75 and keyframe r 1.5 for
+  keyframe at the loop gate) for K2, S2M r 0.5 / 1.0 / 1.5 for K4, S2M
+  r 0.5 and S2S r 1.0 for K3 (cold), scan r 0.75 and keyframe r 1.5 for
   K1: the entry's device time (CUDA events behind a device sleep, median
   of 20), the kernel's own device time (torch.profiler, mean of 20
-  launches; the rest of the entry, such as building candidate lists, is
-  the difference), and the device operations of one entry call;
+  launches, the kernel picked by its name in either tree's sources; the
+  rest of the entry, such as building candidate lists, is the
+  difference), and the device operations of one entry call;
 - ``drive``: the tree's own ``chip_smoke.drive`` (30 frames on "pallas"
-  with that tree's checks), then six steady frames under torch.profiler
-  (``chip_smoke.device_ops_per_frame`` of this tree).
+  with that tree's checks), then six steady frames under torch.profiler on
+  each backend ("pallas", "pallas_fused", "pallas_mxu";
+  ``chip_smoke.device_ops_per_frame`` of this tree).
 
 The inputs come from this tree's ``chip_smoke.kernel_inputs`` run against
 each tree's package. The first tree's inputs and outputs are the
-reference: the script fails if another tree saw other inputs, if K2's
-idx or d2 differ in a bit, or if K1's counts differ or its moments leave
-1e-3 + 1e-5 |.|. Prints the card's name and power limit, one JSON line per
-tree and case, then one line per case with every tree's times and the
-first tree's mean over the second's. Imports torch and the port, nothing
-of JAX.
+reference: the script fails if another tree saw other inputs, if K2's or
+K4's idx, d2 or found differ in a bit, if K3's correspondences, weights
+or payload differ in a bit or its H, b or error leave K3_REL of their
+scale (the kernels may sum in another order), or if K1's counts differ or
+its moments leave 1e-3 + 1e-5 |.|. Prints the card's name and power limit,
+one JSON line per tree and case, then one line per case with every tree's
+times and the first tree's mean over the second's. Imports torch and the
+port, nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import argparse
 import hashlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from functools import partial
@@ -52,6 +60,14 @@ import torch
 HERE = Path(__file__).resolve().parent
 RUNS = 20
 MODES = ("kernels", "drive")
+# each kernel's name in either tree (K2 and K4 are one template since K4's
+# redesign, separate kernels before it)
+KERNEL_NAMES = {
+    "K1": r"cov_pruned_kernel",
+    "K2": r"nn1_pruned_kernel(<false>)?(\(|$)",
+    "K3": r"fused_linearize_kernel",
+    "K4": r"nn1_pruned_mxu_kernel|nn1_pruned_kernel<true>",
+}
 
 
 def load_module(name: str, path: Path):
@@ -68,9 +84,10 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def profiled(fn, kernel: str, runs: int = RUNS) -> tuple[float, float, float]:
-    """(mean device us of the kernels whose name holds ``kernel``, their
-    launches per call, device operations per call) over ``runs`` calls."""
+def profiled(fn, kernel: str, runs: int = RUNS) -> tuple[float, float, float, list]:
+    """(mean device us of the kernels whose name matches ``kernel``, their
+    launches per call, device operations per call, the names matched) over
+    ``runs`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -80,13 +97,17 @@ def profiled(fn, kernel: str, runs: int = RUNS) -> tuple[float, float, float]:
             fn()
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    mine = [e.time_range.elapsed_us() for e in ops if kernel in e.name]
-    return (float(np.mean(mine)) if mine else float("nan"), len(mine) / runs, len(ops) / runs)
+    hits = [e for e in ops if re.search(kernel, e.name)]
+    mine = [e.time_range.elapsed_us() for e in hits]
+    names = sorted({e.name[:100] for e in hits})
+    return (float(np.mean(mine)) if mine else float("nan"), len(mine) / runs, len(ops) / runs,
+            names)
 
 
 def search_cases(harness, cfg):
-    """(kernel, label, radius, entry call, kernel name, input tensors)."""
-    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_nn, morton
+    """(kernel, label, radius, entry call, input tensors)."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn, morton
+    from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
 
     world, scans = harness.make_world()
     inp = harness.kernel_inputs(cfg, world, scans, torch.device("cuda"))
@@ -97,26 +118,61 @@ def search_cases(harness, cfg):
     for label, q, t, r in k2:
         fn = partial(cuda_nn.query_1nn_sorted, t.points, t.mask, t.chunk_lo, t.chunk_hi,
                      q.points, q.mask, r)
-        cases.append(("K2", label, r, fn, "nn1_pruned", (q.points, q.mask, t.points, t.mask)))
+        cases.append(("K2", label, r, fn, (q.points, q.mask, t.points, t.mask)))
+    q, t = inp.queries, inp.submap
+    for r in (0.5, 1.0, 1.5):
+        fn = partial(cuda_nn.query_1nn_sorted, t.points, t.mask, t.chunk_lo, t.chunk_hi,
+                     q.points, q.mask, r, mxu=True)
+        cases.append(("K4", "S2M", r, fn, (q.points, q.mask, t.points, t.mask)))
+    qw = q.mask & q.normals_valid
+    for label, t, r in (("S2M", inp.submap, 0.5), ("S2S", inp.s2s, 1.0)):
+        fn = partial(cuda_gicp.fused_linearize, t.points, t.mask, t.normals, t.normals_valid,
+                     t.chunk_lo, t.chunk_hi, q.points, q.normals, qw, r, PLANE_EPS)
+        cases.append(("K3", label, r, fn, (q.points, q.normals, qw, t.points, t.mask, t.normals,
+                                           t.normals_valid)))
     for label, cloud, r in (("scan", inp.scan0, 0.75), ("keyframe", inp.kf0, 1.5)):
         clo, chi = morton.chunk_aabbs(cloud.points, cloud.mask, morton.TARGET_CHUNK)
         fn = partial(cuda_cov.radius_moments_sorted, cloud.points, cloud.mask, clo, chi,
                      cloud.points, cloud.mask, r)
-        cases.append(("K1", label, r, fn, "cov_pruned", (cloud.points, cloud.mask)))
+        cases.append(("K1", label, r, fn, (cloud.points, cloud.mask)))
     return cases
 
 
+def kept_outputs(kernel: str, out) -> list:
+    """The outputs compared across trees, on the host: K2/K4 (idx, d2,
+    found), K3 (corr, weight, mu_b, n_b, best_d2, h, b, error), K1 the
+    moments."""
+    if kernel == "K3":
+        out = (out.corr, out.weight, out.mu_b, out.n_b, out.best_d2, out.h, out.b, out.error)
+    elif kernel == "K1":
+        out = (out,)
+    return [o.cpu() for o in out]
+
+
+def outputs_agree(kernel: str, got: list, want: list, k3_rel: float) -> bool:
+    if kernel in ("K2", "K4"):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+    if kernel == "K3":
+        exact = all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
+        scaled = all(float((a - b).abs().max()) <= k3_rel * float(b.abs().max())
+                     for a, b in zip(got[5:], want[5:]))
+        return exact and scaled
+    a, b = got[0], want[0]
+    return bool(torch.equal(a[:, 0], b[:, 0])) and bool(
+        torch.all(torch.abs(a - b) <= 1e-3 + 1e-5 * torch.abs(b)))
+
+
 def run_kernels(harness, cfg, tree: str, outputs: dict) -> None:
-    for kernel, label, radius, fn, name, tensors in search_cases(harness, cfg):
+    for kernel, label, radius, fn, tensors in search_cases(harness, cfg):
         out = fn()
         torch.cuda.synchronize()
         entry_ms = harness.cuda_median_ms(fn)
-        kernel_us, launches, ops = profiled(fn, name)
+        kernel_us, launches, ops, names = profiled(fn, KERNEL_NAMES[kernel])
         key = f"{kernel} {label} r={radius}"
-        outputs[key] = dict(inputs=digest(*tensors),
-                            out=[o.cpu() for o in out] if kernel == "K2" else [out.cpu()])
+        outputs[key] = dict(inputs=digest(*tensors), out=kept_outputs(kernel, out))
         print(json.dumps(dict(tree=tree, case=key, entry_ms=entry_ms, kernel_us=kernel_us,
-                              kernel_launches_per_call=launches, device_ops_per_call=ops)),
+                              kernel_launches_per_call=launches, device_ops_per_call=ops,
+                              kernel_names=names)),
               flush=True)
         outputs[key].update(entry_ms=entry_ms, kernel_us=kernel_us)
 
@@ -127,11 +183,12 @@ def run_drive(harness, tree_smoke, tree: str, outputs: dict) -> None:
     main_path, _ = tree_smoke.drive(cfg, world, scans)
     steps = main_path["frames"] - 1
     launches = main_path["launches"]
-    prof = harness.device_ops_per_frame(cfg, world, scans)
+    prof = {b: harness.device_ops_per_frame(harness.slice_config(b), world, scans)
+            for b in harness.BACKENDS}
     line = dict(tree=tree, case="drive", ate_m=main_path["ate_m"],
                 median_ms_per_frame=main_path["median_ms_per_frame"],
                 k2_per_frame=launches["nn1_pruned"]["cuda"] / steps,
-                k1_per_frame=launches["cov_pruned"]["cuda"] / steps, **prof)
+                k1_per_frame=launches["cov_pruned"]["cuda"] / steps, profiled=prof)
     print(json.dumps(line), flush=True)
     outputs["drive"] = line
 
@@ -160,37 +217,43 @@ def worker(tree: Path, out_file: Path, modes: list[str]) -> None:
 
 def compare(trees: list[str], results: list[dict]) -> None:
     """Hold every tree's outputs against the first's and print each case's
-    times by tree."""
+    times by tree; fail at the end if a tree disagreed."""
     ref = results[0]
     names = list(dict.fromkeys(trees))
+    k3_rel = load_module("ab_harness", HERE / "chip_smoke.py").K3_REL
+    failures = []
     for key in ref:
         if key == "drive":
-            per_tree = {n: [r["drive"]["median_ms_per_frame"] for t, r in zip(trees, results)
-                            if t == n] for n in names}
-            ops = {n: [r["drive"]["device_ops_per_frame"] for t, r in zip(trees, results)
-                       if t == n] for n in names}
-            print(json.dumps(dict(case="drive", median_ms_per_frame=per_tree,
-                                  device_ops_per_frame=ops)))
+            def by_tree(field):
+                return {n: [r["drive"][field] for t, r in zip(trees, results) if t == n]
+                        for n in names}
+
+            def profiled_by_tree(field):
+                return {b: {n: [r["drive"]["profiled"][b].get(field) for t, r in zip(trees, results)
+                                if t == n] for n in names} for b in ref["drive"]["profiled"]}
+
+            print(json.dumps(dict(case="drive", median_ms_per_frame=by_tree("median_ms_per_frame"),
+                                  device_ops_per_frame=profiled_by_tree("device_ops_per_frame"),
+                                  device_busy_ms_per_frame=profiled_by_tree(
+                                      "device_busy_ms_per_frame"))))
             continue
+        agree = True
         for tree, res in zip(trees, results):
             got, want = res[key], ref[key]
             if got["inputs"] != want["inputs"]:
                 raise SystemExit(f"kernel_ab: {key}: {tree} saw other inputs than {trees[0]}")
-            if key.startswith("K2"):
-                same = all(torch.equal(a, b) for a, b in zip(got["out"], want["out"]))
-            else:
-                a, b = got["out"][0], want["out"][0]
-                same = bool(torch.equal(a[:, 0], b[:, 0])) and bool(
-                    torch.all(torch.abs(a - b) <= 1e-3 + 1e-5 * torch.abs(b)))
-            if not same:
-                raise SystemExit(f"kernel_ab: {key}: {tree} disagrees with {trees[0]}")
-        line = dict(case=key, agree=True)
+            if not outputs_agree(key.split()[0], got["out"], want["out"], k3_rel):
+                failures.append(f"{key}: {tree} disagrees with {trees[0]}")
+                agree = False
+        line = dict(case=key, agree=agree)
         for field in ("entry_ms", "kernel_us"):
             by = {n: [r[key][field] for t, r in zip(trees, results) if t == n] for n in names}
             line[field] = by
             if len(names) == 2:
                 line[f"{field}_ratio"] = float(np.mean(by[names[0]]) / np.mean(by[names[1]]))
         print(json.dumps(line))
+    if failures:
+        raise SystemExit("kernel_ab: " + "; ".join(failures))
 
 
 def main() -> int:

@@ -40,37 +40,38 @@ def _sorted_cloud(seed, n, dev, valid_frac=0.9, extent=12.0):
     return p[order].contiguous(), m[order].contiguous()
 
 
-def _candidates(qp, qm, tp, tm, radius):
-    qlo, qhi = morton.chunk_aabbs(qp, qm, cuda_nn.TILE)
-    tlo, thi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
-    return cuda_nn.candidate_chunks(qlo, qhi, tlo, thi, radius)
-
-
 def _search_kernels_match_plain(qp, qm, tp, tm, radius):
-    """K2 and K1 against their plain versions: K2's idx and d2 bitwise
-    equal, K1's counts identical and moments within 1e-3 + 1e-5 |plain|,
-    each kernel bitwise equal over two launches, and both kernels' candidate
-    counts equal to the plain selection's. Returns (K2 idx, K1 moments,
-    candidate counts)."""
+    """K2, K4 and K1 against their plain versions: K2's and K4's idx and d2
+    bitwise equal, K1's counts identical and moments within
+    1e-3 + 1e-5 |plain|, each kernel bitwise equal over two launches, and
+    every kernel's candidate counts equal to its plain selection's. Returns
+    (K2 idx, K1 moments, candidate counts)."""
     clo, chi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
     n_sub = qp.shape[0] // cuda_nn.SUB_TILE
-    v_nn = torch.full((n_sub,), -1, dtype=torch.int32, device=qp.device)
-    v_cov = torch.full((n_sub,), -1, dtype=torch.int32, device=qp.device)
-    before = (cuda_nn.launches["cuda"], cuda_cov.launches["cuda"])
+    v_nn, v_mxu, v_cov = (torch.full((n_sub,), -1, dtype=torch.int32, device=qp.device)
+                          for _ in range(3))
+    before = (cuda_nn.launches["cuda"], cuda_nn.mxu_launches["cuda"], cuda_cov.launches["cuda"])
     ik, dk = cuda_nn.nn1_pruned(qp, qm, tp, tm, clo, chi, radius, v_nn)
     ik2, dk2 = cuda_nn.nn1_pruned(qp, qm, tp, tm, clo, chi, radius)
+    ix, dx = cuda_nn.nn1_pruned_mxu(qp, qm, tp, tm, clo, chi, radius, v_mxu)
+    ix2, dx2 = cuda_nn.nn1_pruned_mxu(qp, qm, tp, tm, clo, chi, radius)
     mk = cuda_cov.cov_pruned(tp, tm, qp, qm, clo, chi, radius, v_cov)
     mk2 = cuda_cov.cov_pruned(tp, tm, qp, qm, clo, chi, radius)
     ip, dp = cuda_nn.nn1_plain(qp, qm, tp, tm, radius)
+    ixp, dxp = cuda_nn.nn1_mxu_plain(qp, qm, tp, tm, radius)
     mp = cuda_cov.cov_plain(tp, tm, qp, qm, radius)
     want = cuda_nn.subtile_candidates(qp, qm, clo, chi, radius).sum(dim=1, dtype=torch.int32)
+    want_x = cuda_nn.expansion_candidates(qp, qm, clo, chi, radius).sum(dim=1, dtype=torch.int32)
     torch.cuda.synchronize()
-    assert (cuda_nn.launches["cuda"], cuda_cov.launches["cuda"]) == (before[0] + 2, before[1] + 2)
+    after = (cuda_nn.launches["cuda"], cuda_nn.mxu_launches["cuda"], cuda_cov.launches["cuda"])
+    assert after == tuple(b + 2 for b in before)
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert torch.equal(ix, ixp) and torch.equal(dx, dxp)
     assert torch.equal(ik, ik2) and torch.equal(dk, dk2) and torch.equal(mk, mk2)
+    assert torch.equal(ix, ix2) and torch.equal(dx, dx2)
     assert torch.equal(mk[:, 0], mp[:, 0])
     torch.testing.assert_close(mk, mp, atol=1e-3, rtol=1e-5)
-    assert torch.equal(v_nn, want) and torch.equal(v_cov, want)
+    assert torch.equal(v_nn, want) and torch.equal(v_cov, want) and torch.equal(v_mxu, want_x)
     return ik, mk, want
 
 
@@ -106,7 +107,7 @@ def _lattice(dev, offset):
     "c1024", "spanning", "invalid_tiles", "duplicates", "on_radius",
 ])
 def test_search_kernels_adversarial(dev, case):
-    """K2 and K1 on inputs that stress the in-kernel selection, the merge
+    """K2, K4 and K1 on inputs that stress the in-kernel selection, the merge
     and the boundary rules, each against its plain version
     (:func:`_search_kernels_match_plain`)."""
     radius = 1.0
@@ -158,16 +159,27 @@ def test_search_kernels_adversarial(dev, case):
         assert (ik == -1).all()
         interior = (qp[:, 0] < 31.0)
         assert (mk[interior, 0] == 2).all()
+
+
 @pytest.mark.parametrize("radius", [0.5, 1.0, 1.5])
 def test_nn1_mxu_kernel_matches_plain(dev, radius):
     """K4 and its plain version evaluate the expansion in the same order:
-    idx and d2 bit-identical; against the exact K2 the winner's d2 is within
-    the expansion's 2e-3 m^2 slack."""
+    idx and d2 bit-identical, also ~40 m from the origin where the
+    expansion's rounding is largest; against the exact K2 the winner's d2
+    is within the expansion's 2e-3 m^2 slack."""
     tp, tm = _sorted_cloud(0, 8192, dev)
     qp, qm = _sorted_cloud(1, 4096, dev)
-    cand, counts = _candidates(qp, qm, tp, tm, radius)
+    shift = torch.tensor([30.0, -25.0, 1.0], device=dev)
+    far_t = torch.where(tm[:, None], tp + shift, tp).contiguous()
+    far_q = torch.where(qm[:, None], qp + shift, qp).contiguous()
+    clo, chi = morton.chunk_aabbs(far_t, tm, morton.TARGET_CHUNK)
+    ik, dk = cuda_nn.nn1_pruned_mxu(far_q, qm, far_t, tm, clo, chi, radius)
+    ip, dp = cuda_nn.nn1_mxu_plain(far_q, qm, far_t, tm, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    clo, chi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
     before = cuda_nn.mxu_launches["cuda"]
-    ik, dk = cuda_nn.nn1_pruned_mxu(qp, qm, tp, tm, cand, counts, radius)
+    ik, dk = cuda_nn.nn1_pruned_mxu(qp, qm, tp, tm, clo, chi, radius)
     ip, dp = cuda_nn.nn1_mxu_plain(qp, qm, tp, tm, radius)
     ie, de = cuda_nn.nn1_plain(qp, qm, tp, tm, radius)
     torch.cuda.synchronize()
@@ -223,30 +235,35 @@ def _fused_problem(dev, seed=0):
     return tp, tm, nrm, nval, p, m, qw
 
 
-def test_fused_linearize_kernel_matches_plain(dev):
-    """K3: correspondences and payload identical to the plain version, tile
-    sums within summation-order rounding, seeded == cold exactly, and two
-    launches bit-identical (no atomics)."""
+@pytest.mark.parametrize("seeds", ["shuffled", "own"])
+def test_fused_linearize_kernel_matches_plain(dev, seeds):
+    """K3: correspondences and payload identical to the plain version,
+    sub-tile sums within summation-order rounding, slots 29/30 (chunks
+    visited, candidates) equal to the plain selection's cold and seeded,
+    seeded == cold exactly, and two launches bit-identical (no atomics)."""
     tp, tm, nrm, nval, p, m, qw = _fused_problem(dev)
     radius = 0.5
-    cand, counts = _candidates(p, qw, tp, tm, radius)
+    clo, chi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
     cold = torch.full((4096,), -1, dtype=torch.int32, device=dev)
     before = cuda_gicp.launches["cuda"]
-    args = (tp, tm, nrm, nval, cand, counts, radius, 1e-3)
+    args = (tp, tm, nrm, nval, clo, chi, radius, 1e-3)
     hk, pk, ik = cuda_gicp.fused_linearize_pruned(p, m, qw, cold, *args)
     hp, pp, ip = cuda_gicp.fused_linearize_plain(p, m, qw, cold, *args)
     hk2, pk2, ik2 = cuda_gicp.fused_linearize_pruned(p, m, qw, cold, *args)
-    # seeds from a shuffled copy of the cold correspondences: wrong but valid
-    seed = ik[torch.randperm(4096, device=dev)].contiguous()
+    # seeds: a shuffled copy of the cold correspondences (wrong but valid),
+    # or the cold answer itself (the tightest bounds)
+    seed = ik[torch.randperm(4096, device=dev)].contiguous() if seeds == "shuffled" else ik
     hs, ps, is_ = cuda_gicp.fused_linearize_pruned(p, m, qw, seed, *args)
+    hsp, _, _ = cuda_gicp.fused_linearize_plain(p, m, qw, seed, *args)
     torch.cuda.synchronize()
     assert cuda_gicp.launches["cuda"] == before + 3
     assert torch.equal(ik, ip) and (ik >= 0).sum() > 1000
     assert torch.equal(pk[:, :7], pp[:, :7])
     assert torch.equal(hk, hk2) and torch.equal(pk, pk2)
-    assert torch.equal(is_, ik) and torch.equal(ps[:, :7], pk[:, :7])
+    assert torch.equal(is_, ik) and torch.equal(ps, pk)
     assert torch.equal(hs[:, :29], hk[:, :29])
-    assert float(hs[:, 29].sum()) <= float(hk[:, 29].sum())
+    assert torch.equal(hk[:, 29:31], hp[:, 29:31]) and torch.equal(hs[:, 29:31], hsp[:, 29:31])
+    assert bool((hs[:, 29] <= hk[:, 29]).all())
     sk, sp = hk[:, :29].sum(0), hp[:, :29].sum(0)
     assert float((sk - sp).abs().max()) <= 2e-4 * float(sp.abs().max())
 

@@ -113,9 +113,77 @@ def test_fused_linearize_matches_reference(seed, seeded):
         _t(p_t), _t(m0), _t(qw), radius, PLANE_EPS, seed_corr=t_seed)
     assert int(got.n_corr) > 200
     _assert_close_to(ref, got, p_t, np.asarray(target.points))
-    # diagnostics: the plain version counts every chunk as visited
-    assert float(got.bb_candidates) == float(ref.bb_candidates)
-    assert float(got.bb_visits) >= float(ref.bb_visits)
+    # diagnostics count 32-query sub-tiles: the selection at r, which lies
+    # inside the reference's 128-query tile lists (4 sub-tiles a tile)
+    cand = cuda_nn.subtile_candidates(_t(p_t), _t(qw), tgt.chunk_lo, tgt.chunk_hi, radius)
+    assert float(got.bb_candidates) == float(cand.sum())
+    assert float(got.bb_candidates) <= 4 * float(ref.bb_candidates)
+    if seeded:
+        assert float(got.bb_visits) <= float(got.bb_candidates)
+    else:
+        assert float(got.bb_visits) == float(got.bb_candidates)
+
+
+def _fused_plain_run(seed_pose):
+    """K3's plain route on the _make_problem world at a fixed pose, cold and
+    seeded with the correspondences of ``seed_pose``: (inputs, cold, seeded,
+    seed)."""
+    source, target = _make_problem(np.random.default_rng(4))
+    _, tgt = _port_problem(source, target)
+    radius = load_config().gicp.s2m.max_correspondence_distance
+    p_t, m0, qw = (_t(a) for a in _fused_inputs(source, _pose([0.004, -0.002, 0.003, 0.05,
+                                                                -0.04, 0.02])))
+    ps, ms, _ = (_t(a) for a in _fused_inputs(source, _pose(seed_pose)))
+    args = (tgt.points, tgt.mask, tgt.normals, tgt.normals_valid, tgt.chunk_lo, tgt.chunk_hi,
+            radius, PLANE_EPS)
+    cold = torch.full((p_t.shape[0],), -1, dtype=torch.int32)
+    _, _, seed = cuda_gicp.fused_linearize_pruned(ps, ms, qw, cold, *args)
+    return ((p_t, m0, qw, tgt, radius), cuda_gicp.fused_linearize_pruned(p_t, m0, qw, cold, *args),
+            cuda_gicp.fused_linearize_pruned(p_t, m0, qw, seed, *args), seed)
+
+
+def test_fused_selection_counts_under_a_seed_bound():
+    """Slots 29/30 of K3's rows: 30 counts each sub-tile's chunks at r, 29
+    the chunks within the sub-tile's bound B (the largest seed d2 of its
+    weighted queries, r^2 where one is unseeded), recomputed here in numpy;
+    every cold winner lies in a visited chunk of its sub-tile, which is why
+    the seeded pass equals the cold one."""
+    (p_t, _, qw, tgt, radius), (hb, _, corr), (hs, _, corr_s), seed = _fused_plain_run(
+        [0.001, 0.0, -0.001, 0.01, 0.0, -0.01])
+    r2 = cuda_nn.f32_radius2(radius)
+    gap2 = cuda_nn.subtile_gap2(p_t, qw, tgt.chunk_lo, tgt.chunk_hi).numpy()
+    np.testing.assert_array_equal(hb[:, 30].numpy(), (gap2 <= r2).sum(1))
+    np.testing.assert_array_equal(hs[:, 30].numpy(), hb[:, 30].numpy())
+    np.testing.assert_array_equal(hb[:, 29].numpy(), hb[:, 30].numpy())  # cold: B = r^2
+    pts, tmask = tgt.points.numpy(), tgt.mask.numpy()
+    j = seed.numpy().astype(np.int64)
+    live = qw.numpy() & (j >= 0)
+    d = p_t.numpy() - pts[np.where(live, j, 0)]
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    seeded = live & tmask[np.where(live, j, 0)] & (d2 < r2)
+    own = np.where(qw.numpy(), np.where(seeded, d2, np.float32(r2)), np.float32(0.0))
+    bound = own.reshape(-1, 32).max(axis=1)
+    assert seeded.sum() > 100 and (bound < r2).any()
+    np.testing.assert_array_equal(hs[:, 29].numpy(), (gap2 <= bound[:, None]).sum(1))
+    c = corr.numpy()
+    won = c >= 0
+    rows = np.nonzero(won)[0] // 32
+    assert (gap2[rows, c[won] // 512] <= bound[rows]).all()
+    assert torch.equal(corr_s, corr)
+
+
+@pytest.mark.parametrize("seed_pose", [
+    [0.001, 0.0, -0.001, 0.01, 0.0, -0.01],     # near the pose: bounds shrink
+    [-0.003, 0.002, 0.001, -0.04, 0.05, 0.02],  # 5 cm away: wrong but valid seeds
+])
+def test_fused_seeded_visits_at_most_cold(seed_pose):
+    """A seed can only shrink K3's selection: per sub-tile the seeded visits
+    are at or below the cold ones; everything but slot 29 stays
+    bit-identical."""
+    _, (hb, pay, corr), (hs, ps, corr_s), _ = _fused_plain_run(seed_pose)
+    assert bool((hs[:, 29] <= hb[:, 29]).all())
+    assert torch.equal(hs[:, :29], hb[:, :29]) and torch.equal(hs[:, 30:], hb[:, 30:])
+    assert torch.equal(ps, pay) and torch.equal(corr_s, corr)
 
 
 def test_seeded_equals_cold_exactly():

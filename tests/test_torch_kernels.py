@@ -17,7 +17,7 @@ from hypothesis import given, settings, strategies as st
 
 from direct_lidar_odometry_tpu.ops import morton as jmorton, pallas_cov, pallas_nn
 from direct_lidar_odometry_tpu.registration import covariance as jcov
-from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_nn, morton as tmorton
+from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn, morton as tmorton
 from direct_lidar_odometry_tpu_torch.registration import covariance as tcov
 
 
@@ -45,21 +45,6 @@ def clouds():
     tp, tm = _sorted_cloud(rng, 4096)
     qp, qm = _sorted_cloud(rng, 2048)
     return tp, tm, qp, qm
-
-
-@pytest.mark.parametrize("radius", [0.5, 1.0, 1.5])
-def test_candidate_chunks_exact(clouds, radius):
-    """Packed candidate words and counts are integer-identical."""
-    tp, tm, qp, qm = clouds
-    jq = jmorton.chunk_aabbs(jnp.asarray(qp), jnp.asarray(qm), 128)
-    jt = jmorton.chunk_aabbs(jnp.asarray(tp), jnp.asarray(tm), 512)
-    cand_j, cnt_j = pallas_nn.candidate_chunks(*jq, *jt, radius)
-    tq = tmorton.chunk_aabbs(_t(qp), _t(qm), 128)
-    tt = tmorton.chunk_aabbs(_t(tp), _t(tm), 512)
-    cand_t, cnt_t = cuda_nn.candidate_chunks(*tq, *tt, radius)
-    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
-    np.testing.assert_array_equal(cand_t.numpy(), np.asarray(cand_j))
-    assert cnt_t.sum() > 0 and (cnt_t < tt[0].shape[1]).any()  # prunes something
 
 
 @pytest.mark.parametrize("radius", [0.5, 0.8, 1.5])
@@ -180,15 +165,19 @@ def _bad_call(case):
     if case == "visits_shape":
         v = torch.zeros(2048 // 128, dtype=torch.int32)
         return lambda: cuda_cov.cov_pruned(p, m, p, m, clo, chi, 1.0, v), "visits"
-    assert case == "candidate_table"  # K4 still takes the 128-query lists
-    qlo, qhi = tmorton.chunk_aabbs(p[::2].contiguous(), m[::2].contiguous(), 128)
-    cand, counts = cuda_nn.candidate_chunks(qlo, qhi, clo, chi, 1.0)
-    return lambda: cuda_nn.nn1_pruned_mxu(p, m, p, m, cand, counts, 1.0), "candidate table"
+    if case == "k4_visits_shape":
+        v = torch.zeros(2048 // 128, dtype=torch.int32)
+        return lambda: cuda_nn.nn1_pruned_mxu(p, m, p, m, clo, chi, 1.0, v), "visits"
+    assert case == "k3_chunk_aabb_shape"  # K3 reports its visits in hb slot 29
+    lo2, hi2 = clo[:, :2].contiguous(), chi[:, :2].contiguous()
+    seed = torch.full((2048,), -1, dtype=torch.int32)
+    return (lambda: cuda_gicp.fused_linearize_pruned(p, p, m, seed, p, m, p, m, lo2, hi2, 1.0,
+                                                     1e-3), "chunk AABBs")
 
 
 @pytest.mark.parametrize("case", [
     "non_contiguous", "query_count", "chunk_aabb_shape", "chunk_aabb_dtype",
-    "too_many_chunks", "visits_dtype", "visits_shape", "candidate_table",
+    "too_many_chunks", "visits_dtype", "visits_shape", "k4_visits_shape", "k3_chunk_aabb_shape",
 ])
 def test_wrappers_reject_non_contiguous_and_bad_shapes(case):
     call, match = _bad_call(case)
@@ -197,32 +186,68 @@ def test_wrappers_reject_non_contiguous_and_bad_shapes(case):
 
 
 def test_search_entries_select_inside_the_kernel():
-    """query_1nn_sorted and radius_moments_sorted build no candidate lists
-    (K4's route still does); the CPU route's ``visits`` are the plain
-    selection's candidate counts, and its results the plain versions'."""
+    """Every pruned search takes the chunk AABBs and builds no candidate
+    lists (the port has no list builder); the CPU route's ``visits`` are
+    the plain selection's candidate counts, and its results the plain
+    versions'."""
+    assert not hasattr(cuda_nn, "candidate_chunks")
     rng = np.random.default_rng(8)
     tp, tm = _sorted_cloud(rng, 2048)
     p, m = _t(tp), _t(tm)
     clo, chi = tmorton.chunk_aabbs(p, m, 512)
-    cuda_nn.reset_launches()
-    cuda_nn.query_1nn_sorted(p, m, clo, chi, p, m, 1.0)
-    cuda_cov.radius_moments_sorted(p, m, clo, chi, p, m, 1.0)
-    assert cuda_nn.candidate_calls == {"calls": 0}
-    cuda_nn.query_1nn_sorted(p, m, clo, chi, p, m, 1.0, mxu=True)
-    assert cuda_nn.candidate_calls == {"calls": 1}
-    cuda_nn.reset_launches()
-    assert cuda_nn.candidate_calls == {"calls": 0}
-
     want = cuda_nn.subtile_candidates(p, m, clo, chi, 1.0).sum(dim=1, dtype=torch.int32)
     v_nn = torch.full((2048 // 32,), -1, dtype=torch.int32)
     v_cov = torch.full((2048 // 32,), -1, dtype=torch.int32)
+    v_mxu = torch.full((2048 // 32,), -1, dtype=torch.int32)
     idx, d2 = cuda_nn.nn1_pruned(p, m, p, m, clo, chi, 1.0, v_nn)
     mom = cuda_cov.cov_pruned(p, m, p, m, clo, chi, 1.0, v_cov)
+    i_x, d_x = cuda_nn.nn1_pruned_mxu(p, m, p, m, clo, chi, 1.0, v_mxu)
     assert torch.equal(v_nn, want) and torch.equal(v_cov, want)
     assert 0 < int(want.sum()) < want.numel() * 4  # selects, and prunes
+    want_x = cuda_nn.expansion_candidates(p, m, clo, chi, 1.0).sum(dim=1, dtype=torch.int32)
+    assert torch.equal(v_mxu, want_x) and bool((want_x >= want).all())
     i_p, d_p = cuda_nn.nn1_plain(p, m, p, m, 1.0)
     assert torch.equal(idx, i_p) and torch.equal(d2, d_p)
     assert torch.equal(mom, cuda_cov.cov_plain(p, m, p, m, 1.0))
+    i_xp, d_xp = cuda_nn.nn1_mxu_plain(p, m, p, m, 1.0)
+    assert torch.equal(i_x, i_xp) and torch.equal(d_x, d_xp)
+
+
+def _expansion_d2(qp, tp):
+    """[Q, T] K4 distances in the kernel's order: max((|q|^2 + |t|^2) - 2 q.t, 0)."""
+    q2 = (qp[:, 0] * qp[:, 0] + qp[:, 1] * qp[:, 1]) + qp[:, 2] * qp[:, 2]
+    t2 = (tp[:, 0] * tp[:, 0] + tp[:, 1] * tp[:, 1]) + tp[:, 2] * tp[:, 2]
+    g = (qp[:, None, 0] * tp[None, :, 0] + qp[:, None, 1] * tp[None, :, 1]) \
+        + qp[:, None, 2] * tp[None, :, 2]
+    return torch.clamp((q2[:, None] + t2[None, :]) - 2.0 * g, min=0.0)
+
+
+@pytest.mark.parametrize("radius", [0.5, 1.0, 1.5])
+def test_k4_visits_cover_every_expansion_hit(radius):
+    """K4's CPU route at map-scale coordinates (the clouds ~40 m from the
+    origin, where the expansion reads pairs up to ~1e-4 m^2 off): ``visits``
+    are :func:`expansion_candidates`' counts, a superset of the exact
+    selection; every pair whose expansion d2 is < r^2 lies in a candidate
+    chunk, so the kernel sees every target its plain version can pick; idx
+    and d2 are the plain version's."""
+    rng = np.random.default_rng(20)
+    shift = np.array([30.0, -25.0, 1.0], np.float32)
+    tp, tm = _sorted_cloud(rng, 4096)
+    qp, qm = _sorted_cloud(rng, 2048)
+    tp, qp = _t(np.where(tm[:, None], tp + shift, tp)), _t(np.where(qm[:, None], qp + shift, qp))
+    tm, qm = _t(tm), _t(qm)
+    clo, chi = tmorton.chunk_aabbs(tp, tm, 512)
+    visits = torch.full((2048 // 32,), -1, dtype=torch.int32)
+    idx, d2 = cuda_nn.nn1_pruned_mxu(qp, qm, tp, tm, clo, chi, radius, visits)
+    cand = cuda_nn.expansion_candidates(qp, qm, clo, chi, radius)
+    exact = cuda_nn.subtile_candidates(qp, qm, clo, chi, radius)
+    assert torch.equal(visits, cand.sum(dim=1, dtype=torch.int32))
+    assert bool((cand | ~exact).all()) and 0 < int(visits.sum()) < cand.numel()
+    hit = (_expansion_d2(qp, tp) < cuda_nn.f32_radius2(radius)) & qm[:, None] & tm[None, :]
+    qi, ti = torch.nonzero(hit, as_tuple=True)
+    assert qi.numel() > 100 and bool(cand[qi // 32, ti // 512].all())
+    i_p, d_p = cuda_nn.nn1_mxu_plain(qp, qm, tp, tm, radius)
+    assert torch.equal(idx, i_p) and torch.equal(d2, d_p)
 
 
 @settings(max_examples=40, deadline=None, derandomize=True, database=None)
@@ -239,11 +264,12 @@ def test_search_entries_select_inside_the_kernel():
 def test_subtile_selection_covers_every_neighbour(
     seed, sub, chunk, radius, extent, valid_frac, dead_tile, dead_chunk,
 ):
-    """The selection math the K1/K2 kernels mirror: for sub-tiles of 16-128
+    """The selection math the K1-K4 kernels mirror: for sub-tiles of 16-128
     queries, every valid target within r of a valid query (d2 rounded as the
     kernels round it, inclusive) lies in a chunk on that query's sub-tile's
-    candidate list; sub-tiles without a valid query and empty chunks give
-    +inf gaps, no candidate and no NaN."""
+    candidate list, and so does every pair K4's expansion puts below r^2;
+    sub-tiles without a valid query and empty chunks give +inf gaps, no
+    candidate and no NaN."""
     rng = np.random.default_rng(seed)
     n_q, n_t = 256, 512
 
@@ -279,6 +305,12 @@ def test_subtile_selection_covers_every_neighbour(
     dead_c = ~tm.reshape(-1, chunk).any(dim=1)
     assert torch.isinf(gap2[dead_q]).all() and torch.isinf(gap2[:, dead_c]).all()
     assert not cand[dead_q].any() and not cand[:, dead_c].any()
+    # K4's selection: every pair whose expansion d2 is < r^2, no dead row
+    cand_x = cuda_nn.expansion_candidates(qp, qm, clo, chi, radius, sub)
+    hit = (_expansion_d2(qp, tp) < cuda_nn.f32_radius2(radius)) & qm[:, None] & tm[None, :]
+    qi, ti = torch.nonzero(hit, as_tuple=True)
+    assert cand_x[qi // sub, ti // chunk].all() and bool((cand_x | ~cand).all())
+    assert not cand_x[dead_q].any() and not cand_x[:, dead_c].any()
     # the gaps of live pairs are the float64 box gaps up to f32 rounding
     def boxes(p, m, n):
         p = np.where(m.numpy()[:, None], p.numpy().astype(np.float64), np.nan).reshape(-1, n, 3)
