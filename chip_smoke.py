@@ -22,9 +22,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (32768-point scan with K1 normals against the 65536-point submap with
    keyframe normals, r = 0.5) and the S2S shape (32768 x 32768, r = 1.0),
    cold and warm-started (seeded == cold bit for bit, its selection counts
-   equal to the plain version's); K5 (exhaustive 1-NN) at 32768 x 65536;
-   K6 (exhaustive moments) over the 32768-point scan at r = 0.75. K1-K4
-   run twice and must repeat bit for bit. Prints agreement, median times
+   equal to the plain version's); K5 (exhaustive 1-NN; idx and d2 bitwise
+   equal) at 32768 x 65536 and K6 (exhaustive moments; counts identical)
+   over the 32768-point scan at r = 0.75, each also with every target
+   valid (32768 points of a raw scan) and with the valid targets at random
+   slots, with the pairs evaluated (the kernels' device counts) beside the
+   pairs the valid targets need. Every kernel runs twice and must repeat
+   bit for bit. Prints agreement, median times
    (CUDA events, 20 runs), the pairs each kernel evaluates on these inputs
    (its own candidate counts, or every valid target) and its bound (FLOP
    over the H100's fp32 peak or bytes over its memory rate, the larger),
@@ -91,6 +95,7 @@ BURST = range(40, 80)   # phase 7's degraded stretch
 IMU_FRAMES = 40         # phase 8: the phase-7 scans before the burst
 CHUNK = 8
 TIMING_RUNS = 20
+SLOW_RUNS = 5          # timed runs of the K5/K6 yardsticks (tens of ms a call)
 SLEEP_CYCLES = 5_000_000  # ~3 ms of device sleep ahead of each timed call
 K2_TOL_REL = 2.0**-14   # near-tie slack between two winners' d2
 K2_BORDER = 1e-6        # |d2 - r^2| <= K2_BORDER * r^2 counts as on the boundary
@@ -345,10 +350,10 @@ def check_k4(queries, targets, radius):
     return case
 
 
-def moments_agree(name, mk, mp, cloud, rows, radius):
-    """Counts identical on ``rows`` except through a pair on the r^2
-    boundary; moments within K1_ATOL + K1_RTOL |plain|. Returns (rows whose
-    counts differ, max abs error)."""
+def moments_agree(name, mk, mp, targets, queries, rows, radius):
+    """Counts identical on the query ``rows`` except through a pair on the
+    r^2 boundary; moments within K1_ATOL + K1_RTOL |plain|. Returns (rows
+    whose counts differ, max abs error)."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_cov
 
     cnt_same = mk[:, 0] == mp[:, 0]
@@ -356,7 +361,7 @@ def moments_agree(name, mk, mp, cloud, rows, radius):
     if n_cnt_diff:
         r2 = cuda_cov.f32_radius2(radius)
         bad = torch.nonzero(~cnt_same & rows)[:, 0]
-        d = cloud.points[None, :, :] - cloud.points[bad][:, None, :]
+        d = targets[None, :, :] - queries[bad][:, None, :]
         d2 = torch.sum(d * d, dim=-1)
         on_border = torch.any(torch.abs(d2 - r2) <= K2_BORDER * r2, dim=1)
         require(bool(on_border.all()), f"{name} r={radius}: counts differ off the r^2 boundary")
@@ -381,7 +386,7 @@ def check_k1(cloud, radius, label):
     mk2 = cuda_cov.cov_pruned(*args)
     mp = cuda_cov.cov_plain(p, m, p, m, radius)
     torch.cuda.synchronize()
-    n_cnt_diff, max_err = moments_agree("K1", mk, mp, cloud, m, radius)
+    n_cnt_diff, max_err = moments_agree("K1", mk, mp, p, p, m, radius)
     repeat = bool(torch.equal(mk, mk2))
     live = visits[visits > 0].float()
     pairs = int(visits.sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
@@ -404,58 +409,127 @@ def check_k1(cloud, radius, label):
     return case
 
 
-def check_k6(cloud, radius):
-    """K6 (every query, no mask) against its plain version on all rows."""
-    from direct_lidar_odometry_tpu_torch.ops import cuda_cov
-
-    every = torch.ones_like(cloud.mask)
-    mk = cuda_cov.cov_exhaustive(cloud.points, cloud.mask, cloud.points, radius)
-    mp = cuda_cov.cov_plain(cloud.points, cloud.mask, cloud.points, every, radius)
-    torch.cuda.synchronize()
-    n_cnt_diff, max_err = moments_agree("K6", mk, mp, cloud, every, radius)
-    ms = cuda_median_ms(lambda: cuda_cov.cov_exhaustive(cloud.points, cloud.mask,
-                                                        cloud.points, radius))
-    plain_ms = cuda_median_ms(lambda: cuda_cov.cov_plain(cloud.points, cloud.mask,
-                                                         cloud.points, every, radius))
-    case = dict(radius=radius, points=int(cloud.points.shape[0]), valid=int(cloud.mask.sum()),
-                mean_neighbours=float(mp[cloud.mask, 0].mean()), n_count_diff=n_cnt_diff,
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None)
-    # every query against every valid target (an invalid one is never in
-    # the radius) at 8 FLOP a pair, 16 more inside the radius
-    pairs = cloud.points.shape[0] * int(cloud.mask.sum())
-    case["pairs"] = pairs
-    with_bound(case, 8.0 * pairs + 16.0 * float(mp[:, 0].sum()),
-               nbytes(cloud.points, cloud.mask, cloud.points, mk))
-    print(f"# K6 cov_exhaustive {case}")
-    return case
+def scattered(points, mask, slots: int, seed: int):
+    """The valid points of a cloud at random positions of a ``slots``-slot
+    cloud (the rest invalid, at the pad coordinate): the same targets, not
+    sorted last and in no spatial order."""
+    gen = torch.Generator().manual_seed(seed)
+    valid = points[mask]
+    where = torch.randperm(slots, generator=gen)[: valid.shape[0]].to(points.device)
+    out = torch.full((slots, 3), 1e6, dtype=torch.float32, device=points.device)
+    out_mask = torch.zeros(slots, dtype=torch.bool, device=points.device)
+    out[where] = valid
+    out_mask[where] = True
+    return out.contiguous(), out_mask
 
 
-def check_k5(queries, targets):
-    """K5 against its plain version: raw minima and indices identical."""
+def dense_cloud(scan: np.ndarray, n: int, dev):
+    """``n`` points of a raw scan, every one valid: an even subsample."""
+    require(len(scan) >= n, f"the raw scan has {len(scan)} points, fewer than {n}")
+    pts = np.ascontiguousarray(scan[:: len(scan) // n][:n, :3], dtype=np.float32)
+    return torch.from_numpy(pts).to(dev), torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def scan_pairs(name, label, stats, n_queries, n_valid):
+    """(pairs evaluated, pairs needed) of a K5/K6 launch from its device
+    counts: the kernel must have compacted exactly the valid targets and
+    scanned less than one 512-target chunk per query tile beyond them."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_nn
 
-    args = (queries.points, targets.points, targets.mask)
-    ik, dk = cuda_nn.nn1_exhaustive(*args)
+    counted, chunk_scans = (int(v) for v in stats.cpu())
+    evaluated = cuda_nn.TILE * cuda_nn.CHUNK * chunk_scans
+    needed = n_queries * n_valid
+    require(counted == n_valid, f"{name} {label}: compacted {counted} of {n_valid} valid targets")
+    require(needed <= evaluated < needed + n_queries * cuda_nn.CHUNK,
+            f"{name} {label}: evaluated {evaluated} pairs for {needed} needed")
+    return evaluated, needed
+
+
+def check_k6(points, mask, queries, radius, label):
+    """K6 (every query, no mask) against its plain version on all rows: counts
+    identical except through a pair on the r^2 boundary, moments within
+    K1_ATOL + K1_RTOL |plain|, two launches bitwise equal, the pairs it
+    evaluated (its device counts) against the pairs the valid targets need."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov
+
+    every = torch.ones(queries.shape[0], dtype=torch.bool, device=queries.device)
+    stats = torch.zeros(2, dtype=torch.int32, device=queries.device)
+    mk = cuda_cov.cov_exhaustive(points, mask, queries, radius, stats)
+    mk2 = cuda_cov.cov_exhaustive(points, mask, queries, radius)
+    mp = cuda_cov.cov_plain(points, mask, queries, every, radius)
+    torch.cuda.synchronize()
+    n_valid = int(mask.sum())
+    evaluated, needed = scan_pairs("K6", label, stats, queries.shape[0], n_valid)
+    n_cnt_diff, max_err = moments_agree(f"K6 {label}", mk, mp, points, queries, every, radius)
+    repeat = bool(torch.equal(mk, mk2))
+    ms = cuda_median_ms(lambda: cuda_cov.cov_exhaustive(points, mask, queries, radius))
+    plain_ms = cuda_median_ms(lambda: cuda_cov.cov_plain(points, mask, queries, every, radius),
+                              SLOW_RUNS)
+    in_radius = float(mp[:, 0].sum())
+    case = dict(shape=label, radius=radius, queries=int(queries.shape[0]),
+                targets=int(points.shape[0]), valid=n_valid, pairs=needed,
+                pairs_evaluated=evaluated, in_radius_pairs=in_radius,
+                mean_neighbours=in_radius / queries.shape[0], n_count_diff=n_cnt_diff,
+                repeatable=repeat, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                library_ms=None, ps_per_pair=ms * 1e9 / max(evaluated, 1))
+    # every query against every valid target (an invalid one is never in
+    # the radius) at 8 FLOP a pair, 16 more inside the radius
+    with_bound(case, 8.0 * needed + 16.0 * in_radius, nbytes(points, mask, queries, mk))
+    print(f"# K6 cov_exhaustive {case}")
+    require(repeat, f"K6 {label}: two launches differ")
+    return case
+
+
+def check_k5(queries, targets, tmask, label):
+    """K5 against its plain version: raw minima and indices bitwise equal,
+    two launches bitwise equal, the pairs it evaluated (its device counts)
+    against the pairs the valid targets need."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    args = (queries, targets, tmask)
+    stats = torch.zeros(2, dtype=torch.int32, device=queries.device)
+    ik, dk = cuda_nn.nn1_exhaustive(*args, stats)
+    ik2, dk2 = cuda_nn.nn1_exhaustive(*args)
     ip, dp = cuda_nn.nn1_exhaustive_plain(*args)
     torch.cuda.synchronize()
+    n_valid = int(tmask.sum())
+    evaluated, needed = scan_pairs("K5", label, stats, queries.shape[0], n_valid)
     same = bool(torch.equal(ik, ip)) and bool(torch.equal(dk, dp))
-    v = queries.mask
-    max_err = float(torch.abs(dk[v] - dp[v]).max())
+    repeat = bool(torch.equal(ik, ik2)) and bool(torch.equal(dk, dk2))
     ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive(*args))
-    plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive_plain(*args))
+    plain_ms = cuda_median_ms(lambda: cuda_nn.nn1_exhaustive_plain(*args), SLOW_RUNS)
     # the nearest library yardstick: all pairwise distances, then the minimum
     # (targets as they are, invalid ones at the pad coordinate)
-    library_ms = cuda_median_ms(lambda: torch.cdist(args[0], args[1]).min(dim=1))
-    case = dict(queries=int(queries.points.shape[0]), targets=int(targets.points.shape[0]),
-                identical=same, within_0p5m=int((v & (dk < 0.25)).sum()),
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+    library_ms = cuda_median_ms(lambda: torch.cdist(queries, targets).min(dim=1), SLOW_RUNS)
+    case = dict(shape=label, queries=int(queries.shape[0]), targets=int(targets.shape[0]),
+                valid=n_valid, pairs=needed, pairs_evaluated=evaluated, identical=same,
+                repeatable=repeat, within_0p5m=int((dk < 0.25).sum()),
+                max_abs_err=float(torch.abs(dk - dp).max()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, ps_per_pair=ms * 1e9 / max(evaluated, 1))
     # every query against every valid target, 8 FLOP a pair
-    pairs = args[0].shape[0] * int(targets.mask.sum())
-    case["pairs"] = pairs
-    with_bound(case, 8.0 * pairs, nbytes(*args, ik, dk))
+    with_bound(case, 8.0 * needed, nbytes(*args, ik, dk))
     print(f"# K5 nn1_exhaustive {case}")
-    require(same, "K5: idx or d2 differ from the plain version")
+    require(same, f"K5 {label}: idx or d2 differ from the plain version")
+    require(repeat, f"K5 {label}: two launches differ")
     return case
+
+
+def check_exhaustive(inp, scans, dev):
+    """K5 and K6 at the per-frame widths (the submap and the scan as the
+    pipeline holds them, invalid slots sorted last), with every target valid
+    (a 32768-point subsample of a raw scan, where compaction buys nothing,
+    for the per-pair rate) and with the same valid targets at random slots
+    (about a quarter to a third valid, in no order)."""
+    q = inp.queries.points
+    dense_p, dense_m = dense_cloud(scans[0], 32768, dev)
+    k5 = [check_k5(q, inp.submap.points, inp.submap.mask, "submap"),
+          check_k5(q, dense_p, dense_m, "dense"),
+          check_k5(q, *scattered(inp.submap.points, inp.submap.mask, 65536, 5), "scattered")]
+    scan = inp.scan0
+    k6 = [check_k6(scan.points, scan.mask, scan.points, 0.75, "scan"),
+          check_k6(dense_p, dense_m, scan.points, 0.75, "dense"),
+          check_k6(*scattered(scan.points, scan.mask, 32768, 6), scan.points, 0.75, "scattered")]
+    return k5, k6
 
 
 def check_k3(src, target, radius, label):
@@ -969,8 +1043,7 @@ def main() -> int:
     k4 = [check_k4(inp.queries, inp.submap, r) for r in (0.5, 1.0, 1.5)]
     k1 = [check_k1(inp.scan0, 0.75, "scan"), check_k1(inp.kf0, 1.5, "keyframe")]
     k3 = [check_k3(inp.queries, inp.submap, 0.5, "S2M"), check_k3(inp.queries, inp.s2s, 1.0, "S2S")]
-    k5 = check_k5(inp.queries, inp.submap)
-    k6 = check_k6(inp.scan0, 0.75)
+    k5, k6 = check_exhaustive(inp, scans, dev)
 
     main_path, runner = drive(cfg, world, scans)
     for backend in BACKENDS:
@@ -1008,9 +1081,9 @@ def main() -> int:
         entry("nn1_pruned_mxu", "nn1_pruned.cu", "pallas_nn.py:200", "cli, pallas_mxu",
               cli_mxu["launches"], k4),
         entry("nn1_exhaustive", "nn1_exhaustive.cu", "pallas_nn.py:38",
-              "oracle: query_1nn", oracle["launches"], [k5]),
+              "oracle: query_1nn", oracle["launches"], k5),
         entry("cov_exhaustive", "cov_exhaustive.cu", "pallas_cov.py:40",
-              "oracle: estimate_normals_radius", oracle["launches"], [k6]),
+              "oracle: estimate_normals_radius", oracle["launches"], k6),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,8 @@ and the exhaustive ``radius_moments``.
 - :func:`radius_moments_sorted` is the public entry with the JAX package's
   signature.
 - :func:`cov_exhaustive` is kernel K6's wrapper (``csrc/cov_exhaustive.cu``,
-  every query against every target, no query mask); its plain version is
+  every query against every valid target, no query mask; the targets are
+  compacted on the device first, as for K5); its plain version is
   :func:`cov_plain` with every query valid. :func:`radius_moments` is the
   public entry.
 
@@ -32,11 +33,13 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.ops import cuda_build
 from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
-    TILE,
     check_exhaustive_inputs,
+    check_scan_stats,
     check_search_inputs,
+    exhaustive_workspace,
     f32_radius2,
     plain_query_step,
+    plain_scan_stats,
     plain_visits,
 )
 
@@ -144,24 +147,34 @@ def radius_moments_sorted(
 
 def cov_exhaustive(
     points: torch.Tensor, mask: torch.Tensor, queries: torch.Tensor, radius: float,
+    stats: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Wrapper of kernel K6: [Q, 10] moments of every query (no query mask)
     over the valid points within ``radius`` (inclusive), as :func:`cov_plain`
     with every query valid. queries [Q,3] f32 with Q % 128 == 0; points of
-    any count (the kernel pads the last chunk)."""
+    any count, in any order. ``stats`` (optional, int32 [2]) receives the
+    valid points' count and the chunk scans of the grid, as
+    :func:`ops.cuda_nn.nn1_exhaustive` fills it. A CUDA tensor launches the
+    pre-pass, the scan and the merge on the current stream (no
+    synchronization, no host read of the count)."""
     check_exhaustive_inputs(queries, points, mask)
+    check_scan_stats(stats, queries)
     q_total = queries.shape[0]
     if queries.device.type == "cpu":
         exhaustive_launches["plain"] += 1
+        plain_scan_stats(stats, q_total, mask)
         every = torch.ones((q_total,), dtype=torch.bool, device=queries.device)
         return cov_plain(points, mask, queries, every, radius)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
+    n_splits, dense, stats = exhaustive_workspace(queries, points, stats)
+    part = torch.empty((n_splits, q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
     out = torch.empty((q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
     with torch.cuda.device(queries.device):
         err = cuda_build.library().dlo_cov_exhaustive(
-            queries.data_ptr(), points.data_ptr(), mask.data_ptr(), q_total // TILE,
-            points.shape[0], f32_radius2(radius), out.data_ptr(),
+            queries.data_ptr(), points.data_ptr(), mask.data_ptr(), q_total,
+            points.shape[0], n_splits, f32_radius2(radius), dense.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
     cuda_build.check(err, "cov_exhaustive")

@@ -19,8 +19,12 @@ every GICP iteration, and the exhaustive ``query_1nn``.
   contract: it recomputes the winner's exact d2 after the search
   (``mxu=True`` selects K4).
 - :func:`nn1_exhaustive` is kernel K5's wrapper (``csrc/nn1_exhaustive.cu``,
-  the raw minimum over every target), plain version
-  :func:`nn1_exhaustive_plain`; :func:`query_1nn` is the public entry.
+  the raw minimum over every valid target), plain version
+  :func:`nn1_exhaustive_plain`; :func:`query_1nn` is the public entry. K5
+  and K6 (``ops/cuda_cov.py``) first compact the valid targets into a dense
+  array on the device (``csrc/dense_targets.cu``) and scan it on a grid of
+  (query tile, target split) blocks; :func:`exhaustive_splits` sizes that
+  grid.
 
 Each kernel has its own launch counter, counted per route: ``"cuda"``
 where the wrapper launched the kernel, ``"plain"`` where it ran the plain
@@ -35,10 +39,12 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
 
-TILE = 128                    # queries per tile (one CUDA block of K5, K6)
+TILE = 128                    # queries per tile (one CUDA block row of K5, K6)
 SUB_TILE = 32                 # queries per sub-tile (one CUDA block of K1-K4)
 CHUNK = morton.TARGET_CHUNK   # targets per Morton chunk
 MAX_CHUNKS = 1024             # chunks per target cloud, every pruned kernel
+SCAN_BLOCKS_PER_SM = 16       # blocks of the K5/K6 scan grid per multiprocessor
+MAX_SPLITS = 65535            # the grid's second dimension
 
 launches = {"cuda": 0, "plain": 0}
 mxu_launches = {"cuda": 0, "plain": 0}
@@ -385,25 +391,81 @@ def query_1nn_sorted(
     return torch.where(found, best_idx, -1), best_d2, found
 
 
+def exhaustive_splits(q_total: int, t_total: int, n_sms: int) -> int:
+    """Target splits of the K5/K6 scan grid: enough that the Q // 128 query
+    tiles times the splits come to about ``SCAN_BLOCKS_PER_SM`` blocks per
+    multiprocessor, at most one split per 512-target chunk the cloud could
+    fill. Sized from the slot count T: the valid count stays on the device,
+    where each split takes its share of the chunks actually filled."""
+    tiles = max(q_total // TILE, 1)
+    most = min(max(-(-t_total // CHUNK), 1), MAX_SPLITS)
+    return max(1, min(round(SCAN_BLOCKS_PER_SM * n_sms / tiles), most))
+
+
+def check_scan_stats(stats: torch.Tensor | None, queries: torch.Tensor) -> None:
+    if stats is not None and (stats.dtype != torch.int32 or stats.shape != (2,)
+                              or stats.device != queries.device
+                              or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous int32 [2] tensor on the queries' device")
+
+
+def plain_scan_stats(stats: torch.Tensor | None, q_total: int,
+                     target_mask: torch.Tensor) -> None:
+    """The CPU route of the ``stats`` output of K5/K6: (valid targets,
+    chunk scans summed over the grid's blocks). The splits share the
+    ceil(valid / 512) dense chunks, so every query tile scans each once."""
+    if stats is not None:
+        n_valid = int(target_mask.sum())
+        stats.copy_(torch.tensor([n_valid, (q_total // TILE) * -(-n_valid // CHUNK)],
+                                 dtype=torch.int32))
+
+
+def exhaustive_workspace(queries: torch.Tensor, targets: torch.Tensor,
+                         stats: torch.Tensor | None):
+    """What a K5/K6 launch needs beside its inputs, on the queries' CUDA
+    device: (splits of the scan grid, the dense target array's buffer
+    [T rounded up to 512, 4] f32, the int32 [2] ``stats``)."""
+    dev = queries.device
+    n_splits = exhaustive_splits(queries.shape[0], targets.shape[0],
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    capacity = -(-targets.shape[0] // CHUNK) * CHUNK
+    dense = torch.empty((capacity, 4), dtype=torch.float32, device=dev)
+    if stats is None:
+        stats = torch.empty((2,), dtype=torch.int32, device=dev)
+    return n_splits, dense, stats
+
+
 def nn1_exhaustive(
     queries: torch.Tensor, targets: torch.Tensor, target_mask: torch.Tensor,
+    stats: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Wrapper of kernel K5: (idx int32 [Q], raw d2 f32 [Q]) as
     :func:`nn1_exhaustive_plain`. queries [Q,3] f32 with Q % 128 == 0;
-    targets [T,3] f32 of any T (the kernel pads the last chunk)."""
+    targets [T,3] f32 of any T, in any order. ``stats`` (optional, int32
+    [2]) receives the valid targets' count and the 512-target chunk scans
+    summed over the grid's blocks: the kernel evaluates
+    128 * 512 * stats[1] pairs. A CUDA tensor launches the pre-pass, the
+    scan and the merge on the current stream (no synchronization, no host
+    read of the count); a CPU tensor runs the plain version and fills
+    ``stats`` with the counts any grid gives."""
     check_exhaustive_inputs(queries, targets, target_mask)
+    check_scan_stats(stats, queries)
     q_total = queries.shape[0]
     if queries.device.type == "cpu":
         exhaustive_launches["plain"] += 1
+        plain_scan_stats(stats, q_total, target_mask)
         return nn1_exhaustive_plain(queries, targets, target_mask)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
+    n_splits, dense, stats = exhaustive_workspace(queries, targets, stats)
+    part = torch.empty((n_splits, q_total), dtype=torch.int64, device=queries.device)
     idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
     d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
     with torch.cuda.device(queries.device):
         err = cuda_build.library().dlo_nn1_exhaustive(
             queries.data_ptr(), targets.data_ptr(), target_mask.data_ptr(),
-            q_total // TILE, targets.shape[0], idx.data_ptr(), d2.data_ptr(),
+            q_total, targets.shape[0], n_splits, dense.data_ptr(), stats.data_ptr(),
+            part.data_ptr(), idx.data_ptr(), d2.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
     cuda_build.check(err, "nn1_exhaustive")

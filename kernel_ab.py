@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of the port across source trees on one NVIDIA GPU: the pruned
-kernels K1-K4 at the shapes of ``chip_smoke.py`` phase 3, and the
-per-frame drive of its phase 4.
+"""A/B of the port across source trees on one NVIDIA GPU: the kernels
+K1-K6 at the shapes of ``chip_smoke.py`` phase 3, and the per-frame drive
+of its phase 4.
 
     mkdir -p _scratch/parent          # _scratch/ is in .gitignore
     git archive <commit> | tar -x -C _scratch/parent
@@ -15,16 +15,21 @@ what every tree offers:
 
 - ``kernels``: K2 through ``cuda_nn.query_1nn_sorted``, K4 through
   ``query_1nn_sorted(..., mxu=True)``, K3 through
-  ``cuda_gicp.fused_linearize`` and K1 through
-  ``cuda_cov.radius_moments_sorted`` (the JAX package's signatures), at
-  S2M r 0.5 / 1.0 / 1.5, S2S r 1.0 and a loop edge (keyframe against
+  ``cuda_gicp.fused_linearize``, K1 through
+  ``cuda_cov.radius_moments_sorted``, K5 through ``cuda_nn.query_1nn`` and
+  K6 through ``cuda_cov.radius_moments`` (the JAX package's signatures),
+  at S2M r 0.5 / 1.0 / 1.5, S2S r 1.0 and a loop edge (keyframe against
   keyframe at the loop gate) for K2, S2M r 0.5 / 1.0 / 1.5 for K4, S2M
   r 0.5 and S2S r 1.0 for K3 (cold), scan r 0.75 and keyframe r 1.5 for
-  K1: the entry's device time (CUDA events behind a device sleep, median
-  of 20), the kernel's own device time (torch.profiler, mean of 20
-  launches, the kernel picked by its name in either tree's sources; the
-  rest of the entry, such as building candidate lists, is the
-  difference), and the device operations of one entry call;
+  K1, the scan against the submap for K5 and the scan against itself at
+  r 0.75 for K6, each also with every target valid and with the valid
+  targets at random slots (``chip_smoke.check_exhaustive``'s clouds): the
+  entry's device time (CUDA events behind a device sleep, median of 20),
+  the device time per call of the kernel's own launches (torch.profiler,
+  mean of 20 calls, the kernels picked by their names in either tree's
+  sources; the rest of the entry, such as building candidate lists, is
+  the difference), and the device operations of one entry call
+  (``--kernels K5 K6`` times only those);
 - ``drive``: the tree's own ``chip_smoke.drive`` (30 frames on "pallas"
   with that tree's checks), then six steady frames under torch.profiler on
   each backend ("pallas", "pallas_fused", "pallas_mxu";
@@ -33,10 +38,10 @@ what every tree offers:
 The inputs come from this tree's ``chip_smoke.kernel_inputs`` run against
 each tree's package. The first tree's inputs and outputs are the
 reference: the script fails if another tree saw other inputs, if K2's or
-K4's idx, d2 or found differ in a bit, if K3's correspondences, weights
-or payload differ in a bit or its H, b or error leave K3_REL of their
-scale (the kernels may sum in another order), or if K1's counts differ or
-its moments leave 1e-3 + 1e-5 |.|. Prints the card's name and power limit,
+K4's or K5's idx, d2 or found differ in a bit, if K3's correspondences,
+weights or payload differ in a bit or its H, b or error leave K3_REL of
+their scale (the kernels may sum in another order), or if K1's or K6's
+counts differ or their moments leave 1e-3 + 1e-5 |.|. Prints the card's name and power limit,
 one JSON line per tree and case, then one line per case with every tree's
 times and the first tree's mean over the second's. Imports torch and the
 port, nothing of JAX.
@@ -60,13 +65,16 @@ import torch
 HERE = Path(__file__).resolve().parent
 RUNS = 20
 MODES = ("kernels", "drive")
-# each kernel's name in either tree (K2 and K4 are one template since K4's
-# redesign, separate kernels before it)
+# each kernel's launches by name in either tree (K2 and K4 are one template
+# since K4's redesign, separate kernels before it; K5 and K6 are a pre-pass,
+# a scan and a merge since theirs, one kernel before it)
 KERNEL_NAMES = {
     "K1": r"cov_pruned_kernel",
     "K2": r"nn1_pruned_kernel(<false>)?(\(|$)",
     "K3": r"fused_linearize_kernel",
     "K4": r"nn1_pruned_mxu_kernel|nn1_pruned_kernel<true>",
+    "K5": r"nn1_exhaustive_kernel|nn1_merge_kernel|compact_targets_kernel",
+    "K6": r"cov_exhaustive_kernel|cov_merge_kernel|compact_targets_kernel",
 }
 
 
@@ -84,10 +92,10 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def profiled(fn, kernel: str, runs: int = RUNS) -> tuple[float, float, float, list]:
-    """(mean device us of the kernels whose name matches ``kernel``, their
-    launches per call, device operations per call, the names matched) over
-    ``runs`` calls."""
+def profiled(fn, kernel: str, runs: int = RUNS) -> tuple[float, float, float, dict]:
+    """(device us per call of the kernels whose name matches ``kernel``,
+    their launches per call, device operations per call, their us per call
+    by name) over ``runs`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -98,14 +106,15 @@ def profiled(fn, kernel: str, runs: int = RUNS) -> tuple[float, float, float, li
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     hits = [e for e in ops if re.search(kernel, e.name)]
-    mine = [e.time_range.elapsed_us() for e in hits]
-    names = sorted({e.name[:100] for e in hits})
-    return (float(np.mean(mine)) if mine else float("nan"), len(mine) / runs, len(ops) / runs,
-            names)
+    by_name: dict = {}
+    for e in hits:
+        by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + e.time_range.elapsed_us() / runs
+    return (sum(by_name.values()) if hits else float("nan"), len(hits) / runs, len(ops) / runs,
+            by_name)
 
 
-def search_cases(harness, cfg):
-    """(kernel, label, radius, entry call, input tensors)."""
+def search_cases(harness, cfg, kernels):
+    """(kernel, label, radius, entry call, input tensors) of ``kernels``."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn, morton
     from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
 
@@ -135,22 +144,34 @@ def search_cases(harness, cfg):
         fn = partial(cuda_cov.radius_moments_sorted, cloud.points, cloud.mask, clo, chi,
                      cloud.points, cloud.mask, r)
         cases.append(("K1", label, r, fn, (cloud.points, cloud.mask)))
-    return cases
+    dev = q.points.device
+    dense_p, dense_m = harness.dense_cloud(scans[0], 32768, dev)
+    sm = inp.submap
+    for label, tp, tm in (("submap", sm.points, sm.mask), ("dense", dense_p, dense_m),
+                          ("scattered", *harness.scattered(sm.points, sm.mask, 65536, 5))):
+        fn = partial(cuda_nn.query_1nn, tp, tm, q.points, q.mask, 0.5)
+        cases.append(("K5", label, 0.5, fn, (q.points, q.mask, tp, tm)))
+    scan = inp.scan0
+    for label, tp, tm in (("scan", scan.points, scan.mask), ("dense", dense_p, dense_m),
+                          ("scattered", *harness.scattered(scan.points, scan.mask, 32768, 6))):
+        fn = partial(cuda_cov.radius_moments, tp, tm, scan.points, 0.75)
+        cases.append(("K6", label, 0.75, fn, (scan.points, tp, tm)))
+    return [c for c in cases if c[0] in kernels]
 
 
 def kept_outputs(kernel: str, out) -> list:
-    """The outputs compared across trees, on the host: K2/K4 (idx, d2,
-    found), K3 (corr, weight, mu_b, n_b, best_d2, h, b, error), K1 the
+    """The outputs compared across trees, on the host: K2/K4/K5 (idx, d2,
+    found), K3 (corr, weight, mu_b, n_b, best_d2, h, b, error), K1/K6 the
     moments."""
     if kernel == "K3":
         out = (out.corr, out.weight, out.mu_b, out.n_b, out.best_d2, out.h, out.b, out.error)
-    elif kernel == "K1":
+    elif kernel in ("K1", "K6"):
         out = (out,)
     return [o.cpu() for o in out]
 
 
 def outputs_agree(kernel: str, got: list, want: list, k3_rel: float) -> bool:
-    if kernel in ("K2", "K4"):
+    if kernel in ("K2", "K4", "K5"):
         return all(torch.equal(a, b) for a, b in zip(got, want))
     if kernel == "K3":
         exact = all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
@@ -162,8 +183,8 @@ def outputs_agree(kernel: str, got: list, want: list, k3_rel: float) -> bool:
         torch.all(torch.abs(a - b) <= 1e-3 + 1e-5 * torch.abs(b)))
 
 
-def run_kernels(harness, cfg, tree: str, outputs: dict) -> None:
-    for kernel, label, radius, fn, tensors in search_cases(harness, cfg):
+def run_kernels(harness, cfg, tree: str, outputs: dict, kernels) -> None:
+    for kernel, label, radius, fn, tensors in search_cases(harness, cfg, kernels):
         out = fn()
         torch.cuda.synchronize()
         entry_ms = harness.cuda_median_ms(fn)
@@ -193,7 +214,7 @@ def run_drive(harness, tree_smoke, tree: str, outputs: dict) -> None:
     outputs["drive"] = line
 
 
-def worker(tree: Path, out_file: Path, modes: list[str]) -> None:
+def worker(tree: Path, out_file: Path, modes: list[str], kernels: list[str]) -> None:
     sys.path.insert(0, str(tree))  # the tree's package wins over this one's
     import direct_lidar_odometry_tpu_torch as port
     from direct_lidar_odometry_tpu_torch.ops import cuda_build
@@ -209,7 +230,7 @@ def worker(tree: Path, out_file: Path, modes: list[str]) -> None:
     pin_float32()
     outputs: dict = {}
     if "kernels" in modes:
-        run_kernels(harness, harness.slice_config(), str(tree), outputs)
+        run_kernels(harness, harness.slice_config(), str(tree), outputs, kernels)
     if "drive" in modes:
         run_drive(harness, tree_smoke, str(tree), outputs)
     torch.save(outputs, out_file)
@@ -260,13 +281,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", type=Path, help="checkout roots, in the order to run")
     ap.add_argument("--modes", nargs="+", choices=MODES, default=list(MODES))
+    ap.add_argument("--kernels", nargs="+", choices=list(KERNEL_NAMES),
+                    default=list(KERNEL_NAMES), help="the kernels the kernels mode times")
     ap.add_argument("--out", type=Path, default=HERE / "chiprun_out" / "kernel_ab")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     if args.worker is not None:
-        worker(args.trees[0].resolve(), args.worker, args.modes)
+        worker(args.trees[0].resolve(), args.worker, args.modes, args.kernels)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
@@ -277,7 +300,8 @@ def main() -> int:
     for i, tree in enumerate(trees):
         out_file = args.out / f"{i}.pt"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), tree, "--worker",
-                        str(out_file), "--modes", *args.modes], check=True)
+                        str(out_file), "--modes", *args.modes, "--kernels", *args.kernels],
+                       check=True)
         results.append(torch.load(out_file))
     compare(trees, results)
     return 0

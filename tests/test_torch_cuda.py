@@ -192,32 +192,98 @@ def test_nn1_mxu_kernel_matches_plain(dev, radius):
     assert float((d_exact[both] - de[both]).max()) < 2e-3
 
 
-@pytest.mark.parametrize("n_targets", [8192, 1000])
-def test_nn1_exhaustive_kernel_matches_plain(dev, n_targets):
-    """K5: raw minimum over every target (ragged last chunk included)."""
-    tp, tm = _sorted_cloud(3, n_targets, dev)
-    qp, _ = _sorted_cloud(4, 2048, dev)
+EXHAUSTIVE_CASES = [8192, 1000, "all_invalid", "one_valid", "scattered", "duplicates",
+                    "on_radius"]
+
+
+def _exhaustive_case(dev, case, extent=12.0):
+    """(targets, mask, queries, radius) of one K5/K6 case: a sorted cloud of
+    8192 or of 1000 targets (a ragged last chunk), no valid target, one,
+    65536 slots with a quarter valid at random positions, every target
+    twice, and a lattice whose nearest targets lie at exactly r."""
+    qp, _ = _sorted_cloud(4, 2048, dev, extent=extent)
+    radius = 0.9
+    if isinstance(case, int):
+        tp, tm = _sorted_cloud(3, case, dev, extent=extent)
+    elif case in ("all_invalid", "one_valid"):
+        tp = torch.full((3000, 3), 1e6, device=dev)
+        tm = torch.zeros(3000, dtype=torch.bool, device=dev)
+        if case == "one_valid":
+            tp[2417], tm[2417] = qp[5] + 0.25, True
+    elif case == "scattered":
+        base, _ = _sorted_cloud(6, 16384, dev, valid_frac=1.0, extent=extent)
+        where = torch.from_numpy(np.random.default_rng(7).permutation(65536)[:16384]).to(dev)
+        tp = torch.full((65536, 3), 1e6, device=dev)
+        tm = torch.zeros(65536, dtype=torch.bool, device=dev)
+        tp[where], tm[where] = base, True
+    elif case == "duplicates":  # copies in other chunks, other slices and side by side
+        base, bm = _sorted_cloud(17, 2048, dev, extent=extent)
+        tp = torch.cat([base, base.roll(37, 0), base]).contiguous()
+        tm = torch.cat([bm, bm.roll(37, 0), bm]).contiguous()
+        tp[1::2], tm[1::2] = tp[0::2].clone(), tm[0::2].clone()
+    else:
+        tp, tm = _lattice(dev, (0.0, 0.0, 0.0))
+        qp, radius = _lattice(dev, (0.5, 0.0, 0.0))[0][:2048].contiguous(), 0.5
+    return tp.contiguous(), tm, qp, radius
+
+
+@pytest.mark.parametrize("case", EXHAUSTIVE_CASES)
+def test_nn1_exhaustive_kernel_matches_plain(dev, case):
+    """K5: the raw minimum over every valid target, bitwise equal to the
+    plain version (ties to the lower index) and over two launches; its
+    device counts are the valid targets and one scan of their chunks per
+    query tile."""
+    tp, tm, qp, _ = _exhaustive_case(dev, case)
     before = cuda_nn.exhaustive_launches["cuda"]
-    ik, dk = cuda_nn.nn1_exhaustive(qp, tp, tm)
+    stats = torch.full((2,), -1, dtype=torch.int32, device=dev)
+    ik, dk = cuda_nn.nn1_exhaustive(qp, tp, tm, stats)
+    ik2, dk2 = cuda_nn.nn1_exhaustive(qp, tp, tm)
     ip, dp = cuda_nn.nn1_exhaustive_plain(qp, tp, tm)
     torch.cuda.synchronize()
-    assert cuda_nn.exhaustive_launches["cuda"] == before + 1
-    assert torch.equal(ik, ip)
-    assert torch.equal(dk, dp)
-    assert (ik >= 0).all()
+    assert cuda_nn.exhaustive_launches["cuda"] == before + 2
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert torch.equal(ik, ik2) and torch.equal(dk, dk2)
+    n_valid = int(tm.sum())
+    assert stats.tolist() == [n_valid, (qp.shape[0] // 128) * -(-n_valid // 512)]
+    if case == "all_invalid":
+        assert (ik == -1).all() and torch.isinf(dk).all()
+    elif case == "one_valid":
+        assert (ik == 2417).all()
+    else:
+        assert (ik >= 0).all() and tm[ik.long()].all()
+    if case == "duplicates":  # the first copy wins
+        same = (tp[None, :, :] == tp[ik.long()][:, None, :]).all(dim=-1) & tm[None, :]
+        assert torch.equal(same.int().argmax(dim=1), ik.long())
+    if case == "on_radius":
+        assert (dk == 0.25).all()
 
 
-@pytest.mark.parametrize("n_targets", [8192, 1000])
-def test_cov_exhaustive_kernel_matches_plain(dev, n_targets):
-    """K6: counts exact (inclusive radius), moments to summation order."""
-    tp, tm = _sorted_cloud(5, n_targets, dev, extent=6.0)
+@pytest.mark.parametrize("case", EXHAUSTIVE_CASES)
+def test_cov_exhaustive_kernel_matches_plain(dev, case):
+    """K6: counts exact (inclusive radius), moments to summation order,
+    two launches bitwise equal, the device counts as K5's."""
+    tp, tm, qp, radius = _exhaustive_case(dev, case, extent=6.0)
+    if isinstance(case, int):
+        qp = tp[:896].contiguous()  # queries among the targets, invalid ones too
+    every = torch.ones(qp.shape[0], dtype=torch.bool, device=dev)
     before = cuda_cov.exhaustive_launches["cuda"]
-    mk = cuda_cov.cov_exhaustive(tp, tm, tp[:896].contiguous(), 0.9)
-    mp = cuda_cov.cov_plain(tp, tm, tp[:896], torch.ones(896, dtype=torch.bool, device=dev), 0.9)
+    stats = torch.full((2,), -1, dtype=torch.int32, device=dev)
+    mk = cuda_cov.cov_exhaustive(tp, tm, qp, radius, stats)
+    mk2 = cuda_cov.cov_exhaustive(tp, tm, qp, radius)
+    mp = cuda_cov.cov_plain(tp, tm, qp, every, radius)
     torch.cuda.synchronize()
-    assert cuda_cov.exhaustive_launches["cuda"] == before + 1
+    assert cuda_cov.exhaustive_launches["cuda"] == before + 2
     assert torch.equal(mk[:, 0], mp[:, 0])
     torch.testing.assert_close(mk, mp, atol=1e-3, rtol=1e-5)
+    assert torch.equal(mk, mk2)
+    n_valid = int(tm.sum())
+    assert stats.tolist() == [n_valid, (qp.shape[0] // 128) * -(-n_valid // 512)]
+    if case == "all_invalid":
+        assert not mk.any()
+    elif case == "on_radius":  # d2 == r^2 is counted
+        assert (mk[qp[:, 0] < 31.0, 0] == 2).all()
+    elif case != "one_valid":
+        assert float(mk[:, 0].mean()) > 1
 
 
 def _fused_problem(dev, seed=0):

@@ -12,6 +12,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from direct_lidar_odometry_tpu.odometry.runner import OdometryRunner as JaxRunner
 from direct_lidar_odometry_tpu.ops import morton as jmorton, pallas_cov, pallas_nn
@@ -96,6 +97,87 @@ def test_query_1nn_all_targets_invalid():
     assert (i_t == -1).all() and (i_j == -1).all() and not f_t.any() and not f_j.any()
 
 
+def _contract_case(case):
+    """(targets, target mask, queries, query mask, radius) of one boundary
+    case of the exhaustive contracts, from a seed."""
+    rng = np.random.default_rng(21)
+    qp, qm = _sorted_cloud(rng, 256)
+    radius = 1.0
+    if case == "all_invalid":
+        tp, tm = np.full((600, 3), 1e6, np.float32), np.zeros(600, bool)
+    elif case == "one_valid":  # every query's neighbour is slot 417
+        tp, tm = np.full((600, 3), 1e6, np.float32), np.zeros(600, bool)
+        tp[417], tm[417] = qp[qm][0] + np.float32(0.25), True
+    elif case == "scattered":  # a quarter valid, at random slots, in no order
+        base, _ = _sorted_cloud(rng, 1024, valid_frac=1.0)
+        tp, tm = np.full((4096, 3), 1e6, np.float32), np.zeros(4096, bool)
+        where = rng.permutation(4096)[:1024]
+        tp[where], tm[where] = base, True
+    elif case == "duplicates":  # every target twice: the lower index wins
+        base, bm = _sorted_cloud(rng, 512)
+        tp, tm = np.concatenate([base, base]), np.concatenate([bm, bm])
+    else:  # "on_radius": the nearest targets at exactly r (all exact in f32)
+        g = np.stack(np.meshgrid(np.arange(8.0), np.arange(8.0), np.arange(4.0),
+                                 indexing="ij"), axis=-1).reshape(-1, 3).astype(np.float32)
+        tp, tm = g, np.ones(len(g), bool)
+        qp, qm, radius = g + np.float32([0.5, 0.0, 0.0]), np.ones(len(g), bool), 0.5
+    return tp, tm, qp, qm, radius
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "one_valid", "scattered", "duplicates",
+                                  "on_radius"])
+def test_exhaustive_contracts_match_reference(case):
+    """K5 and K6 through the public entries against the JAX kernels in
+    interpret mode on the boundary cases of their contracts: idx and found
+    exact, d2 to rtol 1e-6, counts exact, moments to 1e-4; a neighbour at
+    exactly r is counted (inclusive) and not found (strict); the ``stats``
+    output counts the valid targets and one chunk scan per query tile and
+    512 of them."""
+    tp, tm, qp, qm, radius = _contract_case(case)
+    i_j, d_j, f_j = map(np.asarray, pallas_nn.query_1nn(
+        jnp.asarray(tp), jnp.asarray(tm), jnp.asarray(qp), jnp.asarray(qm), radius))
+    i_t, d_t, f_t = (x.numpy() for x in cuda_nn.query_1nn(_t(tp), _t(tm), _t(qp), _t(qm), radius))
+    np.testing.assert_array_equal(f_t, f_j)
+    np.testing.assert_array_equal(i_t, i_j)
+    np.testing.assert_allclose(d_t, d_j, rtol=1e-6)
+    m_j = np.asarray(pallas_cov.radius_moments(jnp.asarray(tp), jnp.asarray(tm),
+                                               jnp.asarray(qp), radius))
+    stats = torch.zeros(2, dtype=torch.int32)
+    m_t = cuda_cov.cov_exhaustive(_t(tp), _t(tm), _t(qp), radius, stats).numpy()
+    np.testing.assert_array_equal(m_t[:, 0], m_j[:, 0])
+    np.testing.assert_allclose(m_t, m_j, atol=1e-4)
+    n_valid = int(tm.sum())
+    assert stats.tolist() == [n_valid, (len(qp) // 128) * -(-n_valid // 512)]
+    raw_i, raw_d = cuda_nn.nn1_exhaustive(_t(qp), _t(tp), _t(tm), stats)
+    assert stats.tolist() == [n_valid, (len(qp) // 128) * -(-n_valid // 512)]
+    if case == "all_invalid":
+        assert np.isinf(d_t).all() and (raw_i == -1).all() and not m_t.any()
+    elif case == "one_valid":
+        assert (raw_i == 417).all() and np.isfinite(d_t).all() and f_t.any()
+    elif case == "scattered":
+        assert f_t.sum() > 50 and tm[i_t[f_t]].all() and m_t[:, 0].max() > 1
+    elif case == "duplicates":
+        assert f_t.sum() > 50 and (i_t[f_t] < 512).all()
+        assert (m_t[:, 0] % 2 == 0).all()
+    else:
+        assert not f_t.any() and (d_t == 0.25).all() and (raw_i >= 0).all()
+        assert (m_t[qp[:, 0] < 7.0, 0] == 2).all()
+
+
+@pytest.mark.parametrize("q_total,t_total,n_sms,want", [
+    (32768, 65536, 132, 8),    # the scan against the submap: 256 tiles x 8 = 2048 blocks
+    (32768, 32768, 132, 8),
+    (128, 65536, 132, 128),    # one tile: a split per chunk the cloud could fill
+    (128, 1000, 132, 2),       # a ragged cloud of two chunks
+    (2048, 0, 132, 1),         # no targets: still one split
+    (1 << 20, 65536, 132, 1),  # more tiles than blocks wanted
+])
+def test_exhaustive_splits(q_total, t_total, n_sms, want):
+    """The K5/K6 scan grid: about SCAN_BLOCKS_PER_SM blocks a multiprocessor,
+    never more splits than chunks, never fewer than one."""
+    assert cuda_nn.exhaustive_splits(q_total, t_total, n_sms) == want
+
+
 @pytest.mark.parametrize("radius", [0.75, 1.5])
 def test_radius_moments_matches_reference(radius):
     """K6: counts exact for every query (no query mask), moments to 1e-4."""
@@ -151,6 +233,10 @@ def test_new_wrappers_route_cpu_to_plain_and_count():
         cuda_nn.query_1nn(p, m, p[:100], m[:100], 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_cov.radius_moments(p, m, p[::2], 1.0)
+    with pytest.raises(ValueError, match="stats"):
+        cuda_nn.nn1_exhaustive(p, p, m, torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="stats"):
+        cuda_cov.cov_exhaustive(p, m, p, 1.0, torch.zeros(3, dtype=torch.int32))
 
 
 def test_runner_mxu_matches_reference(sparse_world):  # noqa: F811
