@@ -7,7 +7,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels from ``direct_lidar_odometry_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the build time;
+   sm_90a) and the native host library from ``cpp/dlo_host.cpp`` (g++),
+   and print the build times;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the per-frame path at ``cfg/tpu_dlo.yaml`` sizes, from
    Morton-sorted clouds of rendered OS1-64 scans: K2 (1-NN; idx and d2
@@ -68,9 +69,36 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    both, the two trajectories equal within 1e-5 m, a non-identity IMU prior
    passed to the step, no plain version run; plus the same scans without
    the IMU, for its ATE;
-9. print one JSON line of per-kernel results, then the final JSON line.
+9. print one JSON line of per-kernel results, then the final JSON line
+   (after phases 10-12, which run before it);
+10. host preprocessing at full width: the native host library (built in
+   phase 2) must load; one raw scan
+   prepared on the host (``io/hostprep.py``) and on the device must give
+   the same valid count and the same points in the same order within
+   1e-4 m; then the phase-4 drive with ``host_preprocess`` on ``pallas``
+   (ATE gate, S2M correspondences, K1 and K2 launched, no plain version,
+   the runner reporting ``"native"``), printed beside phase 4: the max
+   pose difference to phase 4's trajectory, host reads a frame, host
+   preprocessing ms a frame and the profiled window (device operations,
+   busy ms by kernel, idle share); then ``process_chunk`` in chunks of 8
+   against ``process_scan`` on the same scans within 1e-5 m;
+11. the intensity sidecar and the CLI's KITTI path: the phase-4 world
+   written in KITTI layout by ``io/synthetic.dump_kitti`` (OS1-64 beams,
+   40 m, xyzi with intensity 1/range), then ``cli.main`` in-process twice
+   with host preprocessing, counters reset before each call: with
+   ``map.carry_intensity`` (an xyzi PLY of > 100 points, every intensity
+   finite and inside the inputs' range, the ATE gate) and without it (the
+   scans through the native ``ScanFeeder``, counted); the same host reads
+   a frame in both, K1 and K2 launched, no plain version;
+12. the ``brute`` and ``hashgrid`` backends on the card: 10 of the phase-4
+   frames through ``OdometryRunner(device="cuda")`` on each, with the ATE
+   gate, S2M correspondences > 100 and every hand kernel and every plain
+   version launched 0 times; prints the wall ms a frame (synced), the host
+   reads a frame and the peak device memory, with the card's name and
+   power limit.
 
-It imports torch and the port, nothing of JAX.
+It imports torch and the port, nothing of JAX. Each phase's seconds are
+printed.
 """
 
 from __future__ import annotations
@@ -81,6 +109,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -108,6 +137,8 @@ K3_REL = 2e-4            # max|dH| <= K3_REL * max|H|, the same form for b and t
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PROFILED_FRAMES = 6
+BACKEND_FRAMES = 10     # phase 12: the first phase-4 frames on "brute" and "hashgrid"
+HOST_PREP_TOL = 1e-4    # m: host- vs device-prepared scan (JAX tests/test_native.py:76-100)
 REPO = Path(__file__).resolve().parent
 CFG_PATH = REPO / "cfg" / "tpu_dlo.yaml"
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
@@ -613,7 +644,7 @@ def check_k3(src, target, radius, label):
     return case
 
 
-def drive(cfg, world, scans, device="cuda"):
+def drive(cfg, world, scans, device="cuda", label="main path"):
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
     from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -646,14 +677,14 @@ def drive(cfg, world, scans, device="cuda"):
         k1_launches_per_frame=launches["cov_pruned"]["cuda"] / (len(est) - 1),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    print(f"# main path {json.dumps(out)}")
+    print(f"# {label} {json.dumps(out)}")
     gate = max(0.10, 0.001 * path)
-    require(rmse < gate, f"ATE {rmse:.4f} m >= {gate:.4f} m")
-    require(min(corr) > 100, f"a frame has s2m_num_corr {min(corr)} <= 100")
+    require(rmse < gate, f"{label}: ATE {rmse:.4f} m >= {gate:.4f} m")
+    require(min(corr) > 100, f"{label}: a frame has s2m_num_corr {min(corr)} <= 100")
     for name in ("nn1_pruned", "cov_pruned"):
-        require(launches[name]["cuda"] > 0, f"{name} kernel was never launched on the main path")
+        require(launches[name]["cuda"] > 0, f"{label}: {name} kernel was never launched")
     for name, cnt in launches.items():
-        require(cnt["plain"] == 0, f"{name} plain version ran {cnt['plain']} times on the main path")
+        require(cnt["plain"] == 0, f"{label}: {name} plain version ran {cnt['plain']} times")
     return out, runner
 
 
@@ -1008,11 +1039,227 @@ def imu_chunk_check(cfg, world, scans, device="cuda"):
     return out
 
 
+@contextlib.contextmanager
+def numpy_wire_encoder():
+    """``quantize_for_transfer`` on its numpy path: the native library is
+    reported unavailable inside the block."""
+    from direct_lidar_odometry_tpu_torch.io import native
+
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def host_config(backend: str = "pallas"):
+    return slice_config(backend).replace(host_preprocess=True)
+
+
+def host_preprocess_check(world, scans, phase4, phase4_runner, phase4_profile, host_build_s,
+                          device="cuda"):
+    """Phase 10: the native host library, one scan prepared on the host and
+    on the device, the phase-4 drive with host preprocessing beside phase
+    4's, its profiled window, and process_chunk against process_scan."""
+    from direct_lidar_odometry_tpu_torch.core import cloud as cl
+    from direct_lidar_odometry_tpu_torch.io import hostprep, native
+    from direct_lidar_odometry_tpu_torch.odometry import pipeline
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+
+    built = native.available()
+    if not built:
+        print(f"# native host library failed: {native.load_error()}")
+    require(built, "the native host library did not build or load")
+    print(f"# native host library loaded (built in {host_build_s:.2f} s, phase 2)")
+
+    cfg = host_config()
+    crop, res = cfg.preprocessing.crop.size, cfg.preprocessing.voxel_scan.res
+    n_scan = cfg.shapes.n_scan
+    prep_ms = []
+    for scan in scans:
+        t1 = time.perf_counter()
+        hostprep.preprocess_morton(scan, crop, res, n_scan)
+        prep_ms.append((time.perf_counter() - t1) * 1e3)
+    host = hostprep.preprocess_morton(scans[0], crop, res, n_scan)
+    raw = cl.from_numpy(scans[0], cfg.shapes.n_raw, device)
+    on_device = pipeline.preprocess_scan(raw.points, raw.mask, slice_config())
+    dev_pts = on_device.points[on_device.mask].cpu().numpy()
+    same_count = len(dev_pts) == len(host)
+    order_err = float(np.abs(dev_pts - host).max()) if same_count else float("inf")
+
+    # phase 4 again with core/cloud.py's numpy wire encoder: the native
+    # encoder rounds some coordinates one quantum apart from it
+    with numpy_wire_encoder():
+        numpy_wire, _ = drive(slice_config(), world, scans, device, label="numpy wire encoder")
+    out, runner = drive(cfg, world, scans, device, label="host preprocessing")
+    pose_diff = float(np.abs(runner.trajectory()[:, :3, 3]
+                             - phase4_runner.trajectory()[:, :3, 3]).max())
+    profile = device_ops_per_frame(cfg, world, scans, device)
+
+    chunked = OdometryRunner(cfg, device=device)
+    chunked.process_scan(scans[0], float(world.stamps[0]), sync=True)
+    for lo in range(1, len(scans), CHUNK):
+        hi = min(lo + CHUNK, len(scans))
+        chunked.process_chunk(scans[lo:hi], [float(s) for s in world.stamps[lo:hi]])
+    sync_device(device)
+    est_chunk = chunked.trajectory()
+    chunk_diff = float(np.abs(est_chunk[:, :3, 3] - runner.trajectory()[:, :3, 3]).max())
+
+    keys = ("device_ops_per_frame", "device_busy_ms_per_frame", "idle_share_profiled",
+            "top_ms_per_frame", "busy_ms_per_frame_by_kind")
+    summary = dict(
+        implementation=runner.host_prep_impl, valid_host=len(host), valid_device=len(dev_pts),
+        host_vs_device_max_abs_m=order_err,
+        host_prep_ms_per_frame_median=float(np.median(prep_ms)),
+        host_prep_ms_per_frame_mean=float(np.mean(prep_ms)),
+        ate_m=out["ate_m"], phase4_ate_m=phase4["ate_m"],
+        phase4_numpy_wire_ate_m=numpy_wire["ate_m"],
+        max_pose_diff_to_phase4_m=pose_diff,
+        host_reads_per_frame=out["host_reads_per_frame_median"],
+        phase4_host_reads_per_frame=phase4["host_reads_per_frame_median"],
+        median_ms_per_frame=out["median_ms_per_frame"],
+        phase4_median_ms_per_frame=phase4["median_ms_per_frame"],
+        profile={k: profile.get(k) for k in keys},
+        phase4_profile={k: phase4_profile.get(k) for k in keys},
+        chunk=CHUNK, chunk_vs_scan_max_m=chunk_diff,
+    )
+    print(f"# host preprocessing vs phase 4 {json.dumps(summary)}")
+    require(runner.host_prep_impl == "native",
+            f"host preprocessing ran {runner.host_prep_impl!r}, not the native library")
+    require(same_count, f"host-prepared scan has {len(host)} points, the device's {len(dev_pts)}")
+    require(order_err <= HOST_PREP_TOL,
+            f"host- and device-prepared scans differ by {order_err:.2e} m")
+    require(len(est_chunk) == len(scans), f"process_chunk gave {len(est_chunk)} poses")
+    require(chunk_diff <= 1e-5, f"host preprocessing: process_chunk differs by {chunk_diff:.2e} m")
+    return dict(summary, drive=out)
+
+
+def intensity_cli_check(world, device="cuda", max_range=40.0, max_points=131072, beams=None):
+    """Phase 11: the phase-4 world in KITTI layout (OS1-64 beams unless
+    ``beams``), then the CLI twice with host preprocessing: with the
+    intensity sidecar (xyzi PLY) and without it (the native ScanFeeder)."""
+    from direct_lidar_odometry_tpu_torch import cli
+    from direct_lidar_odometry_tpu_torch.io import native, ply, synthetic, trajectory
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
+        t0 = time.perf_counter()
+        root = synthetic.dump_kitti(world, tmp, "00", rng=np.random.default_rng(11),
+                                    max_range=max_range, max_points=max_points,
+                                    beams=beams or synthetic.BeamModel())
+        files = sorted(Path(tmp).rglob("*.bin"))
+        inten = np.concatenate([np.fromfile(f, np.float32).reshape(-1, 4)[:, 3] for f in files])
+        print(f"# wrote {len(files)} KITTI scans in {time.perf_counter() - t0:.1f} s "
+              f"(intensity {inten.min():.4f} .. {inten.max():.4f})")
+        for intensity in (True, False):
+            name = "xyzi" if intensity else "feeder"
+            out_dir = OUT_DIR / f"kitti_{name}"
+            argv = ["--kitti", root, "--sequence", "00", "--config", str(CFG_PATH),
+                    "--device", device, "--set", "nn_backend=pallas",
+                    "--set", "host_preprocess=true", "--out-dir", str(out_dir), "--eval",
+                    "--map-ply", "map.ply", "--quiet"]
+            if intensity:
+                argv += ["--set", "map.carry_intensity=true"]
+            stdout = io.StringIO()
+            reset_counters()
+            sync.reset()
+            fed = native.counts["feeder_scans"]
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                rc = cli.main(argv)
+            wall_s = time.perf_counter() - t1
+            launches = read_counters()
+            est = trajectory.read_kitti(str(out_dir / "trajectory_kitti.txt"))
+            rmse, path = ate_of(est, world)
+            header = (out_dir / "map.ply").read_bytes()[:512].split(b"end_header")[0]
+            m = ply.read_ply(str(out_dir / "map.ply"))
+            runs[name] = dict(
+                rc=rc, frames=len(est), ate_m=rmse, path_m=path, wall_s=wall_s,
+                host_reads_per_frame=sync.counts["host_reads"] / max(len(est), 1),
+                feeder_scans=native.counts["feeder_scans"] - fed,
+                map_points=len(m), map_columns=int(m.shape[1]),
+                ply_has_intensity=b"property float intensity" in header,
+                intensity_min=float(m[:, 3].min()) if m.shape[1] == 4 else None,
+                intensity_max=float(m[:, 3].max()) if m.shape[1] == 4 else None,
+                intensity_finite=bool(np.isfinite(m).all()),
+                summary=json.loads(stdout.getvalue().strip().splitlines()[-1]),
+                launches=launches,
+            )
+    print(f"# intensity and KITTI cli {json.dumps(runs)}")
+    for name, run in runs.items():
+        gate = max(0.10, 0.001 * run["path_m"])
+        require(run["rc"] == 0 and run["frames"] == N_FRAMES,
+                f"cli {name}: rc {run['rc']}, {run['frames']} frames")
+        require(run["ate_m"] < gate, f"cli {name}: ATE {run['ate_m']:.4f} m >= {gate:.4f} m")
+        require(run["map_points"] > 100, f"cli {name}: the map has {run['map_points']} points")
+        for kernel in ("nn1_pruned", "cov_pruned"):
+            require(run["launches"][kernel]["cuda"] > 0, f"cli {name}: {kernel} never launched")
+        for kernel, cnt in run["launches"].items():
+            require(cnt["plain"] == 0, f"cli {name}: {kernel} plain version ran {cnt['plain']} times")
+    xyzi = runs["xyzi"]
+    require(xyzi["ply_has_intensity"] and xyzi["map_columns"] == 4,
+            "cli xyzi: the PLY has no intensity property")
+    require(xyzi["intensity_finite"], "cli xyzi: a map intensity is not finite")
+    require(inten.min() - 1e-6 <= xyzi["intensity_min"] and
+            xyzi["intensity_max"] <= inten.max() + 1e-6,
+            "cli xyzi: a map intensity lies outside the inputs' range")
+    require(xyzi["feeder_scans"] == 0, "cli xyzi: the scans went through the feeder")
+    require(runs["feeder"]["feeder_scans"] == N_FRAMES,
+            f"cli feeder: {runs['feeder']['feeder_scans']} scans through the native ScanFeeder")
+    require(xyzi["host_reads_per_frame"] == runs["feeder"]["host_reads_per_frame"],
+            "cli: the intensity sidecar changed the host reads a frame")
+    return runs
+
+
+def backend_check(backend, world, scans, card, device="cuda"):
+    """Phase 12: the first BACKEND_FRAMES phase-4 frames on a tensor-op
+    backend; no hand kernel and no plain version may launch."""
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    runner = OdometryRunner(slice_config(backend), device=device)
+    reset_counters()
+    sync.reset()
+    torch.cuda.reset_peak_memory_stats()
+    reads = []
+    for t, scan in enumerate(scans[:BACKEND_FRAMES]):
+        before = sync.counts["host_reads"]
+        runner.process_scan(scan, float(world.stamps[t]), sync=True)
+        reads.append(sync.counts["host_reads"] - before)
+    launches = read_counters()
+    est = runner.trajectory()
+    rmse, path = ate_of(est, world)
+    corr = [int(s.result.s2m_num_corr) for s in runner.stats[1:]]
+    timed = slice(1 + WARMUP, None)
+    out = dict(
+        backend=backend, card=card, frames=len(est), ate_m=rmse, path_m=path,
+        keyframes=runner.num_keyframes(),
+        median_ms_per_frame=float(np.median([s.wall_ms for s in runner.stats][timed])),
+        host_reads_per_frame_median=float(np.median(reads[timed])),
+        host_reads_per_frame_mean=float(np.mean(reads[timed])),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        min_s2m_num_corr=min(corr), grid=runner.state.submap_grid is not None,
+        s2m_iterations=[s.result.s2m_iterations for s in runner.stats[1:]],
+        launches=launches,
+    )
+    print(f"# backend {backend} {json.dumps(out)}")
+    gate = max(0.10, 0.001 * path)
+    require(rmse < gate, f"{backend}: ATE {rmse:.4f} m >= {gate:.4f} m")
+    require(min(corr) > 100, f"{backend}: a frame has s2m_num_corr {min(corr)} <= 100")
+    for name, cnt in launches.items():
+        require(cnt["cuda"] == 0 and cnt["plain"] == 0,
+                f"{backend}: {name} launched {cnt['cuda']} times, its plain version {cnt['plain']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1025,6 +1272,12 @@ def main() -> int:
     _, build_s = cuda_build.build()
     cuda_build.library()
     print(f"# kernels built in {build_s:.1f} s from {[p.name for p in cuda_build.sources()]}")
+    from direct_lidar_odometry_tpu_torch.io import native
+
+    # the host library: the wire encoder of every phase, phase 10's host
+    # preprocessing (a failed build raises with g++'s message)
+    _, host_build_s = native.build()
+    print(f"# native host library built in {host_build_s:.2f} s from {native.SOURCE.name}")
 
     cfg = slice_config()
     dev = torch.device("cuda")
@@ -1045,12 +1298,24 @@ def main() -> int:
     k3 = [check_k3(inp.queries, inp.submap, 0.5, "S2M"), check_k3(inp.queries, inp.s2s, 1.0, "S2S")]
     k5, k6 = check_exhaustive(inp, scans, dev)
 
+    phase_s, clock = {}, [t_start]
+
+    def timed_phase(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        print(f"# phase {name} took {phase_s[name]:.1f} s")
+
+    timed_phase("1-3")
     main_path, runner = drive(cfg, world, scans)
-    for backend in BACKENDS:
-        device_ops_per_frame(slice_config(backend), world, scans)
+    profiles = {backend: device_ops_per_frame(slice_config(backend), world, scans)
+                for backend in BACKENDS}
+    timed_phase(4)
     cli_fused = drive_cli("pallas_fused", world)
     cli_mxu = drive_cli("pallas_mxu", world)
+    timed_phase(5)
     oracle = oracle_check(cfg, runner)
+    timed_phase(6)
 
     t0 = time.perf_counter()
     loop_w, loop_scans = loop_world(cfg.shapes.n_raw)
@@ -1058,7 +1323,17 @@ def main() -> int:
     from direct_lidar_odometry_tpu_torch.config import load_config
 
     loop = loop_closure_check(loop_config(load_config(str(CFG_PATH))), loop_w, loop_scans)
+    timed_phase(7)
     imu_chunk_check(cfg, loop_w, loop_scans[:IMU_FRAMES])
+    timed_phase(8)
+    host = host_preprocess_check(world, scans, main_path, runner, profiles["pallas"], host_build_s)
+    timed_phase(10)
+    kitti = intensity_cli_check(world)
+    timed_phase(11)
+    for backend in ("brute", "hashgrid"):
+        backend_check(backend, world, scans, smi)
+    timed_phase(12)
+    print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
     def entry(name, src, replaces, path, launches, cases):
         return dict(name=name, route="cuda", source=f"direct_lidar_odometry_tpu_torch/csrc/{src}",
@@ -1069,13 +1344,18 @@ def main() -> int:
                     bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
                     library_ms=cases[0]["library_ms"])
 
+    def host_paths(name):
+        cli_launches = sum(run["launches"][name]["cuda"] for run in kitti.values())
+        return (f"; host preprocessing ({host['drive']['launches'][name]['cuda']} launches); "
+                f"KITTI cli, xyzi and feeder ({cli_launches} launches)")
+
     kernels = [
         entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192",
               f"runner, pallas; loop closure (forced round: "
-              f"{loop['refine_launches']['nn1_pruned']['cuda']} launches)",
+              f"{loop['refine_launches']['nn1_pruned']['cuda']} launches)" + host_paths("nn1_pruned"),
               main_path["launches"], k2),
-        entry("cov_pruned", "cov_pruned.cu", "pallas_cov.py:117", "runner, pallas",
-              main_path["launches"], k1),
+        entry("cov_pruned", "cov_pruned.cu", "pallas_cov.py:117",
+              "runner, pallas" + host_paths("cov_pruned"), main_path["launches"], k1),
         entry("fused_linearize", "fused_linearize.cu", "pallas_gicp.py:68", "cli, pallas_fused",
               cli_fused["launches"], k3),
         entry("nn1_pruned_mxu", "nn1_pruned.cu", "pallas_nn.py:200", "cli, pallas_mxu",

@@ -6,14 +6,17 @@ against). The subpackage layout mirrors the JAX package's, so every module
 has an obvious counterpart:
 
 - ``core``: SE(3) math and masked fixed-capacity point clouds;
-- ``ops``: preprocessing, Morton sort, voxel filter, 3x3 eigen-analysis and
+- ``ops``: preprocessing, Morton sort, voxel filter, 3x3 eigen-analysis,
   the wrappers of the six CUDA kernels (``ops/cuda_nn.py``: 1-NN K2, K4,
   K5; ``ops/cuda_cov.py``: radius moments K1, K6; ``ops/cuda_gicp.py``:
-  the fused GICP linearization K3; sources in ``csrc/``);
+  the fused GICP linearization K3; sources in ``csrc/``) and the tensor-op
+  searches of the "brute" and "hashgrid" backends;
 - ``registration``: normals and GICP;
 - ``odometry``: state, keyframes, submap, the per-frame step, the runner
   and the keyframe map;
-- ``io``: synthetic worlds, KITTI, trajectory and PLY files, ATE/RPE;
+- ``io``: synthetic worlds, KITTI, trajectory and PLY files, ATE/RPE, host
+  preprocessing (``io/hostprep.py``) and the ctypes binding of the native
+  host library ``cpp/dlo_host.cpp`` (``io/native.py``, built at first use);
 - ``utils``: precision pin, host-read counter, checkpoint, dashboard;
 - ``cli``: the process entry point (``python -m direct_lidar_odometry_tpu_torch``).
 

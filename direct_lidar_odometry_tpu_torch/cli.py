@@ -7,7 +7,11 @@ on ``--device``, print the dashboard, write the trajectory (KITTI and TUM
 formats), export the keyframe map (PLY), checkpoint and resume, and report
 ATE/RPE against ground truth. The flags are the JAX CLI's, plus
 ``--device`` (default ``cuda``; with no CUDA device that raises, there is
-no move to the CPU). KITTI scans are read with the numpy reader.
+no move to the CPU). KITTI scans are read as the JAX CLI reads them: xyzi
+rows with ``map.carry_intensity`` (the map PLY then carries intensity,
+``OdometryRunner.build_map_xyzi``), else through the native background
+prefetcher (``io/native.py`` ``ScanFeeder``, raw reads) when the host
+library builds, else with the numpy reader.
 
     python -m direct_lidar_odometry_tpu_torch --synthetic 30 --config cfg/tpu_dlo.yaml \\
         --set nn_backend=pallas_fused --eval --map-ply map.ply
@@ -15,9 +19,9 @@ no move to the CPU). KITTI scans are read with the numpy reader.
         --config cfg/tpu_dlo.yaml --eval
 
 With ``posegraph.use`` (on in ``cfg/tpu_dlo.yaml``) the summary counts the
-loop-closure rounds and the loop edges accepted. Host preprocessing and the
-intensity sidecar are not ported yet: a config that enables them raises
-(``odometry/runner.py``).
+loop-closure rounds and the loop edges accepted. Every single-sequence
+option of the config runs, ``host_preprocess`` and every ``nn_backend``
+included.
 """
 
 from __future__ import annotations
@@ -79,12 +83,20 @@ def _parse_override(kv: str):
 
 def _frames(args, cfg):
     """(iterator of (scan, stamp), ground-truth poses or None)."""
-    from direct_lidar_odometry_tpu_torch.io import kitti, synthetic
+    from direct_lidar_odometry_tpu_torch.io import kitti, native, synthetic
 
     if args.kitti:
         seq = kitti.load_sequence(args.kitti, args.sequence)
         n_frames = min(len(seq), args.frames or len(seq))
-        return ((seq.scan(i), float(seq.stamps[i])) for i in range(n_frames)), seq.poses
+        if cfg.map.carry_intensity:
+            # xyzi rows for the runner's intensity sidecar (the odometry
+            # itself never reads the intensity)
+            frames = ((seq.scan_xyzi(i), float(seq.stamps[i])) for i in range(n_frames))
+        elif native.available():
+            frames = _fed_frames(seq, n_frames, cfg)
+        else:
+            frames = ((seq.scan(i), float(seq.stamps[i])) for i in range(n_frames))
+        return frames, seq.poses
     rng = np.random.default_rng(0)
     n_frames = args.frames or args.synthetic
     # ray-cast urban world with an OS1-64 beam model (the JAX CLI's demo
@@ -105,6 +117,20 @@ def _frames(args, cfg):
         for i in range(n_frames)
     )
     return frames, world.poses
+
+
+def _fed_frames(seq, n_frames, cfg):
+    """The native background prefetcher with raw reads only (``res=0`` and
+    no crop: preprocessing stays with the runner)."""
+    from direct_lidar_odometry_tpu_torch.io import native
+
+    feeder = native.ScanFeeder(seq.files[:n_frames], cap=cfg.shapes.n_raw, crop_size=0.0,
+                               res=0.0)
+    try:
+        for i, scan in feeder:
+            yield scan, float(seq.stamps[i])
+    finally:
+        feeder.close()
 
 
 def main(argv=None) -> int:
@@ -191,7 +217,10 @@ def main(argv=None) -> int:
     trajectory.write_kitti(os.path.join(args.out_dir, args.traj_kitti), est)
     trajectory.write_tum(os.path.join(args.out_dir, args.traj_tum), np.asarray(runner.stamps), est)
     if args.map_ply and runner.state is not None:
-        m = runner.build_map()
+        if cfg.map.carry_intensity and runner.has_intensity_map():
+            m = runner.build_map_xyzi()  # [P, 4] xyzi
+        else:
+            m = runner.build_map()
         ply.write_ply(os.path.join(args.out_dir, args.map_ply), m)
         print(f"map: {len(m)} points -> {args.map_ply}", file=sys.stderr)
     if args.checkpoint and runner.state is not None:

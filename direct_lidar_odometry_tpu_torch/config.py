@@ -264,10 +264,10 @@ class DloConfig:
     """Root configuration, mirroring reference ``cfg/dlo.yaml`` + ``cfg/params.yaml``."""
 
     version: str = "0.1.0"
-    # Neighbor-search backend. The port runs the AABB-pruned kernel paths
-    # "pallas" (alias "pallas_unfused"; "auto" means it), "pallas_mxu" and
-    # "pallas_fused" (see resolve_backend); "hashgrid" and "brute" raise
-    # NotImplementedError here.
+    # Neighbor-search backend (see resolve_backend): the AABB-pruned kernel
+    # paths "pallas" (alias "pallas_unfused"; "auto" means it), "pallas_mxu"
+    # and "pallas_fused", or the tensor-op searches "brute" (exhaustive) and
+    # "hashgrid" (sorted cell-hash index).
     nn_backend: str = "auto"
     # S2S initial guess: "imu" = the reference behavior (IMU rotational
     # prior when enabled, identity otherwise; odom.cc:801-806);
@@ -280,11 +280,12 @@ class DloConfig:
     # 2.2x less PCIe/ICI traffic). Framework addition — the reference is
     # single-process and never serializes the raw scan.
     quantize_transfer: bool = True
-    # Run NaN/crop/voxel/Morton preprocessing on the HOST (C++/numpy, in
-    # the prep worker thread that overlaps device compute) instead of on
-    # the device: the device step then starts from <= n_scan Z-ordered
-    # voxel centroids — no 131k-point device sort, less wire traffic.
-    # Framework addition; semantics match the device path (io/hostprep.py).
+    # Run NaN/crop/voxel/Morton preprocessing on the HOST (C++ or numpy,
+    # io/hostprep.py; in the runner's scan encode, which prepare_chunk can
+    # run in a caller's thread) instead of on the device: the device step
+    # then starts from <= n_scan Z-ordered voxel centroids — no 131k-point
+    # device sort, less wire traffic. Framework addition; semantics match
+    # the device path. Off when preprocessing.voxel_scan is off.
     host_preprocess: bool = False
     adaptive: AdaptiveConfig = field(default_factory=AdaptiveConfig)
     gravity_align: bool = False  # cfg/dlo.yaml:17 (needs IMU)
@@ -302,23 +303,22 @@ class DloConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Backends the port runs: the AABB-pruned kernel paths. On a CUDA tensor
-# they launch the CUDA kernels, on a CPU tensor the kernels' plain PyTorch
-# versions run.
-PORTED_BACKENDS = ("auto", "pallas", "pallas_unfused", "pallas_mxu", "pallas_fused")
+# Every backend of the JAX package. The AABB-pruned kernel paths ("pallas"
+# and its variants) launch the CUDA kernels on a CUDA tensor and run the
+# kernels' plain PyTorch versions on a CPU tensor; "brute" and "hashgrid"
+# are tensor ops (the JAX package's are XLA-lowered jnp code) and run on
+# the device of their inputs.
+PORTED_BACKENDS = ("auto", "pallas", "pallas_unfused", "pallas_mxu", "pallas_fused",
+                   "brute", "hashgrid")
 
 
 def resolve_backend(cfg: "DloConfig") -> str:
     """The backend name itself, as in the JAX package, with "auto" ->
-    "pallas" (the port's production path on every device).
-
-    "hashgrid" and "brute" have no port yet and raise rather than run a
-    silent substitute.
-    """
+    "pallas", the port's production path on every device (the JAX package
+    resolves "auto" to "hashgrid" off the TPU). An unknown name raises."""
     if cfg.nn_backend not in PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"nn_backend={cfg.nn_backend!r} is not yet ported "
-            f"(ported: {', '.join(PORTED_BACKENDS)})"
+        raise ValueError(
+            f"unknown nn_backend={cfg.nn_backend!r} (one of: {', '.join(PORTED_BACKENDS)})"
         )
     return "pallas" if cfg.nn_backend == "auto" else cfg.nn_backend
 

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from direct_lidar_odometry_tpu_torch.io import native
+
 
 class PointCloud(NamedTuple):
     """points: f32[N, 3]; mask: bool[N]. Invalid slots hold PAD_VALUE."""
@@ -53,8 +55,13 @@ class QuantizedScan(NamedTuple):
 
 
 def quantize_for_transfer(points: np.ndarray, capacity: int) -> QuantizedScan:
-    """Host side: encode an [M, 3] scan into the uint16 wire format (numpy)."""
+    """Host side: encode an [M, 3] scan into the uint16 wire format, with
+    the threaded C++ encoder when the native host library is available
+    (``io/native.py``), as in the JAX package, and numpy otherwise."""
     points = np.asarray(points, dtype=np.float32)
+    if native.available():
+        q, lo, scale, m = native.quantize(points, capacity)
+        return QuantizedScan(q=q, lo=lo, scale=scale, count=m)
     m = min(points.shape[0], capacity)
     pts = points[:m]
     if m > 0:

@@ -191,6 +191,7 @@ def dump_kitti(
     rng: np.random.Generator | None = None,
     max_range: float = 13.0,
     max_points: int = 8192,
+    beams: BeamModel | None = None,
 ) -> str:
     """Write a synthetic world as a KITTI odometry sequence directory.
 
@@ -198,7 +199,9 @@ def dump_kitti(
     rows — intensity synthesized as 1/range, a crude lambertian),
     ``times.txt``, and ``root/poses/<seq>.txt``, the exact layout
     :func:`io.kitti.load_sequence` reads — so the full CLI ``--kitti``
-    path is testable without the real dataset. Returns ``root``.
+    path is testable without the real dataset. ``beams``: render through
+    that beam model (:func:`render_scan`); None keeps the point-soup
+    renderer. Returns ``root``.
     """
     import os
 
@@ -209,7 +212,7 @@ def dump_kitti(
     n = len(world.poses)
     for t in range(n):
         xyz = render_scan(world, t, rng, max_range=max_range,
-                          max_points=max_points)
+                          max_points=max_points, beams=beams)
         r = np.maximum(np.linalg.norm(xyz, axis=1), 1.0)
         xyzi = np.concatenate([xyz, (1.0 / r)[:, None]], axis=1)
         xyzi.astype(np.float32).tofile(

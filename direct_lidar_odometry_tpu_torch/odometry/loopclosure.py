@@ -8,7 +8,8 @@ the reference never revisits its keyframes, so drift grows unbounded):
    the [K, K] distance matrix;
 2. :func:`register_loop_edges`: GICP between the stored world-frame
    keyframe clouds (normals are cached in the ring) from an identity guess,
-   through the backend's search kernel (K2, K3 or K4). The measured
+   through the backend's search (kernel K2, K3 or K4, or the exhaustive or
+   hash-grid tensor op on "brute" / "hashgrid"). The measured
    relative pose is ``Z_ij = X_i^-1 dT X_j`` where ``dT`` aligns cloud j
    onto cloud i. Edges that fail to converge or match too few points get
    weight 0 (shapes stay static);
@@ -128,10 +129,12 @@ def register_loop_edges(
             num_corr.append(zero_nc)
             continue
         target = gicp.make_target(store.points[i], store.masks[i],
-                                  store.normals[i], store.normals_valid[i])
+                                  store.normals[i], store.normals_valid[i],
+                                  stage.max_correspondence_distance,
+                                  cfg.shapes.submap_table_size, backend)
         src = gicp.GicpSource(points=store.points[j], mask=store.masks[j],
                               normals=store.normals[j], normals_valid=store.normals_valid[j])
-        res = gicp.align(src, target, eye, stage, backend)
+        res = gicp.align(src, target, eye, stage, backend, cfg.shapes.cell_cap_1nn)
         z = se3.se3_inverse(x[i]) @ (res.transform @ x[j])
         good = (res.num_correspondences >= cfg.posegraph.min_loop_corr) & (
             res.converged and not res.lm_failed)

@@ -12,12 +12,18 @@ non-blocking copy of the keyframe positions whose readiness is checked
 with a CUDA event. A resumed run sets ``state`` (``utils/checkpoint.py``)
 and ``prev_stamp`` before its first frame.
 
+With ``host_preprocess`` each scan is voxelized and Z-ordered on the host
+(``io/hostprep.py``; ``host_prep_impl`` says whether the C++ or the numpy
+version ran) and only the n_scan centroids travel. With
+``map.carry_intensity`` and [N, 4] xyzi scans, a host sidecar mirrors the
+keyframe ring as reduced sensor-frame xyzi scans for
+:meth:`OdometryRunner.build_map_xyzi`; which ring slot a frame's keyframe
+took is read from a pinned copy once its CUDA event has completed, so the
+sidecar adds no host read to a frame.
+
 :meth:`OdometryRunner.process_chunk` is a host loop over the per-frame
 step (the JAX package's ``lax.scan`` chunk program is not ported): it gives
 the same poses as :meth:`OdometryRunner.process_scan` frame for frame.
-
-Not ported yet (the constructor raises ``NotImplementedError`` for the
-options that need them): host preprocessing and the intensity sidecar.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend
 from direct_lidar_odometry_tpu_torch.core import cloud as cl, se3
+from direct_lidar_odometry_tpu_torch.io import hostprep
 from direct_lidar_odometry_tpu_torch.odometry import (
     hosthull, hulls, imu as imu_mod, loopclosure, mapper, pipeline,
 )
@@ -43,14 +50,6 @@ class FrameStats:
     stamp: float
     wall_ms: float
     result: FrameResult | None
-
-
-def _unported(cfg: DloConfig) -> list[str]:
-    checks = {
-        "host_preprocess": cfg.host_preprocess and cfg.preprocessing.voxel_scan.use,
-        "map.carry_intensity": cfg.map.carry_intensity,
-    }
-    return [name for name, on in checks.items() if on]
 
 
 def stack_results(results: list[FrameResult]) -> FrameResult:
@@ -74,13 +73,16 @@ class OdometryRunner:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("OdometryRunner(device='cuda'): CUDA is not available")
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(f"not yet ported: {', '.join(missing)}")
+        if cfg.host_preprocess and not cfg.preprocessing.voxel_scan.use:
+            # host preprocessing moves the voxel + Morton sort off the
+            # device; without the voxel filter there is nothing to move
+            cfg = cfg.replace(host_preprocess=False)
         resolve_backend(cfg)
         pin_float32()
         self.cfg = cfg
         self.device = device
+        # "native" or "numpy" once a scan was preprocessed on the host
+        self.host_prep_impl: str | None = None
         self.directions = torch.from_numpy(
             hulls.fibonacci_directions(cfg.shapes.hull_directions)
         ).to(device)
@@ -104,6 +106,13 @@ class OdometryRunner:
             torch.empty((), dtype=torch.int32, pin_memory=pin),
             torch.empty((), dtype=torch.float32, pin_memory=pin),
         )
+        # intensity sidecar (map.carry_intensity): ring slot -> reduced
+        # sensor-frame xyzi scan, in step with the device ring through
+        # FrameResult.kf_slot; spawns whose slot is not on the host yet
+        # wait in _ipending as (pinned slot copy, CUDA event or None, scan)
+        self._ikf: dict[int, np.ndarray] = {}
+        self._ipending: list[tuple] = []
+        self._ipending_max = 32
         self.state: OdomState | None = None
         self.prev_stamp: float | None = None
         self.poses: list[torch.Tensor] = []
@@ -162,6 +171,9 @@ class OdometryRunner:
         if self.state is None:
             state = pipeline.fresh_state(cfg, self._initial_pose(), self.device)
             self.state = pipeline.init_frame(cfg, state, raw.points, raw.mask)
+            if self._carry_intensity(points):
+                # the init frame always writes ring slot 0 (odom.cc:483-505)
+                self._ikf[0] = self._reduce_xyzi(points)
             self._enqueue_hull_fetch(
                 torch.tensor(cfg.keyframe.thresh_dist, dtype=torch.float32, device=self.device)
             )
@@ -172,7 +184,7 @@ class OdometryRunner:
             self.stats.append(FrameStats(stamp, (time.perf_counter() - t0) * 1e3, None))
             return None
 
-        result = self._step(raw, self._imu_prior(self.prev_stamp, stamp))
+        result = self._step(raw, self._imu_prior(self.prev_stamp, stamp), points)
         self.prev_stamp = stamp
         self.poses.append(result.pose)
         self.stamps.append(stamp)
@@ -187,13 +199,16 @@ class OdometryRunner:
                 self.maybe_refine()
         return result
 
-    def _step(self, raw: cl.PointCloud, prior: torch.Tensor, wait_hulls: bool = False) -> FrameResult:
+    def _step(self, raw: cl.PointCloud, prior: torch.Tensor, points: np.ndarray,
+              wait_hulls: bool = False) -> FrameResult:
         self._refresh_hull_masks(wait=wait_hulls)
         self.state, result = pipeline.odom_frame(
             self.cfg, self.directions, self.state, raw.points, raw.mask, prior,
             self._hull_args(),
         )
         self._enqueue_hull_fetch(result.keyframe_thresh_dist)
+        if result.new_keyframe and self._carry_intensity(points):
+            self._enqueue_intensity(result.kf_slot, points)
         return result
 
     def _finish(self, sync: bool) -> None:
@@ -227,7 +242,8 @@ class OdometryRunner:
         prev = [self.prev_stamp, *stamps[:-1]]
         priors = [self._imu_prior(a, b) for a, b in zip(prev, stamps)]
         raws = prepared if prepared is not None else self.prepare_chunk(scans)
-        results = [self._step(raw, prior, wait_hulls=True) for raw, prior in zip(raws, priors)]
+        results = [self._step(raw, prior, scan, wait_hulls=True)
+                   for raw, prior, scan in zip(raws, priors, scans)]
         self.prev_stamp = stamps[-1]
         wall = (time.perf_counter() - t0) * 1e3 / k
         for stamp, res in zip(stamps, results):
@@ -236,13 +252,31 @@ class OdometryRunner:
             self.stats.append(FrameStats(stamp, wall, res))
         return stack_results(results)
 
+    def _wire_capacity(self) -> int:
+        """Points a scan carries on the wire: the voxel capacity when the
+        host preprocesses (~4x fewer), the raw capacity otherwise."""
+        cfg = self.cfg
+        return cfg.shapes.n_scan if cfg.host_preprocess else cfg.shapes.n_raw
+
+    def _prep_points(self, points: np.ndarray) -> np.ndarray:
+        """With ``host_preprocess``, NaN/crop/voxel/Morton on the host
+        (``io/hostprep.py``), so the device step skips them."""
+        cfg = self.cfg
+        if not cfg.host_preprocess:
+            return points
+        crop = cfg.preprocessing.crop.size if cfg.preprocessing.crop.use else None
+        self.host_prep_impl = hostprep.implementation()
+        return hostprep.preprocess_morton(points, crop, cfg.preprocessing.voxel_scan.res,
+                                          cfg.shapes.n_scan)
+
     def _encode_scan(self, points: np.ndarray) -> cl.PointCloud:
-        """Encode on the host, copy to the device, decode there (the raw
-        capacity travels: preprocessing runs on the device)."""
-        cap = self.cfg.shapes.n_raw
+        """Preprocess on the host if configured, encode, copy to the device,
+        decode there."""
+        pts = self._prep_points(points)[:, :3]
+        cap = self._wire_capacity()
         if not self.cfg.quantize_transfer:
-            return cl.from_numpy(points[:, :3], cap, self.device)
-        qs = cl.quantize_for_transfer(points[:, :3], cap)
+            return cl.from_numpy(pts, cap, self.device)
+        qs = cl.quantize_for_transfer(pts, cap)
         # uint16 words travel as int16 bits (dequantize widens them back)
         q = torch.from_numpy(qs.q.view(np.int16)).to(self.device)
         lo = torch.from_numpy(qs.lo).to(self.device)
@@ -301,6 +335,63 @@ class OdometryRunner:
                 self._hull_fresh,
             )
         return self._hull_dev
+
+    # -- intensity sidecar (map.carry_intensity) ----------------------------
+    def _carry_intensity(self, points: np.ndarray) -> bool:
+        return bool(self.cfg.map.carry_intensity) and points.shape[1] >= 4
+
+    def _reduce_xyzi(self, points: np.ndarray) -> np.ndarray:
+        p = self.cfg.preprocessing
+        return hostprep.reduce_keyframe_scan_xyzi(
+            points,
+            p.crop.size if p.crop.use else None,
+            p.voxel_scan.res if p.voxel_scan.use else None,
+            p.voxel_submap.res if p.voxel_submap.use else None,
+            self.cfg.shapes.n_keyframe,
+        )
+
+    def _enqueue_intensity(self, kf_slot: torch.Tensor, points: np.ndarray) -> None:
+        """Queue a spawning frame's scan behind a copy of its ring slot that
+        lands in pinned memory, with a CUDA event after it."""
+        pin = self.device.type == "cuda"
+        slot = torch.empty((), dtype=torch.int32, pin_memory=pin)
+        slot.copy_(kf_slot, non_blocking=True)
+        event = None
+        if pin:
+            event = torch.cuda.Event()
+            event.record()
+        self._ipending.append((slot, event, points))
+        self._resolve_intensity()
+
+    def _resolve_intensity(self, force: bool = False) -> None:
+        """File the pending scans whose slot copy has landed, oldest first.
+        Waits only when ``force`` or for the entries beyond the queue's
+        bound, the oldest, whose frames are long done."""
+        overflow = len(self._ipending) - self._ipending_max
+        done = 0
+        for n, (slot, event, scan) in enumerate(self._ipending):
+            if event is not None:
+                if force or n < overflow:
+                    event.synchronize()
+                elif not event.query():
+                    break
+            self._ikf[int(slot)] = self._reduce_xyzi(scan)
+            done = n + 1
+        del self._ipending[:done]
+
+    def build_map_xyzi(self) -> np.ndarray:
+        """The intensity-carrying map, [P, 4] xyzi: the sidecar's scans at
+        the CURRENT keyframe poses (a loop-closure re-anchoring shows).
+        Needs ``map.carry_intensity`` and [N, 4] scans."""
+        assert self.state is not None
+        self._resolve_intensity(force=True)
+        kf = self.state.keyframes
+        return mapper.build_map_xyzi(self._ikf, kf.positions.cpu().numpy(),
+                                     kf.quats.cpu().numpy(), self.cfg.map.leaf_size)
+
+    def has_intensity_map(self) -> bool:
+        """True when the sidecar holds any keyframe scan."""
+        return bool(self._ikf or self._ipending)
 
     # -- loop closure / map refinement -------------------------------------
     def maybe_refine(self, force: bool = False) -> dict | None:

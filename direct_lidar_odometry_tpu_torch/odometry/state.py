@@ -11,8 +11,10 @@ small fields are replaced with ``NamedTuple._replace``.
 
 :func:`state_from_numpy` / :func:`state_to_numpy` convert to and from the
 JAX package's ``OdomState`` as numpy arrays keyed by field path
-(``"pose"``, ``"keyframes.points"``, ...), so a test can carry the
-reference's state across and step both packages from it.
+(``"pose"``, ``"keyframes.points"``, ``"submap_grid.start"``, ...), so a
+test can carry the reference's state across and step both packages from
+it. ``submap_grid`` is the S2M hash index of the ``"hashgrid"`` backend
+(``None`` on the others), rebuilt with the submap.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from direct_lidar_odometry_tpu_torch.config import DloConfig, submap_flat_size
+from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend, submap_flat_size
 from direct_lidar_odometry_tpu_torch.core.cloud import PAD_VALUE
+from direct_lidar_odometry_tpu_torch.ops import hashgrid
 
 
 class KeyframeStore(NamedTuple):
@@ -62,6 +65,7 @@ class OdomState(NamedTuple):
     submap_mask: torch.Tensor     # [S_flat]
     submap_normals: torch.Tensor  # [S_flat, 3]
     submap_normals_valid: torch.Tensor  # [S_flat]
+    submap_grid: hashgrid.HashGrid | None  # S2M hash index ("hashgrid" backend only)
     spaciousness: torch.Tensor    # f32 low-pass median range (<0 = unseeded)
     frame_idx: torch.Tensor       # int32
 
@@ -107,6 +111,15 @@ def empty_keyframes(cfg: DloConfig, device) -> KeyframeStore:
     )
 
 
+def build_submap_grid(cfg: DloConfig, points: torch.Tensor, mask: torch.Tensor) -> hashgrid.HashGrid | None:
+    """The S2M hash index over a submap on the "hashgrid" backend (cell =
+    the S2M gate), None on the others."""
+    if resolve_backend(cfg) != "hashgrid":
+        return None
+    return hashgrid.build(points, mask, cfg.gicp.s2m.max_correspondence_distance,
+                          cfg.shapes.submap_table_size)
+
+
 def empty_state(
     cfg: DloConfig, initial_pose: torch.Tensor | None = None, device="cpu"
 ) -> OdomState:
@@ -116,6 +129,8 @@ def empty_state(
     f32 = dict(dtype=torch.float32, device=device)
     eye = torch.eye(4, **f32)
     pose = eye.clone() if initial_pose is None else initial_pose.to(**f32).clone()
+    flat_pts = torch.full((s_flat, 3), PAD_VALUE, **f32)
+    flat_mask = torch.zeros((s_flat,), dtype=torch.bool, device=device)
     return OdomState(
         pose=pose,
         t_s2s=pose.clone(),
@@ -126,10 +141,11 @@ def empty_state(
         prev_normals_valid=torch.zeros((n,), dtype=torch.bool, device=device),
         keyframes=empty_keyframes(cfg, device),
         submap_members=torch.zeros((k,), dtype=torch.bool, device=device),
-        submap_points=torch.full((s_flat, 3), PAD_VALUE, **f32),
-        submap_mask=torch.zeros((s_flat,), dtype=torch.bool, device=device),
+        submap_points=flat_pts,
+        submap_mask=flat_mask,
         submap_normals=torch.zeros((s_flat, 3), **f32),
         submap_normals_valid=torch.zeros((s_flat,), dtype=torch.bool, device=device),
+        submap_grid=build_submap_grid(cfg, flat_pts, flat_mask),
         spaciousness=torch.tensor(-1.0, **f32),
         frame_idx=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -143,23 +159,32 @@ _DTYPES = {
 
 
 def state_to_numpy(state: OdomState) -> dict[str, np.ndarray]:
-    """Flatten a state into numpy arrays keyed by field path. The arrays are
-    copies, also on the CPU: later steps write the ring in place."""
+    """Flatten a state into numpy arrays keyed by field path (a nested
+    tuple's fields as ``"keyframes.<field>"``, ``"submap_grid.<field>"``;
+    an absent grid has no keys). The arrays are copies, also on the CPU:
+    later steps write the ring in place."""
     out = {}
     for name, value in state._asdict().items():
-        if name == "keyframes":
+        if value is None:
+            continue
+        if isinstance(value, tuple):
             for kname, kvalue in value._asdict().items():
-                out[f"keyframes.{kname}"] = kvalue.detach().to("cpu", copy=True).numpy()
+                out[f"{name}.{kname}"] = kvalue.detach().to("cpu", copy=True).numpy()
         else:
             out[name] = value.detach().to("cpu", copy=True).numpy()
     return out
 
 
-def state_from_numpy(leaves: dict[str, np.ndarray], device) -> OdomState:
+def state_from_numpy(
+    leaves: dict[str, np.ndarray], device, cfg: DloConfig | None = None
+) -> OdomState:
     """Build a state from numpy arrays keyed by field path — e.g. the JAX
-    package's ``OdomState`` after N frames. Keys the port does not carry
-    (the JAX hash-grid index ``submap_grid*``) are ignored; a missing field
-    raises ``KeyError``."""
+    package's ``OdomState`` after N frames; a missing field raises
+    ``KeyError``. The ``submap_grid.*`` leaves (the JAX package's S2M hash
+    index) are loaded when present; with ``cfg`` they are kept only on the
+    "hashgrid" backend, and a "hashgrid" state without them gets its grid
+    rebuilt from the loaded submap, so a resumed run searches the submap
+    it carries."""
 
     def tensor(key):
         arr = np.asarray(leaves[key])
@@ -169,5 +194,12 @@ def state_from_numpy(leaves: dict[str, np.ndarray], device) -> OdomState:
         return torch.from_numpy(np.array(arr, copy=True)).to(device=device, dtype=dtype)
 
     kf = KeyframeStore(**{f: tensor(f"keyframes.{f}") for f in KeyframeStore._fields})
-    fields = {f: tensor(f) for f in OdomState._fields if f != "keyframes"}
-    return OdomState(keyframes=kf, **fields)
+    fields = {f: tensor(f) for f in OdomState._fields if f not in ("keyframes", "submap_grid")}
+    grid = None
+    if f"submap_grid.{hashgrid.HashGrid._fields[0]}" in leaves:
+        grid = hashgrid.HashGrid(**{f: tensor(f"submap_grid.{f}") for f in hashgrid.HashGrid._fields})
+    if cfg is not None and resolve_backend(cfg) != "hashgrid":
+        grid = None
+    elif cfg is not None and grid is None:
+        grid = build_submap_grid(cfg, fields["submap_points"], fields["submap_mask"])
+    return OdomState(keyframes=kf, submap_grid=grid, **fields)

@@ -15,10 +15,11 @@ from typing import NamedTuple
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.config import DloConfig, submap_flat_size
+from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend, submap_flat_size
 from direct_lidar_odometry_tpu_torch.ops import morton
 from direct_lidar_odometry_tpu_torch.odometry import hulls
-from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore, OdomState
+from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore, OdomState, build_submap_grid
+from direct_lidar_odometry_tpu_torch.registration import gicp
 from direct_lidar_odometry_tpu_torch.utils import sync
 
 
@@ -83,15 +84,19 @@ def assemble_submap(
     sel: SubmapSelection,
     query_pos: torch.Tensor,
     cfg: DloConfig,
+    backend: str | None = None,
 ) -> tuple[OdomState, bool]:
     """Rebuild the submap cache IN PLACE iff the member set changed.
 
     Reference ``odom.cc:1309-1329``: concatenate the member keyframe clouds
     and cached normals; beyond ``shapes.n_submap_flat`` points keep those
-    nearest ``query_pos``; Z-order the result for the pruned S2M search.
-    One host read (``changed``) replaces the JAX package's ``lax.cond``.
-    Returns (state, changed).
+    nearest ``query_pos``; on the pruned-kernel backends Z-order the result
+    for the pruned S2M search; on "hashgrid" rebuild the S2M hash index
+    (the index build the reference hides in ``gicp.setInputTarget``,
+    ``odom.cc:828``). One host read (``changed``) replaces the JAX
+    package's ``lax.cond``. Returns (state, changed).
     """
+    backend = backend or resolve_backend(cfg)
     changed = bool(sync.read(sel.changed))
     if changed:
         s_max = cfg.shapes.max_submap_kf
@@ -112,9 +117,14 @@ def assemble_submap(
             d2 = torch.where(msk, d2, torch.inf)
             keep = torch.sort(d2, stable=True).indices[:flat_out]
             pts, msk, nrm, nvl = pts[keep], msk[keep], nrm[keep], nvl[keep]
-        z = morton.sort_order(pts, msk)
-        state.submap_points.copy_(pts[z])
-        state.submap_mask.copy_(msk[z])
-        state.submap_normals.copy_(nrm[z])
-        state.submap_normals_valid.copy_(nvl[z])
+        if gicp.is_pallas(backend):
+            z = morton.sort_order(pts, msk)
+            pts, msk, nrm, nvl = pts[z], msk[z], nrm[z], nvl[z]
+        state.submap_points.copy_(pts)
+        state.submap_mask.copy_(msk)
+        state.submap_normals.copy_(nrm)
+        state.submap_normals_valid.copy_(nvl)
+        if backend == "hashgrid":
+            state = state._replace(
+                submap_grid=build_submap_grid(cfg, state.submap_points, state.submap_mask))
     return state._replace(submap_members=sel.members), changed

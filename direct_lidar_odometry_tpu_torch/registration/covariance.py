@@ -7,9 +7,16 @@ depends only on the neighbourhood's smallest eigenvector n:
     C_reg = R diag(1, 1, eps) R^T = I - (1 - eps) n n^T
 
 so only normals are stored; covariances are rebuilt where the Mahalanobis
-weights need them. Neighbourhoods are all points within a fixed radius
-(``ops/cuda_cov.py``: kernel K1 over a Morton-sorted cloud, the exhaustive
-kernel K6 over any cloud).
+weights need them. On the pruned-kernel backends a neighbourhood is every
+point within a fixed radius (``ops/cuda_cov.py``: kernel K1 over a
+Morton-sorted cloud, the exhaustive kernel K6 over any cloud); the
+``"brute"`` backend takes the exact k nearest (``ops/bruteforce.py``) and
+``"hashgrid"`` the k nearest within a fine and a coarse hash grid
+(``ops/hashgrid.py``).
+
+The reference divides by k even when fewer neighbours are returned
+(``nano_gicp_impl.hpp:319``); normals are scale-invariant, so the masked
+k-NN statistics here divide by the true count, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.ops import cuda_cov, eigh3
+from direct_lidar_odometry_tpu_torch.ops import bruteforce, cuda_cov, eigh3, hashgrid
 
 PLANE_EPS = 1e-3  # reference nano_gicp_impl.hpp:339: values = (1, 1, 1e-3)
 
@@ -28,13 +35,94 @@ class Normals(NamedTuple):
     valid: torch.Tensor    # [N] bool — enough neighbors to estimate
 
 
+def _masked_normals(normal: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal.dtype, device=normal.device)
+    return torch.where(valid[..., None], normal, z)
+
+
+def _normals_from_knn(points, kidx, kvalid, mask, min_neighbors):
+    """Normal per point from its k-NN rows (indices into ``points``):
+    (normals, valid, neighbours found)."""
+    neigh = points[torch.clamp(kidx, min=0)]           # [N, k, 3]
+    w = kvalid.to(torch.float32)[..., None]             # [N, k, 1]
+    cnt = torch.clamp(torch.sum(w, dim=-2), min=1.0)    # [N, 1]
+    mean = torch.sum(neigh * w, dim=-2) / cnt
+    centered = (neigh - mean[..., None, :]) * w
+    cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
+    normal, _ = eigh3.smallest_eigvec3(cov)
+    found = torch.sum(kvalid, dim=-1)
+    valid = mask & (found >= min_neighbors)
+    return _masked_normals(normal, valid), valid, found
+
+
+def estimate_normals(
+    grid: hashgrid.HashGrid,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    cap: int,
+    chunk: int = 4096,
+    min_neighbors: int = 3,
+    far_grid: hashgrid.HashGrid | None = None,
+    far_cap: int = 32,
+) -> Normals:
+    """Surface normal per point from its k-NN within the hash grid's cells.
+
+    The reference's kd-tree kNN is unbounded (``nano_gicp_impl.hpp:313``);
+    a hash-grid window is not, so with ``far_grid`` (cells several times
+    larger) points whose fine window holds fewer than k neighbours take the
+    coarse result instead (the two-scale search of the JAX package).
+    """
+    kidx, _, kvalid = hashgrid.query_knn(grid, points, mask, k=k, cap=cap, chunk=chunk)
+    normal, valid, found = _normals_from_knn(points, kidx, kvalid, mask, min_neighbors)
+    if far_grid is not None:
+        kidx2, _, kvalid2 = hashgrid.query_knn(far_grid, points, mask, k=k, cap=far_cap,
+                                               chunk=chunk)
+        normal2, valid2, _ = _normals_from_knn(points, kidx2, kvalid2, mask, min_neighbors)
+        use_far = found < k
+        normal = torch.where(use_far[..., None], normal2, normal)
+        valid = torch.where(use_far, valid2, valid)
+    return Normals(normals=normal, valid=valid)
+
+
+def estimate_normals_brute(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    chunk: int = 2048,
+    min_neighbors: int = 3,
+) -> Normals:
+    """Normals from the exact unbounded k-NN (the reference's kd-tree
+    semantics, ``nano_gicp_impl.hpp:313``) by exhaustive search."""
+    kidx, _, kvalid = bruteforce.query_knn(points, mask, points, mask, k=k, chunk=chunk)
+    normal, valid, _ = _normals_from_knn(points, kidx, kvalid, mask, min_neighbors)
+    return Normals(normals=normal, valid=valid)
+
+
+def estimate_normals_twoscale(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    cell: float = 1.0,
+    far_cell: float = 3.0,
+    table_size: int = 2 ** 14,
+    cap: int = 64,
+    far_cap: int = 32,
+    chunk: int = 4096,
+) -> Normals:
+    """Build a fine and a coarse grid over the cloud and estimate (see
+    :func:`estimate_normals`)."""
+    grid = hashgrid.build(points, mask, cell, table_size)
+    far_grid = hashgrid.build(points, mask, far_cell, table_size)
+    return estimate_normals(grid, points, mask, k=k, cap=cap, chunk=chunk,
+                            far_grid=far_grid, far_cap=far_cap)
+
+
 def _normals_from_moments(m: torch.Tensor, mask: torch.Tensor, min_neighbors: int) -> Normals:
     cov, count = cuda_cov.moments_to_cov(m)
     normal, _ = eigh3.smallest_eigvec3(cov)
     valid = mask & (count >= min_neighbors)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal.dtype, device=normal.device)
-    normal = torch.where(valid[..., None], normal, z)
-    return Normals(normals=normal, valid=valid)
+    return Normals(normals=_masked_normals(normal, valid), valid=valid)
 
 
 def estimate_normals_radius(

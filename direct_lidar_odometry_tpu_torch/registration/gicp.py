@@ -1,14 +1,18 @@
 """GICP registration: 1-NN correspondences + Mahalanobis + Gauss-Newton /
 Levenberg-Marquardt on SE(3).
 
-Counterpart of the JAX package's ``registration/gicp.py``, pruned-kernel
-backends only (the reference's ``NanoGICP`` + ``LsqRegistration``):
+Counterpart of the JAX package's ``registration/gicp.py`` (the reference's
+``NanoGICP`` + ``LsqRegistration``), on every backend of
+``config.resolve_backend``:
 
 - ``_update_correspondences`` (``nano_gicp_impl.hpp:173-211``): 1-NN of
-  the transformed source in the target through kernel K2, or K4 on the
-  ``"pallas_mxu"`` backend (``ops/cuda_nn.py``), gated by
+  the transformed source in the target, gated by
   ``max_correspondence_distance``, plus PLANE Mahalanobis weights rebuilt
-  from stored normals;
+  from stored normals. The search is kernel K2 on ``"pallas"`` (alias
+  ``"pallas_unfused"``), K4 on ``"pallas_mxu"`` (``ops/cuda_nn.py``), the
+  exhaustive tiled search on ``"brute"`` (``ops/bruteforce.py``) and the
+  hash grid on ``"hashgrid"`` (``ops/hashgrid.py``, ``cap`` candidates a
+  cell); the last two are tensor ops, no hand kernel;
 - ``_linearize`` (``:213-270``): residuals, Jacobians and the H/b sums; on
   the ``"pallas_fused"`` backend all of it, search included, is kernel K3
   (``ops/cuda_gicp.py``);
@@ -33,7 +37,7 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.config import GicpStageConfig
 from direct_lidar_odometry_tpu_torch.core import se3
-from direct_lidar_odometry_tpu_torch.ops import cuda_gicp, cuda_nn, morton
+from direct_lidar_odometry_tpu_torch.ops import bruteforce, cuda_gicp, cuda_nn, hashgrid, morton
 from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS, cov_from_normal
 from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -46,16 +50,19 @@ def is_pallas(backend: str) -> bool:
 
 
 class GicpTarget(NamedTuple):
-    """A Morton-sorted registration target with its [3, Nt//512] chunk
-    AABBs (the branch-and-bound index that replaces the reference's kd-tree
-    build, ``nano_gicp_impl.hpp:127,137``)."""
+    """A registration target in original point order with its search
+    index (the reference's kd-tree build, ``nano_gicp_impl.hpp:127,137``):
+    on the pruned-kernel backends the cloud is Morton-sorted and
+    ``chunk_lo``/``chunk_hi`` hold its [3, Nt//512] chunk AABBs; on
+    ``"hashgrid"`` ``grid`` is its hash index; ``"brute"`` needs none."""
 
     points: torch.Tensor         # [Nt, 3]
     mask: torch.Tensor           # [Nt]
     normals: torch.Tensor        # [Nt, 3]
     normals_valid: torch.Tensor  # [Nt]
-    chunk_lo: torch.Tensor       # [3, Nt//512]
-    chunk_hi: torch.Tensor
+    chunk_lo: torch.Tensor | None = None  # [3, Nt//512] (pruned-kernel backends)
+    chunk_hi: torch.Tensor | None = None
+    grid: hashgrid.HashGrid | None = None  # ("hashgrid")
 
 
 class GicpSource(NamedTuple):
@@ -75,12 +82,22 @@ class GicpResult(NamedTuple):
     num_correspondences: torch.Tensor  # int32 at the last linearization
 
 
-def make_target(points, mask, normals, normals_valid) -> GicpTarget:
-    """Chunk AABBs over a Morton-ordered target cloud (contiguous tensors)."""
-    chunk_lo, chunk_hi = morton.chunk_aabbs(points, mask, morton.TARGET_CHUNK)
+def make_target(
+    points, mask, normals, normals_valid, radius=None, table_size=None,
+    backend: str = "pallas",
+) -> GicpTarget:
+    """Build the backend's search index over the target: chunk AABBs over a
+    Morton-ordered cloud (contiguous tensors) on the pruned-kernel
+    backends, a hash grid of cell ``radius`` and ``table_size`` slots on
+    ``"hashgrid"``, nothing on ``"brute"``."""
+    chunk_lo = chunk_hi = grid = None
+    if is_pallas(backend):
+        chunk_lo, chunk_hi = morton.chunk_aabbs(points, mask, morton.TARGET_CHUNK)
+    elif backend == "hashgrid":
+        grid = hashgrid.build(points, mask, radius, table_size)
     return GicpTarget(
         points=points, mask=mask, normals=normals, normals_valid=normals_valid,
-        chunk_lo=chunk_lo, chunk_hi=chunk_hi,
+        chunk_lo=chunk_lo, chunk_hi=chunk_hi, grid=grid,
     )
 
 
@@ -120,7 +137,7 @@ class _Linearization(NamedTuple):
 
 def _update_correspondences(
     x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
-    backend: str,
+    backend: str, cap: int,
 ):
     """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211.
 
@@ -128,11 +145,18 @@ def _update_correspondences(
     :func:`_linearize` and never calls this."""
     r = x0[:3, :3]
     p_t = se3.transform_points(x0, src.points)  # [Ns, 3]
-    idx, _, found = cuda_nn.query_1nn_sorted(
-        target.points, target.mask, target.chunk_lo, target.chunk_hi,
-        p_t, src.mask, cfg.max_correspondence_distance,
-        mxu=(backend == "pallas_mxu"),
-    )
+    radius = cfg.max_correspondence_distance
+    if is_pallas(backend):
+        idx, _, found = cuda_nn.query_1nn_sorted(
+            target.points, target.mask, target.chunk_lo, target.chunk_hi,
+            p_t, src.mask, radius, mxu=(backend == "pallas_mxu"),
+        )
+    elif backend == "brute":
+        tile = min(8192, target.points.shape[0])
+        idx, _, found = bruteforce.query_1nn(target.points, target.mask, p_t, src.mask, radius,
+                                             tile=tile)
+    else:
+        idx, _, found = hashgrid.query_1nn(target.grid, p_t, src.mask, radius, cap)
     j = torch.clamp(idx, min=0)
     # both endpoints need usable normals
     ok = found & src.normals_valid & target.normals_valid[j]
@@ -148,7 +172,7 @@ def _update_correspondences(
 
 def _linearize(
     x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
-    backend: str, seed_corr: torch.Tensor | None = None,
+    backend: str, seed_corr: torch.Tensor | None = None, cap: int = 16,
 ) -> _Linearization:
     """Reference nano_gicp_impl.hpp:213-270 as one masked reduction.
 
@@ -169,7 +193,8 @@ def _linearize(
         return _Linearization(h=fl.h, b=fl.b, error=fl.error, corr=fl.corr, weight=fl.weight,
                               mu_b=fl.mu_b, n_b=fl.n_b, m0=m0, n_corr=fl.n_corr)
 
-    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend)
+    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend,
+                                                                cap)
     j = torch.clamp(corr, min=0)
     mu_b = target.points[j]
     e = (mu_b - p_t) * weight[..., None]               # [Ns, 3]
@@ -254,14 +279,16 @@ def align(
     guess: torch.Tensor,
     cfg: GicpStageConfig,
     backend: str = "pallas",
+    cap: int = 16,
 ) -> GicpResult:
     """Register ``src`` onto ``target`` starting from ``guess`` (4x4).
 
     ``LsqRegistration::computeTransformation`` with the reference-default
     LM inner step, or plain GN when ``cfg.optimizer == "gn"``. One host
     read per inner iteration (LM) or per outer iteration (GN). ``backend``:
-    "pallas" (or its alias "pallas_unfused"), "pallas_mxu" or
-    "pallas_fused" (see config.resolve_backend).
+    "pallas" (or its alias "pallas_unfused"), "pallas_mxu", "pallas_fused",
+    "brute" or "hashgrid" (see config.resolve_backend); ``cap``: the hash
+    grid's candidates a cell (``shapes.cell_cap_1nn``).
     """
     dev = guess.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -274,7 +301,7 @@ def align(
     nc_fin = torch.zeros((), dtype=torch.int32, device=dev)
     iters, converged, failed = 0, False, False
     while iters < cfg.max_iterations and not converged and not failed:
-        lin = _linearize(x, src, target, cfg, backend)
+        lin = _linearize(x, src, target, cfg, backend, cap=cap)
         if use_lm:
             # step_lm (lsq_registration_impl.hpp:161-208)
             if lam is None:

@@ -6,11 +6,12 @@ whose arrays are keyed by the state's field path (``state/pose``,
 ``state/keyframes/points``, ...), a ``format_version`` stamp and an
 optional ``extra_json`` byte array. Files written here load with the JAX
 package's ``load_state`` and files it writes load here: the port's state
-has the same fields, dtypes and shapes (it carries no hash-grid index, the
-JAX package's ``submap_grid``, which is empty on the pallas backends).
-A field missing from the file keeps its fresh-state value (forward
-migration, as in the JAX package); format v1 (positional leaves) is
-refused.
+has the same fields, dtypes and shapes, the S2M hash index
+``submap_grid`` of the "hashgrid" backend included (absent on the other
+backends, in both packages). A field missing from the file keeps its
+fresh-state value (forward migration, as in the JAX package), except the
+hash index, which is rebuilt from the loaded submap; format v1
+(positional leaves) is refused.
 """
 
 from __future__ import annotations
@@ -51,10 +52,11 @@ def load_state(path: str, cfg: DloConfig, device="cpu") -> tuple[OdomState, dict
         raise ValueError(f"checkpoint {path!r} is format v{version}; only v{FORMAT_VERSION} "
                          "(field-path keys) can be mapped onto the state")
     template = state_to_numpy(empty_state(cfg))
-    leaves = {k: data[_key(k)] if _key(k) in data else v for k, v in template.items()}
+    leaves = {k: data[_key(k)] if _key(k) in data else v for k, v in template.items()
+              if _key(k) in data or not k.startswith("submap_grid.")}
     for k, v in leaves.items():
         if v.shape != template[k].shape:
             raise ValueError(f"checkpoint {path!r}: {k} has shape {v.shape}, the config "
                              f"needs {template[k].shape}")
     extra = json.loads(bytes(data["extra_json"]).decode()) if "extra_json" in data else {}
-    return state_from_numpy(leaves, device), extra
+    return state_from_numpy(leaves, device, cfg), extra

@@ -55,8 +55,12 @@ def test_config_yaml_loads_equal():
 
 @pytest.mark.parametrize("backend", ["hashgrid", "brute"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcfg.resolve_backend(tcfg.DloConfig(nn_backend=backend))
+    """The backends the port once refused now resolve to themselves, as in
+    the JAX package; only a name neither package knows raises."""
+    assert tcfg.resolve_backend(tcfg.DloConfig(nn_backend=backend)) == backend
+    assert jcfg.resolve_backend(jcfg.DloConfig(nn_backend=backend)) == backend
+    with pytest.raises(ValueError, match="unknown nn_backend"):
+        tcfg.resolve_backend(tcfg.DloConfig(nn_backend=backend + "_x"))
 
 
 @pytest.mark.parametrize("backend,resolved", [
@@ -100,7 +104,11 @@ def test_port_imports_no_jax():
         "direct_lidar_odometry_tpu_torch.ops.cuda_gicp, "
         "direct_lidar_odometry_tpu_torch.odometry.loopclosure, "
         "direct_lidar_odometry_tpu_torch.odometry.imu, "
-        "direct_lidar_odometry_tpu_torch.parallel.posegraph\n"
+        "direct_lidar_odometry_tpu_torch.parallel.posegraph, "
+        "direct_lidar_odometry_tpu_torch.io.native, "
+        "direct_lidar_odometry_tpu_torch.io.hostprep, "
+        "direct_lidar_odometry_tpu_torch.ops.bruteforce, "
+        "direct_lidar_odometry_tpu_torch.ops.hashgrid\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -414,3 +414,44 @@ def test_posegraph_refine_on_card_matches_cpu(dev):
     before = np.linalg.norm(graph.poses.numpy()[:, :3, 3] - gt_pos, axis=-1).mean()
     after = np.linalg.norm(got[:, :3, 3] - gt_pos, axis=-1).mean()
     assert after < before
+
+
+@pytest.mark.parametrize("cell", [0.5, 3.0])
+def test_hashgrid_on_card_matches_cpu(dev, cell):
+    """The "hashgrid" tensor ops on the card give the CPU's grid bit for bit
+    (true division by a device tensor, int64 hashing) and the CPU's 1-NN and
+    k-NN; no hand kernel and no plain version runs."""
+    from direct_lidar_odometry_tpu_torch.ops import hashgrid
+
+    p, m = _sorted_cloud(11, 8192, "cpu")
+    q = (p[:4096] + 0.2 * torch.randn(4096, 3, generator=torch.Generator().manual_seed(1))).contiguous()
+    qm = m[:4096].clone()
+    for mod in (cuda_nn, cuda_cov):
+        mod.reset_launches()
+    gc = hashgrid.build(p, m, cell, 2**12)
+    gd = hashgrid.build(p.to(dev), m.to(dev), cell, 2**12)
+    for f in hashgrid.HashGrid._fields:
+        assert torch.equal(getattr(gd, f).cpu(), getattr(gc, f)), f
+    for a, b in zip(hashgrid.query_1nn(gd, q.to(dev), qm.to(dev), cell, 16),
+                    hashgrid.query_1nn(gc, q, qm, cell, 16)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(hashgrid.query_knn(gd, q.to(dev), qm.to(dev), 10, 32, chunk=1024),
+                    hashgrid.query_knn(gc, q, qm, 10, 32, chunk=1024)):
+        assert torch.equal(a.cpu(), b)
+    assert sum(cuda_nn.launches.values()) == 0 and sum(cuda_cov.launches.values()) == 0
+
+
+def test_bruteforce_on_card_matches_cpu(dev):
+    """The "brute" tensor ops on the card give the CPU's results (each
+    distance is a chain of separate rounded operations, so the bits match)."""
+    from direct_lidar_odometry_tpu_torch.ops import bruteforce
+
+    p, m = _sorted_cloud(12, 8192, "cpu")
+    q = (p[:4096] + 0.2 * torch.randn(4096, 3, generator=torch.Generator().manual_seed(2))).contiguous()
+    qm = m[:4096].clone()
+    for a, b in zip(bruteforce.query_1nn(p.to(dev), m.to(dev), q.to(dev), qm.to(dev), 1.0, tile=2048),
+                    bruteforce.query_1nn(p, m, q, qm, 1.0, tile=2048)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(bruteforce.query_knn(p.to(dev), m.to(dev), q.to(dev), qm.to(dev), 10, chunk=1024),
+                    bruteforce.query_knn(p, m, q, qm, 10, chunk=1024)):
+        assert torch.equal(a.cpu(), b)

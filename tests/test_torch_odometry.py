@@ -199,10 +199,18 @@ def test_runner_refuses_missing_cuda(monkeypatch):
     {"host_preprocess": True}, {"map.carry_intensity": True}, {"nn_backend": "hashgrid"},
 ])
 def test_runner_refuses_unported_options(override):
+    """The options the port once refused construct a runner now (host
+    preprocessing stays on only with the scan voxel filter); an unknown
+    backend is still refused."""
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        OdometryRunner(tcfg.load_config(None, override), device="cpu")
+    cfg = tcfg.load_config(None, override)
+    runner = OdometryRunner(cfg, device="cpu")
+    assert runner.cfg == cfg
+    no_voxel = tcfg.load_config(None, {**override, "preprocessing.voxel_scan.use": False})
+    assert not OdometryRunner(no_voxel, device="cpu").cfg.host_preprocess
+    with pytest.raises(ValueError, match="unknown nn_backend"):
+        OdometryRunner(cfg.replace(nn_backend="kdtree"), device="cpu")
 
 
 @pytest.mark.parametrize("override", [
