@@ -34,7 +34,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (its own candidate counts, or every valid target) and its bound (FLOP
    over the H100's fp32 peak or bytes over its memory rate, the larger),
    and the time of a library call that computes the same function where
-   one exists;
+   one exists. Then K1-K4 over B = 4 lanes in one launch each, the lanes
+   made as ``bench.py`` makes them (lane i of frame t is
+   ``render_scan(world, t, rng(100 + i))``, frames 0-4 built as above): K2
+   and K4 at S2M r 0.5, K1 over the scans at r 0.75, K3 at S2M r 0.5; every
+   lane bitwise equal to its launch alone, the lanes against the plain
+   versions as above, and device ms at B = 1, 4 and 8 (the lanes twice)
+   beside each launch's bound;
 4. drive ``OdometryRunner(cfg, device="cuda")`` (backend "pallas",
    ``cfg/tpu_dlo.yaml`` as shipped, loop closure on) over 30 frames of the
    ray-cast urban world with every launch counter reset just before, and
@@ -95,7 +101,27 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    gate, S2M correspondences > 100 and every hand kernel and every plain
    version launched 0 times; prints the wall ms a frame (synced), the host
    reads a frame and the peak device memory, with the card's name and
-   power limit.
+   power limit;
+13. the batched step at full width (``parallel/batched.py``): the phase-3
+   lanes over 30 frames through ``make_batched_fns`` on "pallas" at B = 4
+   (counters reset just before): each lane's ATE gate, lane 0 within 1e-4 m
+   of its own single-sequence ``odom_frame(hull_masks=None)`` drive on the
+   card with the same keyframe count, K1 and K2 launched and no plain
+   version, host reads a step, synced ms a step, peak memory; six steady
+   steps profiled (device operations, busy ms, the float64 prefix scan's
+   ms, idle share); B = 1 (lane 0) and B = 8 (the lanes twice) over 10
+   frames for synced ms, frames/s and peak memory (each B timed over steps
+   4-9, B = 4's from its 30-frame drive), and each profiled over those six
+   steps (device operations and busy ms a step); "pallas_fused" (K3) and
+   "pallas_mxu" (K4) at B = 4 over 10 frames (ATE gate, the backend's
+   kernel launched, no plain version); then ``init_distributed`` with NCCL
+   at world size 1 on a file store: ``make_sharded_step`` over the first 5
+   steps, states and results bitwise equal to the batched drive's and the
+   fleet health's ``mean_corr`` equal to the mean of its S2M
+   correspondences, and ``make_distributed_refine`` on phase 7's refined
+   keyframe graph bitwise equal to ``posegraph.refine``; the group is
+   destroyed before the phase ends. The ``kernels`` line gives K1-K4 their
+   batched launch counts and device ms at B = 1, 4 and 8.
 
 It imports torch and the port, nothing of JAX. Each phase's seconds are
 printed.
@@ -139,6 +165,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PROFILED_FRAMES = 6
 BACKEND_FRAMES = 10     # phase 12: the first phase-4 frames on "brute" and "hashgrid"
 HOST_PREP_TOL = 1e-4    # m: host- vs device-prepared scan (JAX tests/test_native.py:76-100)
+LANES = 4               # phases 3 and 13: bench.py's batch, lane i rendered with rng(100 + i)
+LANE_SWEEP = (1, 4, 8)  # lanes timed; 8 = the 4 lanes twice
+SHORT_FRAMES = 10       # phase 13: the pallas_fused / pallas_mxu drives and the B = 1 / 8 timing
+SHARDED_STEPS = 5       # phase 13: steps of the NCCL world-size-1 sharded drive
+LANE_POSE_TOL = 1e-4    # m: lane 0 of the batched drive against its single-sequence drive
 REPO = Path(__file__).resolve().parent
 CFG_PATH = REPO / "cfg" / "tpu_dlo.yaml"
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
@@ -715,10 +746,21 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
             runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(backend=cfg.nn_backend, frames=len(frames))
+    out.update(profile_summary(prof, len(frames), wall_ms))
+    print(f"# device ops {cfg.nn_backend} {json.dumps(out)}")
+    return out
+
+
+def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
+    """Per ``unit`` (a frame, or a batched step) of a profiled window of
+    ``n`` units and ``wall_ms``: the device operations (kernels, copies,
+    sets), their summed device time, the time the device was busy (their
+    intervals merged, overlaps counted once), each by kind, the eight
+    operations that take the most time, and the idle share of the window;
+    null where the profiler saw no device activity."""
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    n = len(frames)
-    out = dict(backend=cfg.nn_backend, frames=n, device_ops_per_frame=None,
-               profiled_wall_ms_per_frame=wall_ms / n)
+    out = {f"device_ops_per_{unit}": None, f"profiled_wall_ms_per_{unit}": wall_ms / n}
     if ops:
         def kind(name: str) -> str:
             return "memcpy" if name.startswith("Memcpy") else (
@@ -742,14 +784,17 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
         for e in ops:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        out.update(
-            device_ops_per_frame=count["all"], ops_per_frame_by_kind=count,
-            device_event_ms_per_frame=summed["all"], device_busy_ms_per_frame=busy["all"],
-            event_ms_per_frame_by_kind=summed, busy_ms_per_frame_by_kind=busy,
-            idle_share_profiled=1.0 - busy["all"] / (wall_ms / n),
-            top_ms_per_frame=[[name[:80], ms] for name, ms in top],
-        )
-    print(f"# device ops {cfg.nn_backend} {json.dumps(out)}")
+        out.update({
+            f"device_ops_per_{unit}": count["all"], f"ops_per_{unit}_by_kind": count,
+            f"device_event_ms_per_{unit}": summed["all"],
+            f"device_busy_ms_per_{unit}": busy["all"],
+            f"event_ms_per_{unit}_by_kind": summed, f"busy_ms_per_{unit}_by_kind": busy,
+            "idle_share_profiled": 1.0 - busy["all"] / (wall_ms / n),
+            f"top_ms_per_{unit}": [[name[:80], ms] for name, ms in top],
+            # the float64 prefix scan of the voxel filter (ops/voxel.py)
+            f"prefix_scan_ms_per_{unit}": sum(ms for name, ms in by_name.items()
+                                              if "scan" in name and "double" in name),
+        })
     return out
 
 
@@ -911,8 +956,10 @@ def loop_closure_check(cfg, world, scans, device="cuda"):
     rounds_in_drive = len(runner.refine_log)
     reset_counters()
     sync_device(device)
+    graphs = []
     t0 = time.perf_counter()
-    forced = runner.maybe_refine(force=True)
+    with recorded_refine(graphs):
+        forced = runner.maybe_refine(force=True)
     sync_device(device)
     refine_ms = (time.perf_counter() - t0) * 1e3
     refine_launches = read_counters()
@@ -939,7 +986,26 @@ def loop_closure_check(cfg, world, scans, device="cuda"):
     for launches in (drive_launches, refine_launches):
         for name, cnt in launches.items():
             require(cnt["plain"] == 0, f"loop closure: {name} plain version ran {cnt['plain']} times")
-    return out
+    require(len(graphs) == 1, f"loop closure: the forced round refined {len(graphs)} graphs")
+    return out, graphs[0]
+
+
+@contextlib.contextmanager
+def recorded_refine(graphs: list):
+    """Record the (graph, iterations) of every ``posegraph.refine`` call."""
+    from direct_lidar_odometry_tpu_torch.parallel import posegraph
+
+    refine = posegraph.refine
+
+    def recording(graph, iterations=10, *args, **kwargs):
+        graphs.append((graph, iterations))
+        return refine(graph, iterations, *args, **kwargs)
+
+    posegraph.refine = recording
+    try:
+        yield
+    finally:
+        posegraph.refine = refine
 
 
 @contextlib.contextmanager
@@ -1254,6 +1320,424 @@ def backend_check(backend, world, scans, card, device="cuda"):
     return out
 
 
+def lane_scans(world, n_frames: int, lanes: int = LANES):
+    """bench.py's lanes over the phase-4 world: lane i of frame t is
+    ``render_scan(world, t, rng(100 + i))`` (OS1-64 beams, 40 m).
+    [n_frames][lanes] numpy scans."""
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+
+    beams = synthetic.BeamModel()
+    return [[synthetic.render_scan(world, t, np.random.default_rng(100 + i), max_range=40.0,
+                                   max_points=131072, beams=beams) for i in range(lanes)]
+            for t in range(n_frames)]
+
+
+def stack_lanes(parts):
+    """[B] NamedTuples of tensors (or None) -> one with a leading lane
+    dimension."""
+    return type(parts[0])(*(None if x[0] is None else torch.stack(x).contiguous()
+                            for x in zip(*parts)))
+
+
+def lane_kernel_inputs(cfg, world, lscans, dev):
+    """Phase 3, lanes: ``kernel_inputs`` of each lane's first five scans,
+    stacked: queries [B, 32768], submaps [B, 65536], scans [B, 32768]."""
+    from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud
+
+    per = [kernel_inputs(cfg, world, [frame[i] for frame in lscans[:5]], dev)
+           for i in range(len(lscans[0]))]
+    return SimpleNamespace(queries=stack_lanes([p.queries for p in per]),
+                           submap=stack_lanes([p.submap for p in per]),
+                           scan0=PointCloud(*(torch.stack(x) for x in zip(*[p.scan0 for p in per]))))
+
+
+def at_lanes(tensors, b: int, lanes: int = LANES):
+    """Lane 0 alone (unbatched) for b = 1, else the lanes tiled to b."""
+    if b == 1:
+        return tuple(t[0] for t in tensors)
+    return tuple(t.repeat((b // lanes,) + (1,) * (t.dim() - 1)).contiguous() for t in tensors)
+
+
+def lane_sweep(launch, flop_of, bytes_of, tensors):
+    """Device ms of ``launch(*args)`` at B = 1 (lane 0 alone), 4 and 8
+    (the lanes twice), each beside its bound from ``flop_of(args)`` (the
+    pairs of its own candidate counts) and ``bytes_of(args)``."""
+    out = {}
+    for b in LANE_SWEEP:
+        args = at_lanes(tensors, b)
+        ms = cuda_median_ms(lambda: launch(*args))
+        flop = flop_of(args)
+        t, by = bound(flop, bytes_of(args))
+        out[str(b)] = dict(ms=ms, flop=flop, bound_ms=t, bound_by=by, bound_share=t / ms)
+    return out
+
+
+def visited_pairs(fn, args, radius) -> float:
+    """Pairs a K1/K2/K4 launch on ``args`` evaluates: 32 x 512 x its
+    candidate counts (``visits``), summed over its lanes."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_nn
+
+    q = args[0]
+    v = torch.zeros(q.shape[:-2] + (q.shape[-2] // cuda_nn.SUB_TILE,), dtype=torch.int32,
+                    device=q.device)
+    fn(*args, radius, v)
+    return float(v.sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
+
+
+def check_lanes(lin):
+    """Phase 3, lanes: K1-K4 over B = 4 lanes in one launch each (K2 and K4
+    at S2M r 0.5, K1 over the scans at r 0.75, K3 at S2M r 0.5, cold). Each
+    lane must be bitwise equal to its launch alone (K3: hb rows, payload
+    and indices, and H and b through the public entry), and the lanes must
+    agree with the plain versions as phase 3 holds them (K2 bitwise, K4
+    bitwise off the r^2 boundary, K1 counts off the boundary and moments
+    within K1_ATOL + K1_RTOL, K3 correspondences off 2^-14 near-ties and H,
+    b and the error within K3_REL of their scale, per lane). Prints device
+    ms at B = 1, 4 and 8 with their bounds."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn, morton
+    from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
+
+    q, sm, s0 = lin.queries, lin.submap, lin.scan0
+    lanes = q.points.shape[0]
+    cases = {}
+    r = 0.5
+    search = (q.points, q.mask, sm.points, sm.mask, sm.chunk_lo, sm.chunk_hi)
+    for name, fn, plain, flop_pair in (("K2", cuda_nn.nn1_pruned, cuda_nn.nn1_plain, 8.0),
+                                       ("K4", cuda_nn.nn1_pruned_mxu, cuda_nn.nn1_mxu_plain, 9.0)):
+        ik, dk = fn(*search, r)
+        alone = [fn(*(a[b] for a in search), r) for b in range(lanes)]
+        ip, dp = plain(*search[:4], r)
+        torch.cuda.synchronize()
+        same_alone = all(torch.equal(ik[b], alone[b][0]) and torch.equal(dk[b], alone[b][1])
+                         for b in range(lanes))
+        differ = (ik != ip) | (dk != dp)
+        if name == "K4":
+            r2 = cuda_nn.f32_radius2(r)
+            fk, fp = ik >= 0, ip >= 0
+            differ &= ~((fk != fp) & (torch.abs(torch.where(fk, dk, dp) - r2) <= K2_BORDER * r2))
+        sweep = lane_sweep(lambda *a: fn(*a, r),
+                           lambda a: flop_pair * visited_pairs(fn, a, r),
+                           lambda a: nbytes(*a) + a[0].shape[:-1].numel() * 8, search)
+        cases[name] = dict(lanes=lanes, lanes_equal_alone=same_alone,
+                           plain_differ=int(differ.sum()), found=int((ik >= 0).sum()),
+                           sweep=sweep)
+        require(same_alone, f"{name} lanes: a lane differs from its launch alone")
+        require(not bool(differ.any()), f"{name} lanes: the lanes differ from the plain version")
+
+    r = 0.75
+    clo, chi = morton.chunk_aabbs(s0.points, s0.mask, morton.TARGET_CHUNK)
+    moments = (s0.points, s0.mask, s0.points, s0.mask, clo, chi)
+    mk = cuda_cov.cov_pruned(*moments, r)
+    alone = [cuda_cov.cov_pruned(*(a[b] for a in moments), r) for b in range(lanes)]
+    mp = cuda_cov.cov_plain(*moments[:4], r)
+    torch.cuda.synchronize()
+    same_alone = all(torch.equal(mk[b], alone[b]) for b in range(lanes))
+    agree = [moments_agree("K1 lanes", mk[b], mp[b], s0.points[b], s0.points[b], s0.mask[b], r)
+             for b in range(lanes)]
+    in_radius = [float(mp[b, :, 0][s0.mask[b]].sum()) for b in range(lanes)]
+
+    def k1_flop(a):
+        extra = in_radius[0] if a[0].dim() == 2 else sum(in_radius) * a[0].shape[0] / lanes
+        return 8.0 * visited_pairs(cuda_cov.cov_pruned, a, r) + 16.0 * extra
+
+    sweep = lane_sweep(lambda *a: cuda_cov.cov_pruned(*a, r), k1_flop,
+                       lambda a: nbytes(*a) + a[0].shape[:-1].numel() * 40, moments)
+    cases["K1"] = dict(lanes=lanes, lanes_equal_alone=same_alone,
+                       count_diffs=[c for c, _ in agree], max_abs_err=max(e for _, e in agree),
+                       sweep=sweep)
+    require(same_alone, "K1 lanes: a lane differs from its launch alone")
+
+    r = 0.5
+    qw = q.mask & q.normals_valid
+    cold = torch.full(qw.shape, -1, dtype=torch.int32, device=qw.device)
+    tgt = (sm.points, sm.mask, sm.normals, sm.normals_valid, sm.chunk_lo, sm.chunk_hi)
+    fused = (q.points, q.normals, qw, cold, *tgt)
+    hk, pk, ik = cuda_gicp.fused_linearize_pruned(*fused, r, PLANE_EPS)
+    hp, pp, ip = cuda_gicp.fused_linearize_plain(*fused, r, PLANE_EPS)
+    fl = cuda_gicp.fused_linearize(*tgt, q.points, q.normals, qw, r, PLANE_EPS)
+    same_alone = True
+    for b in range(lanes):
+        one = cuda_gicp.fused_linearize_pruned(*(a[b] for a in fused), r, PLANE_EPS)
+        same_alone &= all(bool(torch.equal(x[b], y)) for x, y in zip((hk, pk, ik), one))
+        solo = cuda_gicp.fused_linearize(*(t[b:b + 1] for t in tgt), q.points[b:b + 1],
+                                         q.normals[b:b + 1], qw[b:b + 1], r, PLANE_EPS)
+        same_alone &= bool(torch.equal(fl.h[b], solo.h[0])) and bool(torch.equal(fl.b[b], solo.b[0]))
+    torch.cuda.synchronize()
+    dis = ik != ip
+    tie = torch.abs(pk[..., 7] - pp[..., 7]) <= K2_TOL_REL * torch.maximum(pk[..., 7], pp[..., 7])
+    corr_ok = bool(torch.all(tie[dis] & ((ik >= 0) == (ip >= 0))[dis]))
+    sk, sp = hk[..., :29].sum(1), hp[..., :29].sum(1)
+
+    def lane_rel(lo: int, hi: int) -> float:
+        """Largest over the lanes of max|d| / max|plain| of slots lo:hi."""
+        return float(((sk[:, lo:hi] - sp[:, lo:hi]).abs().amax(1)
+                      / sp[:, lo:hi].abs().amax(1).clamp(min=1e-30)).max())
+
+    h_rel, b_rel, err_rel = lane_rel(0, 21), lane_rel(21, 27), lane_rel(27, 28)
+
+    def k3_flop(a):
+        hb = cuda_gicp.fused_linearize_pruned(*a, r, PLANE_EPS)[0]
+        pairs = float(hb[..., 29].sum()) * cuda_nn.SUB_TILE * cuda_nn.CHUNK
+        return 8.0 * pairs + 150.0 * float(a[2].sum())
+
+    sweep = lane_sweep(lambda *a: cuda_gicp.fused_linearize_pruned(*a, r, PLANE_EPS), k3_flop,
+                       lambda a: nbytes(*a) + a[0].shape[:-1].numel() * 40, fused)
+    cases["K3"] = dict(lanes=lanes, lanes_equal_alone=same_alone, corr_differ=int(dis.sum()),
+                       max_h_rel=h_rel, max_b_rel=b_rel, error_rel=err_rel, sweep=sweep)
+    require(same_alone, "K3 lanes: a lane differs from its launch alone")
+    require(corr_ok, "K3 lanes: correspondences differ from the plain version beyond near-ties")
+    require(h_rel <= K3_REL, f"K3 lanes: H differs from the plain version by {h_rel:.2e}")
+    require(b_rel <= K3_REL, f"K3 lanes: b differs from the plain version by {b_rel:.2e}")
+    require(err_rel <= K3_REL, f"K3 lanes: the error differs from the plain version by {err_rel:.2e}")
+    for name, case in cases.items():
+        print(f"# lanes {name} {json.dumps(case)}")
+    return cases
+
+
+def device_frames(lscans, n_raw: int, dev):
+    """[T][B] numpy scans -> [T] (points [B, n_raw, 3], mask [B, n_raw]) on
+    the card (placed before any timing, as bench.py places its lanes)."""
+    from direct_lidar_odometry_tpu_torch.core import cloud as cl
+
+    out = []
+    for scans in lscans:
+        clouds = [cl.from_numpy(s, n_raw, dev) for s in scans]
+        out.append((torch.stack([c.points for c in clouds]), torch.stack([c.mask for c in clouds])))
+    return out
+
+
+def clone_state(st):
+    return type(st)(*(None if v is None else clone_state(v) if isinstance(v, tuple)
+                      else v.clone() for v in st))
+
+
+def batched_drive(cfg, world, frames, label, snapshot_at=None):
+    """Phase 13: ``make_batched_fns(cfg)`` over ``frames`` (every launch
+    counter and the host-read count reset just before), each step synced:
+    each lane's ATE, the synced ms a step (steady steps: after WARMUP), the
+    host reads a step, the peak device memory, the launches. Returns
+    (summary, [FrameResult], state after step ``snapshot_at`` (a copy) or
+    None)."""
+    from direct_lidar_odometry_tpu_torch.parallel import batched
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    b = frames[0][0].shape[0]
+    init_fn, step_fn = batched.make_batched_fns(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    sync.reset()
+    dev = frames[0][0].device
+    states = init_fn(batched.batched_state(cfg, b, dev), *frames[0])
+    eye = torch.eye(4, device=dev).expand(b, 4, 4).clone()
+    results, step_ms, reads, snapshot = [], [], [], None
+    for t in range(1, len(frames)):
+        torch.cuda.synchronize()
+        before = sync.counts["host_reads"]
+        t0 = time.perf_counter()
+        states, res = step_fn(states, *frames[t], eye)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(sync.counts["host_reads"] - before)
+        results.append(res)
+        if t == snapshot_at:
+            snapshot = clone_state(states)
+    launches = read_counters()
+    poses = torch.stack([r.pose for r in results]).cpu().numpy()      # [T-1, B, 4, 4]
+    ates = []
+    for lane in range(b):
+        est = np.concatenate([np.eye(4, dtype=np.float32)[None], poses[:, lane]])
+        ates.append(ate_of(est, world))
+    path = ates[0][1]
+    steady = step_ms[WARMUP:] or step_ms
+    ms = float(np.median(steady))
+    out = dict(
+        label=label, backend=cfg.nn_backend, lanes=b, frames=len(frames),
+        ate_m=[a for a, _ in ates], path_m=path, synced_ms_per_step_median=ms,
+        frames_per_s=b * 1e3 / ms, synced_ms_per_step=step_ms, host_reads_per_step=reads,
+        host_reads_per_step_median=float(np.median(reads[WARMUP:] or reads)),
+        keyframes=[int(k) for k in results[-1].num_keyframes.cpu()],
+        min_s2m_num_corr=int(torch.stack([r.s2m_num_corr for r in results]).min()),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+    )
+    print(f"# batched {label} {json.dumps(out)}")
+    gate = max(0.10, 0.001 * path)
+    for lane, (ate, _) in enumerate(ates):
+        require(ate < gate, f"batched {label}: lane {lane} ATE {ate:.4f} m >= {gate:.4f} m")
+    require(out["min_s2m_num_corr"] > 100, f"batched {label}: a lane has <= 100 S2M correspondences")
+    for name, cnt in launches.items():
+        require(cnt["plain"] == 0, f"batched {label}: {name} plain version ran {cnt['plain']} times")
+    return out, results, snapshot
+
+
+def single_lane_drive(cfg, frames, lane: int = 0):
+    """Phase 13: lane ``lane`` of ``frames`` through the single-sequence
+    step on the card, ``odom_frame(hull_masks=None)`` driven directly:
+    (poses [T-1, 4, 4], keyframe count)."""
+    from direct_lidar_odometry_tpu_torch.odometry import hulls, pipeline
+
+    dev = frames[0][0].device
+    directions = torch.from_numpy(hulls.fibonacci_directions(cfg.shapes.hull_directions)).to(dev)
+    st = pipeline.init_frame(cfg, pipeline.fresh_state(cfg, device=dev), frames[0][0][lane],
+                             frames[0][1][lane])
+    poses = []
+    for pts, mask in frames[1:]:
+        st, res = pipeline.odom_frame(cfg, directions, st, pts[lane], mask[lane],
+                                      torch.eye(4, device=dev), hull_masks=None)
+        poses.append(res.pose)
+    return torch.stack(poses), int(st.keyframes.count)
+
+
+def batched_profile(cfg, frames):
+    """Phase 13: PROFILED_FRAMES steady batched steps (after 1 + WARMUP)
+    under torch.profiler: device operations, busy ms, idle share and the
+    prefix scan's ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from direct_lidar_odometry_tpu_torch.parallel import batched
+
+    b = frames[0][0].shape[0]
+    init_fn, step_fn = batched.make_batched_fns(cfg)
+    dev = frames[0][0].device
+    states = init_fn(batched.batched_state(cfg, b, dev), *frames[0])
+    eye = torch.eye(4, device=dev).expand(b, 4, 4).clone()
+    first = 1 + WARMUP
+    for t in range(1, first):
+        states, _ = step_fn(states, *frames[t], eye)
+    torch.cuda.synchronize()
+    steps = range(first, first + PROFILED_FRAMES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in steps:
+            states, _ = step_fn(states, *frames[t], eye)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(lanes=b, steps=len(steps))
+    out.update(profile_summary(prof, len(steps), wall_ms, unit="step"))
+    print(f"# batched profile {json.dumps(out)}")
+    return out
+
+
+def sharded_check(cfg, frames, results, snapshot, refine_graph):
+    """Phase 13: ``init_distributed`` with NCCL at world size 1 (a file
+    store in a temporary directory, so no port), the sharded step over the
+    first SHARDED_STEPS steps of the batched drive's lanes, states and
+    results bitwise equal to the batched drive's, the fleet health
+    (mean_corr equal to the mean of the drive's S2M correspondences); then
+    ``make_distributed_refine`` on the phase-7 keyframe graph, bitwise
+    equal to ``posegraph.refine``. The group is destroyed before the phase
+    ends."""
+    import torch.distributed as dist
+
+    from direct_lidar_odometry_tpu_torch.parallel import batched, posegraph, sharded
+
+    graph, iterations = refine_graph
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        sharded.init_distributed(f"file://{tmp}/store", num_processes=1, process_id=0)
+        try:
+            backend = dist.get_backend()
+            require(backend == "nccl", f"the group runs {backend}, not nccl")
+            mesh = sharded.make_mesh(1)
+            init_fn, _ = batched.make_batched_fns(cfg)
+            step = sharded.make_sharded_step(cfg, mesh)
+            lanes = frames[0][0].shape[0]
+            states = init_fn(sharded.shard_states(batched.batched_state(cfg, lanes, mesh.device),
+                                                  mesh),
+                             *sharded.shard_states(frames[0], mesh))
+            eye = torch.eye(4, device=mesh.device).expand(lanes, 4, 4).clone()
+            same, health = True, []
+            for t in range(1, SHARDED_STEPS + 1):
+                states, res, mean_corr, max_err = step(states, *sharded.shard_states(frames[t], mesh),
+                                                       eye)
+                ref = results[t - 1]
+                same &= all(bool(torch.equal(a, b)) for a, b in zip(res, ref))
+                want = ref.s2m_num_corr.to(torch.float32).mean()
+                health.append(dict(mean_corr=float(mean_corr), max_err=float(max_err),
+                                   mean_corr_equal=bool(torch.equal(mean_corr, want))))
+            same_state = all(bool(torch.equal(a, b)) for a, b in
+                             zip(list(states.keyframes) + [v for k, v in states._asdict().items()
+                                                           if k not in ("keyframes", "submap_grid")],
+                                 list(snapshot.keyframes) + [v for k, v in snapshot._asdict().items()
+                                                             if k not in ("keyframes", "submap_grid")]))
+            poses_d, err_d = sharded.make_distributed_refine(mesh, iterations)(graph)
+            poses_s, err_s = posegraph.refine(graph, iterations=iterations)
+            torch.cuda.synchronize()
+            refine_same = bool(torch.equal(poses_d, poses_s)) and bool(torch.equal(err_d, err_s))
+            sharded.barrier("phase 13")
+        finally:
+            dist.destroy_process_group()
+    out = dict(backend=backend, world=1, steps=SHARDED_STEPS, results_equal=same,
+               states_equal=same_state, health=health, refine_edges=int(graph.edges.shape[0]),
+               refine_iterations=iterations, refine_equal=refine_same)
+    print(f"# sharded {json.dumps(out)}")
+    require(same, "sharded: a result of the world-size-1 sharded step differs from the batched step")
+    require(same_state, "sharded: the sharded states differ from the batched drive's")
+    require(all(h["mean_corr_equal"] for h in health),
+            "sharded: mean_corr differs from the mean of the lanes' S2M correspondences")
+    require(refine_same, "sharded: the distributed refine differs from posegraph.refine")
+    return out
+
+
+def batch_phase(world, lscans, refine_graph, card):
+    """Phase 13: the batched step at full width on the card (pallas at B = 4
+    over 30 frames, lane 0 against its single-sequence drive, the profiled
+    window, B = 1 / 4 / 8 timing; pallas_fused and pallas_mxu at B = 4 over
+    SHORT_FRAMES), then the NCCL world-size-1 sharded forms."""
+    cfg = slice_config("pallas")
+    dev = torch.device("cuda")
+    frames = device_frames(lscans, cfg.shapes.n_raw, dev)
+    main, results, snapshot = batched_drive(cfg, world, frames, "pallas B=4",
+                                            snapshot_at=SHARDED_STEPS)
+    for name in ("nn1_pruned", "cov_pruned"):
+        require(main["launches"][name]["cuda"] > 0, f"batched pallas: {name} was never launched")
+    single, single_kf = single_lane_drive(cfg, frames)
+    lane0 = torch.stack([r.pose[0] for r in results])
+    lane_diff = float((lane0[:, :3, 3] - single[:, :3, 3]).abs().max())
+    require(lane_diff <= LANE_POSE_TOL,
+            f"batched: lane 0 is {lane_diff:.2e} m from its single-sequence drive")
+    require(main["keyframes"][0] == single_kf,
+            f"batched: lane 0 has {main['keyframes'][0]} keyframes, its single drive {single_kf}")
+    profile = batched_profile(cfg, frames)
+    # every B over the same steady steps: 4-9 of the first SHORT_FRAMES frames
+    steady = slice(WARMUP, SHORT_FRAMES - 1)
+    ms4 = float(np.median(main["synced_ms_per_step"][steady]))
+    sweep = {str(LANES): dict(synced_ms_per_step=ms4, frames_per_s=LANES * 1e3 / ms4,
+                              peak_mem_gib=main["peak_mem_gib"],
+                              device_ops_per_step=profile.get("device_ops_per_step"),
+                              device_busy_ms_per_step=profile.get("device_busy_ms_per_step"))}
+    for b in LANE_SWEEP:
+        if b == LANES:
+            continue
+        # B = 1: lane 0 alone; B = 8: the four lanes twice
+        short = [tuple(t[:1] if b == 1 else t.repeat(b // LANES, *(1,) * (t.dim() - 1))
+                       for t in f) for f in frames[:SHORT_FRAMES]]
+        out, _, _ = batched_drive(cfg, world, short, f"pallas B={b}")
+        ms = float(np.median(out["synced_ms_per_step"][steady]))
+        prof_b = batched_profile(cfg, short)
+        sweep[str(b)] = dict(synced_ms_per_step=ms, frames_per_s=b * 1e3 / ms,
+                             peak_mem_gib=out["peak_mem_gib"],
+                             device_ops_per_step=prof_b.get("device_ops_per_step"),
+                             device_busy_ms_per_step=prof_b.get("device_busy_ms_per_step"))
+    others = {}
+    for backend, kernel in (("pallas_fused", "fused_linearize"), ("pallas_mxu", "nn1_pruned_mxu")):
+        out, _, _ = batched_drive(slice_config(backend), world, frames[:SHORT_FRAMES],
+                                  f"{backend} B=4")
+        require(out["launches"][kernel]["cuda"] > 0, f"batched {backend}: {kernel} never launched")
+        others[backend] = out
+    torch.cuda.empty_cache()
+    shard = sharded_check(cfg, frames, results, snapshot, refine_graph)
+    summary = dict(card=card, lanes=LANES, lane0_vs_single_max_m=lane_diff,
+                   synced_ms_per_step_30_frames=main["synced_ms_per_step_median"],
+                   host_reads_per_step_median=main["host_reads_per_step_median"],
+                   device_ops_per_step=profile.get("device_ops_per_step"),
+                   device_busy_ms_per_step=profile.get("device_busy_ms_per_step"),
+                   prefix_scan_ms_per_step=profile.get("prefix_scan_ms_per_step"),
+                   idle_share_profiled=profile.get("idle_share_profiled"), sweep=sweep)
+    print(f"# batched summary {json.dumps(summary)}")
+    return dict(main=main, profile=profile, sweep=sweep, others=others, sharded=shard,
+                summary=summary)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1297,6 +1781,10 @@ def main() -> int:
     k1 = [check_k1(inp.scan0, 0.75, "scan"), check_k1(inp.kf0, 1.5, "keyframe")]
     k3 = [check_k3(inp.queries, inp.submap, 0.5, "S2M"), check_k3(inp.queries, inp.s2s, 1.0, "S2S")]
     k5, k6 = check_exhaustive(inp, scans, dev)
+    t0 = time.perf_counter()
+    lscans = lane_scans(world, N_FRAMES)
+    print(f"# rendered {LANES} lanes x {N_FRAMES} scans in {time.perf_counter() - t0:.1f} s")
+    lanes = check_lanes(lane_kernel_inputs(cfg, world, lscans, dev))
 
     phase_s, clock = {}, [t_start]
 
@@ -1322,7 +1810,8 @@ def main() -> int:
     print(f"# rendered {len(loop_scans)} loop-world scans in {time.perf_counter() - t0:.1f} s")
     from direct_lidar_odometry_tpu_torch.config import load_config
 
-    loop = loop_closure_check(loop_config(load_config(str(CFG_PATH))), loop_w, loop_scans)
+    loop, loop_graph = loop_closure_check(loop_config(load_config(str(CFG_PATH))), loop_w,
+                                          loop_scans)
     timed_phase(7)
     imu_chunk_check(cfg, loop_w, loop_scans[:IMU_FRAMES])
     timed_phase(8)
@@ -1333,16 +1822,33 @@ def main() -> int:
     for backend in ("brute", "hashgrid"):
         backend_check(backend, world, scans, smi)
     timed_phase(12)
+    batch = batch_phase(world, lscans, loop_graph, smi)
+    timed_phase(13)
     print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
+    batched_launches = {name: batch["main"]["launches"][name]["cuda"]
+                        for name in ("nn1_pruned", "cov_pruned")}
+    batched_launches["fused_linearize"] = \
+        batch["others"]["pallas_fused"]["launches"]["fused_linearize"]["cuda"]
+    batched_launches["nn1_pruned_mxu"] = \
+        batch["others"]["pallas_mxu"]["launches"]["nn1_pruned_mxu"]["cuda"]
+    lane_key = {"nn1_pruned": "K2", "cov_pruned": "K1", "fused_linearize": "K3",
+                "nn1_pruned_mxu": "K4"}
+
     def entry(name, src, replaces, path, launches, cases):
-        return dict(name=name, route="cuda", source=f"direct_lidar_odometry_tpu_torch/csrc/{src}",
-                    replaces=f"direct_lidar_odometry_tpu/ops/{replaces}", path=path,
-                    launches=launches[name]["cuda"],
-                    max_abs_err=max(c["max_abs_err"] for c in cases),
-                    ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
-                    bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
-                    library_ms=cases[0]["library_ms"])
+        out = dict(name=name, route="cuda", source=f"direct_lidar_odometry_tpu_torch/csrc/{src}",
+                   replaces=f"direct_lidar_odometry_tpu/ops/{replaces}", path=path,
+                   launches=launches[name]["cuda"],
+                   max_abs_err=max(c["max_abs_err"] for c in cases),
+                   ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+                   bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
+                   library_ms=cases[0]["library_ms"],
+                   batched_launches=batched_launches.get(name, 0))
+        if name in lane_key:
+            out["lane_ms"] = {b: c["ms"] for b, c in lanes[lane_key[name]]["sweep"].items()}
+            out["lane_bound_ms"] = {b: c["bound_ms"]
+                                    for b, c in lanes[lane_key[name]]["sweep"].items()}
+        return out
 
     def host_paths(name):
         cli_launches = sum(run["launches"][name]["cuda"] for run in kitti.values())

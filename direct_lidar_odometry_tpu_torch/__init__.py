@@ -17,7 +17,11 @@ has an obvious counterpart:
 - ``io``: synthetic worlds, KITTI, trajectory and PLY files, ATE/RPE, host
   preprocessing (``io/hostprep.py``) and the ctypes binding of the native
   host library ``cpp/dlo_host.cpp`` (``io/native.py``, built at first use);
-- ``utils``: precision pin, host-read counter, checkpoint, dashboard;
+- ``parallel``: the keyframe pose graph, the multi-sequence batched step
+  (``parallel/batched.py``) and its sharding over ``torch.distributed``
+  (``parallel/sharded.py``);
+- ``utils``: precision pin, host-read counter, lane helpers, checkpoint,
+  dashboard;
 - ``cli``: the process entry point (``python -m direct_lidar_odometry_tpu_torch``).
 
 The port imports ``torch`` and never ``jax``.

@@ -2,7 +2,10 @@
 
 ``points: f32[N, 3]`` plus ``mask: bool[N]`` with a fixed capacity ``N``;
 invalid slots hold :data:`PAD_VALUE`. Fixed capacities let the keyframe ring
-and the submap cache be allocated once and written in place.
+and the submap cache be allocated once and written in place. The batched
+step (``parallel/batched.py``) carries B independent clouds as
+``points: f32[B, N, 3]``, ``mask: bool[B, N]``; :func:`gather_rows` reorders
+either form.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from direct_lidar_odometry_tpu_torch.io import native
 
 
 class PointCloud(NamedTuple):
-    """points: f32[N, 3]; mask: bool[N]. Invalid slots hold PAD_VALUE."""
+    """points: f32[N, 3]; mask: bool[N] (or [B, N, 3], [B, N] for B lanes).
+    Invalid slots hold PAD_VALUE."""
 
     points: torch.Tensor
     mask: torch.Tensor
@@ -31,7 +35,16 @@ class PointCloud(NamedTuple):
 PAD_VALUE = 1e6
 
 
-def from_numpy(points: np.ndarray, capacity: int, device="cpu") -> PointCloud:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` by index: ``x[idx]`` for a 1-D index, and for a [B, M]
+    index into [B, N, ...] the rows of each lane, ``x[b, idx[b]]``."""
+    if idx.dim() == 1:
+        return x[idx]
+    lane = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[lane, idx]
+
+
+def from_numpy(points: np.ndarray, capacity: int, device="cuda") -> PointCloud:
     """Pad/truncate an [M, 3] numpy array into a capacity-N cloud."""
     points = np.asarray(points, dtype=np.float32)
     m = min(points.shape[0], capacity)

@@ -221,8 +221,9 @@ def se3_translation(t: torch.Tensor) -> torch.Tensor:
 
 
 def transform_points(t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply SE(3) to points: [4, 4], [..., 3] -> [..., 3]."""
-    return pts @ t[:3, :3].T + t[:3, 3]
+    """Apply SE(3) to points: [4, 4], [..., 3] -> [..., 3]; or B lanes'
+    poses to their clouds: [B, 4, 4], [B, N, 3] -> [B, N, 3]."""
+    return pts @ t[..., :3, :3].mT + t[..., None, :3, 3]
 
 
 def se3_exp(tau: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,15 @@
 // launches on the same inputs give the same bits. The sums are taken in
 // another order than the plain version's, which moves them by float
 // rounding only.
+//
+// Lanes (the TPU kernel's batched entry _pruned_moments_batched, grid
+// (b_total, qc)): the grid is (Q / 32, B), blockIdx.y the lane, each lane
+// an independent cloud at its stride in [B, ...] arrays; a lane's blocks do
+// what a launch of that lane alone does, so they give the same bits. Unlike
+// K2-K4 (subtile_search.cuh), this kernel moves its pointers to the lane
+// first: indexed over every lane as they are, it ran 14-19 % slower on the
+// H100 (kernel_ab.py, with 32 registers against 40), this way as fast as
+// before the lanes.
 
 #include "subtile_search.cuh"
 
@@ -39,17 +48,29 @@ static_assert(kWarps * kMoments * kSub * sizeof(float) <= 2 * kChunk * sizeof(fl
               "the merge reuses the staging buffers");
 
 __global__ void __launch_bounds__(kThreads) cov_pruned_kernel(
-    const float* __restrict__ queries,    // [Q, 3]
-    const uint8_t* __restrict__ qmask,    // [Q]
-    const float* __restrict__ targets,    // [T, 3], T = 512 C
-    const uint8_t* __restrict__ tmask,    // [T]
-    const float* __restrict__ chunk_lo,   // [3, C] masked chunk AABBs
-    const float* __restrict__ chunk_hi,   // [3, C]
+    const float* __restrict__ queries,    // [B, Q, 3]
+    const uint8_t* __restrict__ qmask,    // [B, Q]
+    const float* __restrict__ targets,    // [B, T, 3], T = 512 C
+    const uint8_t* __restrict__ tmask,    // [B, T]
+    const float* __restrict__ chunk_lo,   // [B, 3, C] masked chunk AABBs
+    const float* __restrict__ chunk_hi,   // [B, 3, C]
     int n_chunks, float radius2,
-    float* __restrict__ out,              // [Q, 10]
-    int32_t* __restrict__ visits) {       // [Q / 32] candidate chunks, or null
+    float* __restrict__ out,              // [B, Q, 10]
+    int32_t* __restrict__ visits) {       // [B, Q / 32] candidate chunks, or null
   __shared__ float4 s_buf[2][kChunk];
   __shared__ uint32_t s_bits[kBitWords];
+
+  // this block's lane: every array at the lane's stride
+  const size_t n_queries = static_cast<size_t>(gridDim.x) * kSub;
+  const size_t n_targets = static_cast<size_t>(n_chunks) * kChunk;
+  queries += blockIdx.y * n_queries * 3;
+  qmask += blockIdx.y * n_queries;
+  targets += blockIdx.y * n_targets * 3;
+  tmask += blockIdx.y * n_targets;
+  chunk_lo += blockIdx.y * 3 * static_cast<size_t>(n_chunks);
+  chunk_hi += blockIdx.y * 3 * static_cast<size_t>(n_chunks);
+  out += blockIdx.y * n_queries * kMoments;
+  if (visits != nullptr) visits += blockIdx.y * static_cast<size_t>(gridDim.x);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -118,11 +139,12 @@ __global__ void __launch_bounds__(kThreads) cov_pruned_kernel(
 
 extern "C" int dlo_cov_pruned(
     const void* queries, const void* qmask, const void* targets, const void* tmask,
-    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, float radius2,
-    void* out, void* visits, void* stream) {
-  if (n_queries % kSub != 0 || n_chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_queries > 0) {
-    cov_pruned_kernel<<<n_queries / kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, int n_lanes,
+    float radius2, void* out, void* visits, void* stream) {
+  if (!lanes_fit(n_queries, n_chunks, n_lanes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_queries > 0 && n_lanes > 0) {
+    cov_pruned_kernel<<<dim3(n_queries / kSub, n_lanes), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
         static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
         static_cast<const float*>(chunk_lo), static_cast<const float*>(chunk_hi),

@@ -46,6 +46,13 @@
 // and one-hot matrix-unit payload select exist because the TPU gathers
 // badly; they are not carried over, which also makes this kernel's
 // correspondences identical to the "pallas" path's.
+//
+// Lanes (the TPU kernel's batched entry _fused_linearize_batched, grid
+// (b_total, qc)): the grid is (Q / 32, B), blockIdx.y the lane, each lane
+// an independent source/target pair at its stride in [B, ...] arrays (seeds
+// and output indices are the lane's own). hb is [B, Q / 32, 32]: the
+// wrapper sums each lane's rows as it sums an unbatched launch's, so a
+// lane's H and b are those of a launch of that lane alone, bit for bit.
 
 #include "subtile_search.cuh"
 
@@ -61,32 +68,34 @@ __device__ __forceinline__ unsigned long long pack_key(float d2, int idx) {
 }
 
 __global__ void __launch_bounds__(kThreads) fused_linearize_kernel(
-    const float* __restrict__ p,          // [Q, 3] transformed source points
-    const float* __restrict__ m,          // [Q, 3] rotated source normals R n_a
-    const uint8_t* __restrict__ qw,       // [Q] source mask & normals_valid
-    const int32_t* __restrict__ seed,     // [Q] warm-start target index, -1 = cold
-    const float* __restrict__ targets,    // [T, 3] Morton-sorted, T = 512 C
-    const uint8_t* __restrict__ tmask,    // [T]
-    const float* __restrict__ tnormals,   // [T, 3]
-    const uint8_t* __restrict__ tnvalid,  // [T]
-    const float* __restrict__ chunk_lo,   // [3, C] masked chunk AABBs
-    const float* __restrict__ chunk_hi,   // [3, C]
+    const float* __restrict__ p,          // [B, Q, 3] transformed source points
+    const float* __restrict__ m,          // [B, Q, 3] rotated source normals R n_a
+    const uint8_t* __restrict__ qw,       // [B, Q] source mask & normals_valid
+    const int32_t* __restrict__ seed,     // [B, Q] warm-start target index, -1 = cold
+    const float* __restrict__ targets,    // [B, T, 3] Morton-sorted, T = 512 C
+    const uint8_t* __restrict__ tmask,    // [B, T]
+    const float* __restrict__ tnormals,   // [B, T, 3]
+    const uint8_t* __restrict__ tnvalid,  // [B, T]
+    const float* __restrict__ chunk_lo,   // [B, 3, C] masked chunk AABBs
+    const float* __restrict__ chunk_hi,   // [B, 3, C]
     int n_chunks, float radius2, float plane_a,
-    float* __restrict__ hb,               // [Q / 32, 32]
-    float* __restrict__ pay,              // [Q, 8]
-    int32_t* __restrict__ out_idx) {      // [Q]
+    float* __restrict__ hb,               // [B, Q / 32, 32]
+    float* __restrict__ pay,              // [B, Q, 8]
+    int32_t* __restrict__ out_idx) {      // [B, Q]
   __shared__ float4 s_buf[2][kChunk];
   __shared__ uint32_t s_bits[kBitWords];    // chunks to visit: gap^2 <= B
   __shared__ uint32_t s_listed[kBitWords];  // candidates at r^2 (slot 30)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int q = blockIdx.x * kSub + lane;
+  const int sub = lane_subtile();
+  const int q = sub * kSub + lane;                 // among every lane's queries
+  const int chunk0 = blockIdx.y * n_chunks;        // the lane's first target chunk
   const float qx = p[3 * q + 0];
   const float qy = p[3 * q + 1];
   const float qz = p[3 * q + 2];
   const bool weighted = qw[q] != 0;
-  float* row = hb + static_cast<size_t>(blockIdx.x) * kSlots;
+  float* row = hb + static_cast<size_t>(sub) * kSlots;
 
   float lo[3], hi[3];
   if (!subtile_aabb(qx, qy, qz, weighted, lo, hi)) {  // the same in every warp
@@ -103,10 +112,11 @@ __global__ void __launch_bounds__(kThreads) fused_linearize_kernel(
   // the seed: every warp computes the same, so B needs no barrier
   float seed_d2 = radius2;
   int seed_idx = -1;
-  const int j = seed[q];
-  if (weighted && j >= 0 && j < n_chunks * kChunk && tmask[j] != 0) {
-    const float d2 = dist2_rn(qx - targets[3 * j + 0], qy - targets[3 * j + 1],
-                              qz - targets[3 * j + 2]);
+  const int j = seed[q];  // an index into the lane's targets
+  const size_t tj = static_cast<size_t>(chunk0) * kChunk + j;
+  if (weighted && j >= 0 && j < n_chunks * kChunk && tmask[tj] != 0) {
+    const float d2 = dist2_rn(qx - targets[3 * tj + 0], qy - targets[3 * tj + 1],
+                              qz - targets[3 * tj + 2]);
     if (d2 < radius2) {
       seed_d2 = d2;
       seed_idx = j;
@@ -115,8 +125,9 @@ __global__ void __launch_bounds__(kThreads) fused_linearize_kernel(
   float bound = weighted ? seed_d2 : 0.0f;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) bound = fmaxf(bound, __shfl_xor_sync(kFullMask, bound, o));
-  select_candidates(lo, hi, chunk_lo, chunk_hi, n_chunks, bound, s_bits);
-  select_candidates(lo, hi, chunk_lo, chunk_hi, n_chunks, radius2, s_listed);
+  select_candidates(lo, hi, chunk_lo + 3 * chunk0, chunk_hi + 3 * chunk0, n_chunks, bound, s_bits);
+  select_candidates(lo, hi, chunk_lo + 3 * chunk0, chunk_hi + 3 * chunk0, n_chunks, radius2,
+                    s_listed);
   __syncthreads();
   const int n_words = (n_chunks + 31) >> 5;
 
@@ -126,13 +137,13 @@ __global__ void __launch_bounds__(kThreads) fused_linearize_kernel(
   int best_idx = -1;
   int c = next_candidate(s_bits, n_words, 0);
   bool ok0 = false, ok1 = false;
-  if (c >= 0) stage_issue(s_buf[0], targets, tmask, c, ok0, ok1);
+  if (c >= 0) stage_issue(s_buf[0], targets, tmask, chunk0 + c, ok0, ok1);
   for (int k = 0; c >= 0; ++k) {
     float4* buf = s_buf[k & 1];
     stage_finish(buf, ok0, ok1);
     __syncthreads();  // chunk c has landed; every warp is done with the other buffer
     const int next = next_candidate(s_bits, n_words, c + 1);
-    if (next >= 0) stage_issue(s_buf[(k + 1) & 1], targets, tmask, next, ok0, ok1);
+    if (next >= 0) stage_issue(s_buf[(k + 1) & 1], targets, tmask, chunk0 + next, ok0, ok1);
     const float4* sp = buf + warp * kSlice;
     const int base = c * kChunk + warp * kSlice;
 #pragma unroll 8
@@ -164,16 +175,17 @@ __global__ void __launch_bounds__(kThreads) fused_linearize_kernel(
     best_idx = win != 0xffffffffu ? static_cast<int>(win) : -1;
     best = best_idx >= 0 ? __uint_as_float(static_cast<uint32_t>(key >> 32)) : best;
 
-    const bool w = best_idx >= 0 && weighted && tnvalid[best_idx] != 0;
+    const size_t tb = static_cast<size_t>(chunk0) * kChunk + best_idx;  // among every lane's
+    const bool w = best_idx >= 0 && weighted && tnvalid[tb] != 0;
     float* v = s_val + lane;  // this query's slot s at v[s * kSub]
     float bx = 0.f, by = 0.f, bz = 0.f, nx = 0.f, ny = 0.f, nz = 0.f;
     if (w) {
-      bx = targets[3 * best_idx + 0];
-      by = targets[3 * best_idx + 1];
-      bz = targets[3 * best_idx + 2];
-      nx = tnormals[3 * best_idx + 0];
-      ny = tnormals[3 * best_idx + 1];
-      nz = tnormals[3 * best_idx + 2];
+      bx = targets[3 * tb + 0];
+      by = targets[3 * tb + 1];
+      bz = targets[3 * tb + 2];
+      nx = tnormals[3 * tb + 0];
+      ny = tnormals[3 * tb + 1];
+      nz = tnormals[3 * tb + 2];
       const float mx = m[3 * q + 0];
       const float my = m[3 * q + 1];
       const float mz = m[3 * q + 2];
@@ -272,11 +284,12 @@ __global__ void __launch_bounds__(kThreads) fused_linearize_kernel(
 extern "C" int dlo_fused_linearize(
     const void* p, const void* m, const void* qw, const void* seed,
     const void* targets, const void* tmask, const void* tnormals, const void* tnvalid,
-    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks,
+    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, int n_lanes,
     float radius2, float plane_a, void* hb, void* pay, void* out_idx, void* stream) {
-  if (n_queries % kSub != 0 || n_chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_queries > 0) {
-    fused_linearize_kernel<<<n_queries / kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (!lanes_fit(n_queries, n_chunks, n_lanes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_queries > 0 && n_lanes > 0) {
+    fused_linearize_kernel<<<dim3(n_queries / kSub, n_lanes), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(m),
         static_cast<const uint8_t*>(qw), static_cast<const int32_t*>(seed),
         static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),

@@ -59,22 +59,24 @@ using namespace dlo;
 
 template <bool kExpansion>
 __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
-    const float* __restrict__ queries,    // [Q, 3]
-    const uint8_t* __restrict__ qmask,    // [Q]
-    const float* __restrict__ targets,    // [T, 3], T = 512 C
-    const uint8_t* __restrict__ tmask,    // [T]
-    const float* __restrict__ chunk_lo,   // [3, C] masked chunk AABBs
-    const float* __restrict__ chunk_hi,   // [3, C]
+    const float* __restrict__ queries,    // [B, Q, 3]
+    const uint8_t* __restrict__ qmask,    // [B, Q]
+    const float* __restrict__ targets,    // [B, T, 3], T = 512 C
+    const uint8_t* __restrict__ tmask,    // [B, T]
+    const float* __restrict__ chunk_lo,   // [B, 3, C] masked chunk AABBs
+    const float* __restrict__ chunk_hi,   // [B, 3, C]
     int n_chunks, float radius2,
-    int32_t* __restrict__ out_idx,        // [Q]
-    float* __restrict__ out_d2,           // [Q]
-    int32_t* __restrict__ visits) {       // [Q / 32] candidate chunks, or null
+    int32_t* __restrict__ out_idx,        // [B, Q]
+    float* __restrict__ out_d2,           // [B, Q]
+    int32_t* __restrict__ visits) {       // [B, Q / 32] candidate chunks, or null
   __shared__ float4 s_buf[2][kChunk];
   __shared__ uint32_t s_bits[kBitWords];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int q = blockIdx.x * kSub + lane;
+  const int sub = lane_subtile();
+  const int q = sub * kSub + lane;                 // among every lane's queries
+  const int chunk0 = blockIdx.y * n_chunks;        // the lane's first target chunk
   const float qx = queries[3 * q + 0];
   const float qy = queries[3 * q + 1];
   const float qz = queries[3 * q + 2];
@@ -87,19 +89,20 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
       out_idx[q] = -1;
       out_d2[q] = INFINITY;
     }
-    if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = 0;
+    if (visits != nullptr && threadIdx.x == 0) visits[sub] = 0;
     return;
   }
-  select_candidates<kExpansion>(lo, hi, chunk_lo, chunk_hi, n_chunks, radius2, s_bits);
+  select_candidates<kExpansion>(lo, hi, chunk_lo + 3 * chunk0, chunk_hi + 3 * chunk0, n_chunks,
+                                radius2, s_bits);
   __syncthreads();
   const int n_words = (n_chunks + 31) >> 5;
-  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = count_candidates(s_bits, n_words);
+  if (visits != nullptr && threadIdx.x == 0) visits[sub] = count_candidates(s_bits, n_words);
 
   float best = valid ? radius2 : 0.0f;
   int best_idx = -1;
   int c = next_candidate(s_bits, n_words, 0);
   bool ok0 = false, ok1 = false;
-  if (c >= 0) stage_issue(s_buf[0], targets, tmask, c, ok0, ok1);
+  if (c >= 0) stage_issue(s_buf[0], targets, tmask, chunk0 + c, ok0, ok1);
   // The inner loop is spelled out in the kernel body: built from helper
   // functions, an earlier K2 ran 25-45 % slower with the same instructions.
   for (int k = 0; c >= 0; ++k) {
@@ -107,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
     stage_finish<kExpansion>(buf, ok0, ok1);
     __syncthreads();  // chunk c has landed; every warp is done with the other buffer
     const int next = next_candidate(s_bits, n_words, c + 1);
-    if (next >= 0) stage_issue(s_buf[(k + 1) & 1], targets, tmask, next, ok0, ok1);
+    if (next >= 0) stage_issue(s_buf[(k + 1) & 1], targets, tmask, chunk0 + next, ok0, ok1);
     const float4* sp = buf + warp * kSlice;
     const int base = c * kChunk + warp * kSlice;
 #pragma unroll 8
@@ -151,11 +154,11 @@ __global__ void __launch_bounds__(kThreads) nn1_pruned_kernel(
 template <bool kExpansion>
 int launch(const void* queries, const void* qmask, const void* targets, const void* tmask,
            const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks,
-           float radius2, void* out_idx, void* out_d2, void* visits, void* stream) {
-  if (n_queries % kSub != 0 || n_chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_queries > 0) {
+           int n_lanes, float radius2, void* out_idx, void* out_d2, void* visits, void* stream) {
+  if (!lanes_fit(n_queries, n_chunks, n_lanes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_queries > 0 && n_lanes > 0) {
     nn1_pruned_kernel<kExpansion>
-        <<<n_queries / kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        <<<dim3(n_queries / kSub, n_lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(queries), static_cast<const uint8_t*>(qmask),
             static_cast<const float*>(targets), static_cast<const uint8_t*>(tmask),
             static_cast<const float*>(chunk_lo), static_cast<const float*>(chunk_hi),
@@ -169,16 +172,16 @@ int launch(const void* queries, const void* qmask, const void* targets, const vo
 
 extern "C" int dlo_nn1_pruned(
     const void* queries, const void* qmask, const void* targets, const void* tmask,
-    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, float radius2,
-    void* out_idx, void* out_d2, void* visits, void* stream) {
+    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, int n_lanes,
+    float radius2, void* out_idx, void* out_d2, void* visits, void* stream) {
   return launch<false>(queries, qmask, targets, tmask, chunk_lo, chunk_hi, n_queries, n_chunks,
-                       radius2, out_idx, out_d2, visits, stream);
+                       n_lanes, radius2, out_idx, out_d2, visits, stream);
 }
 
 extern "C" int dlo_nn1_pruned_mxu(
     const void* queries, const void* qmask, const void* targets, const void* tmask,
-    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, float radius2,
-    void* out_idx, void* out_d2, void* visits, void* stream) {
+    const void* chunk_lo, const void* chunk_hi, int n_queries, int n_chunks, int n_lanes,
+    float radius2, void* out_idx, void* out_d2, void* visits, void* stream) {
   return launch<true>(queries, qmask, targets, tmask, chunk_lo, chunk_hi, n_queries, n_chunks,
-                      radius2, out_idx, out_d2, visits, stream);
+                      n_lanes, radius2, out_idx, out_d2, visits, stream);
 }

@@ -39,6 +39,15 @@
 // the thread writes |t|^2 into the w lane of its valid targets and
 // {0, 0, 0, +inf} over the invalid ones, so the expansion reads +inf there
 // (the +inf coordinates of K2 would give inf - inf = NaN).
+//
+// Lanes: every kernel here runs on a grid of (Q / 32 sub-tiles, B lanes).
+// blockIdx.y is the lane, an independent cloud pair whose arrays lie at the
+// lane's stride in [B, ...] arrays. K2-K4 number queries and sub-tiles
+// over every lane (lane_subtile) and pass the selection the lane's own
+// chunk AABBs and the staging the lane's first chunk (lane * C + c),
+// leaving their pointer parameters as they are (moved to the lane, the
+// pointers took K2 from 32 to 40 registers); K1 moves its pointers, which
+// measured faster for it (cov_pruned.cu).
 
 #pragma once
 
@@ -52,6 +61,19 @@ constexpr int kThreads = kSub * kWarps;  // 256
 constexpr int kSlice = kChunk / kWarps;  // targets per warp per chunk
 constexpr int kMaxChunks = 1024;         // bitmap capacity: T <= 524288
 constexpr int kBitWords = kMaxChunks / 32;
+constexpr int kMaxLanes = 65535;         // the grid's second dimension
+
+// This block's sub-tile among every lane's: its queries are
+// lane_subtile() * kSub + (0..31).
+__device__ __forceinline__ int lane_subtile() { return blockIdx.y * gridDim.x + blockIdx.x; }
+
+// A launch's grid: Q / 32 sub-tiles of n_lanes lanes, within the grid's
+// limits and with every query index times 8 inside an int.
+inline bool lanes_fit(int n_queries, int n_chunks, int n_lanes) {
+  return n_queries % kSub == 0 && n_chunks <= kMaxChunks && n_lanes >= 0 &&
+         n_lanes <= kMaxLanes &&
+         static_cast<long long>(n_queries) * n_lanes <= 0x7fffffffLL / 8;
+}
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kExpansionSlack = 1.0f / (1 << 19);  // K4's selection slack, see above
 static_assert(kSub == 32, "a sub-tile is one warp's lanes");

@@ -9,6 +9,10 @@ fresh host mask exists yet:
   D fixed directions (equatorial ring + Fibonacci sphere);
 - concave (alpha shape): a keyframe is on the boundary iff along some
   direction no neighbour within 2*alpha lies further out.
+
+Both take a leading lane dimension ([B, K, 3] rings, [B] alphas) for the
+batched step, which always uses these surrogates (as the JAX package's
+batched and sharded paths do).
 """
 
 from __future__ import annotations
@@ -40,14 +44,17 @@ def fibonacci_directions(d: int) -> np.ndarray:
 def convex_membership(
     positions: torch.Tensor, mask: torch.Tensor, directions: torch.Tensor
 ) -> torch.Tensor:
-    """[K, 3], [K], [D, 3] -> [K] bool; fewer than 4 keyframes -> none."""
-    k = positions.shape[0]
-    proj = positions @ directions.T  # [K, D]
-    proj = torch.where(mask[:, None], proj, -torch.inf)
-    best = torch.argmax(proj, dim=0)  # [D]
-    members = torch.zeros((k,), dtype=torch.bool, device=positions.device)
-    members[best] = True
-    enough = torch.sum(mask) >= 4
+    """[..., K, 3], [..., K], [D, 3] -> [..., K] bool; fewer than 4
+    keyframes -> none."""
+    proj = positions @ directions.T  # [..., K, D]
+    proj = torch.where(mask[..., None], proj, -torch.inf)
+    best = torch.argmax(proj, dim=-2)  # [..., D]
+    members = torch.zeros(mask.shape, dtype=torch.bool, device=positions.device)
+    if best.dim() == 1:
+        members[best] = True
+    else:
+        members.scatter_(-1, best, True)
+    enough = torch.sum(mask, dim=-1, keepdim=True) >= 4
     return members & mask & enough
 
 
@@ -57,16 +64,17 @@ def concave_membership(
     directions: torch.Tensor,
     alpha: torch.Tensor,
 ) -> torch.Tensor:
-    """[K,3], [K], [D,3], scalar -> [K] bool; fewer than 5 keyframes -> none."""
-    k = positions.shape[0]
-    diff = positions[None, :, :] - positions[:, None, :]  # [K, K, 3] j - i
+    """[..., K,3], [..., K], [D,3], [...] -> [..., K] bool; fewer than 5
+    keyframes -> none."""
+    k = positions.shape[-2]
+    diff = positions[..., None, :, :] - positions[..., :, None, :]  # [..., K, K, 3] j - i
     d2 = torch.sum(diff * diff, dim=-1)
-    radius2 = (2.0 * alpha) ** 2
-    near = (d2 <= radius2) & mask[None, :] & mask[:, None]
+    radius2 = ((2.0 * alpha) ** 2)[..., None, None]
+    near = (d2 <= radius2) & mask[..., None, :] & mask[..., :, None]
     near = near & ~torch.eye(k, dtype=torch.bool, device=positions.device)
-    along = torch.einsum("ijc,dc->ijd", diff, directions)  # [K, K, D]
-    margin = 1e-3 * alpha
-    blocked = torch.any(near[:, :, None] & (along > margin), dim=1)  # [K, D]
+    along = torch.einsum("...ijc,dc->...ijd", diff, directions)  # [..., K, K, D]
+    margin = (1e-3 * alpha)[..., None, None, None]
+    blocked = torch.any(near[..., None] & (along > margin), dim=-2)  # [..., K, D]
     boundary = torch.any(~blocked, dim=-1) & mask
-    enough = torch.sum(mask) >= 5
+    enough = torch.sum(mask, dim=-1, keepdim=True) >= 5
     return boundary & enough

@@ -15,6 +15,11 @@ JAX package's ``OdomState`` as numpy arrays keyed by field path
 test can carry the reference's state across and step both packages from
 it. ``submap_grid`` is the S2M hash index of the ``"hashgrid"`` backend
 (``None`` on the others), rebuilt with the submap.
+
+The batched step (``parallel/batched.py``) carries B sequences as one state
+whose every tensor has a leading [B] (``batched_state``), the keyframe
+ring and the submap cache included, and returns a :class:`FrameResult`
+whose every field is a [B] tensor.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ class KeyframeStore(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.positions.shape[0]
+        return self.positions.shape[-2]
 
 
 class OdomState(NamedTuple):
@@ -72,7 +77,9 @@ class OdomState(NamedTuple):
 
 class FrameResult(NamedTuple):
     """Per-frame outputs. Values the step already read on the host (loop
-    counts, branch flags) are Python scalars; the rest are device tensors."""
+    counts, branch flags) are Python scalars; the rest are device tensors.
+    From the batched step every field is a [B] device tensor (or [B, ...]),
+    the loop counts (int32) and branch flags (bool) included."""
 
     pose: torch.Tensor
     position: torch.Tensor
@@ -121,7 +128,7 @@ def build_submap_grid(cfg: DloConfig, points: torch.Tensor, mask: torch.Tensor) 
 
 
 def empty_state(
-    cfg: DloConfig, initial_pose: torch.Tensor | None = None, device="cpu"
+    cfg: DloConfig, initial_pose: torch.Tensor | None = None, device="cuda"
 ) -> OdomState:
     n = cfg.shapes.n_scan
     k = cfg.shapes.max_keyframes

@@ -37,12 +37,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types (see the extern "C" blocks)
 _SIGNATURES = {
-    "dlo_nn1_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
-    "dlo_nn1_pruned_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
+    "dlo_nn1_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
+    "dlo_nn1_pruned_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     "dlo_nn1_exhaustive": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "dlo_cov_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
+    "dlo_cov_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "dlo_cov_exhaustive": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
-    "dlo_fused_linearize": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+    "dlo_fused_linearize": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                             _P, _P, _P, _P),
 }
 

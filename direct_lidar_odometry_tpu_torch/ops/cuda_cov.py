@@ -23,6 +23,10 @@ Output rows are the 10 query-relative moments (n, sx, sy, sz, sxx, sxy,
 sxz, syy, syz, szz) of d = t - q over valid targets with |d|^2 <= r^2.
 Rows of invalid queries are zero in both routes.
 
+K1 and its plain version take a leading lane dimension as K2 does
+(``ops/cuda_nn.py``; the JAX package's ``_pruned_moments_batched``): [B,
+Q, 3] queries over [B, T, 3] clouds, one launch, [B, Q, 10] moments.
+
 ``launches`` (K1) and ``exhaustive_launches`` (K6) count each wrapper's
 calls per route (``"cuda"``/``"plain"``).
 """
@@ -42,6 +46,7 @@ from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
     plain_scan_stats,
     plain_visits,
 )
+from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 N_MOMENTS = 10
 
@@ -63,8 +68,12 @@ def cov_plain(
     """Plain PyTorch version of the kernel: exhaustive radius moments.
 
     The radius test evaluates d2 = (dx*dx + dy*dy) + dz*dz like the kernel,
-    so both select the same neighbours. [Q, 10] f32.
+    so both select the same neighbours. [Q, 10] f32; with a leading lane
+    dimension [B, Q, 10], lane by lane.
     """
+    if queries.dim() == 3:
+        return per_lane(cov_plain, points, mask, queries, query_mask, radius,
+                        lanes=queries.shape[0])
     r2 = f32_radius2(radius)
     q_total = queries.shape[0]
     out = torch.zeros((q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
@@ -105,21 +114,24 @@ def cov_pruned(
     receives each sub-tile's candidate count. A CUDA tensor launches the
     kernel on the current stream (no allocation inside, no
     synchronization); a CPU tensor runs the plain version and fills
-    ``visits`` from :func:`ops.cuda_nn.subtile_candidates`.
+    ``visits`` from :func:`ops.cuda_nn.subtile_candidates`. With a leading
+    lane dimension on every argument, one launch covers B independent
+    clouds and returns [B, Q, 10].
     """
-    check_search_inputs(queries, query_mask, points, mask, chunk_lo, chunk_hi, visits)
+    lanes = check_search_inputs(queries, query_mask, points, mask, chunk_lo, chunk_hi, visits)
     if queries.device.type == "cpu":
         launches["plain"] += 1
         plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius)
         return cov_plain(points, mask, queries, query_mask, radius)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
-    q_total = queries.shape[0]
-    out = torch.empty((q_total, N_MOMENTS), dtype=torch.float32, device=queries.device)
+    q_total = queries.shape[-2]
+    out = torch.empty(queries.shape[:-1] + (N_MOMENTS,), dtype=torch.float32,
+                      device=queries.device)
     with torch.cuda.device(queries.device):
         err = cuda_build.library().dlo_cov_pruned(
             queries.data_ptr(), query_mask.data_ptr(), points.data_ptr(), mask.data_ptr(),
-            chunk_lo.data_ptr(), chunk_hi.data_ptr(), q_total, chunk_lo.shape[1],
+            chunk_lo.data_ptr(), chunk_hi.data_ptr(), q_total, chunk_lo.shape[-1], lanes,
             f32_radius2(radius), out.data_ptr(), None if visits is None else visits.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
@@ -140,7 +152,8 @@ def radius_moments_sorted(
     """Pruned radius moments over a Morton-sorted cloud. [Q, 10].
 
     ``chunk_lo``/``chunk_hi`` are the cloud's [3, T//512] chunk AABBs.
-    Matches the exhaustive moments for every valid query.
+    Matches the exhaustive moments for every valid query. Every argument
+    may carry a leading lane dimension [B] ([B, Q, 10], one launch).
     """
     return cov_pruned(points, mask, queries, query_mask, chunk_lo, chunk_hi, radius)
 
@@ -192,18 +205,19 @@ def radius_moments(
 
 
 def moments_to_cov(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[Q,10] -> (cov [Q,3,3], count [Q]). Query-relative, so well-conditioned."""
-    n = torch.clamp(m[:, 0], min=1.0)
-    mu = m[:, 1:4] / n[:, None]
-    sxx, sxy, sxz = m[:, 4] / n, m[:, 5] / n, m[:, 6] / n
-    syy, syz, szz = m[:, 7] / n, m[:, 8] / n, m[:, 9] / n
-    exx = sxx - mu[:, 0] * mu[:, 0]
-    exy = sxy - mu[:, 0] * mu[:, 1]
-    exz = sxz - mu[:, 0] * mu[:, 2]
-    eyy = syy - mu[:, 1] * mu[:, 1]
-    eyz = syz - mu[:, 1] * mu[:, 2]
-    ezz = szz - mu[:, 2] * mu[:, 2]
+    """[..., Q, 10] -> (cov [..., Q, 3, 3], count [..., Q]). Query-relative,
+    so well-conditioned."""
+    n = torch.clamp(m[..., 0], min=1.0)
+    mu = m[..., 1:4] / n[..., None]
+    sxx, sxy, sxz = m[..., 4] / n, m[..., 5] / n, m[..., 6] / n
+    syy, syz, szz = m[..., 7] / n, m[..., 8] / n, m[..., 9] / n
+    exx = sxx - mu[..., 0] * mu[..., 0]
+    exy = sxy - mu[..., 0] * mu[..., 1]
+    exz = sxz - mu[..., 0] * mu[..., 2]
+    eyy = syy - mu[..., 1] * mu[..., 1]
+    eyz = syz - mu[..., 1] * mu[..., 2]
+    ezz = szz - mu[..., 2] * mu[..., 2]
     row0 = torch.stack([exx, exy, exz], dim=-1)
     row1 = torch.stack([exy, eyy, eyz], dim=-1)
     row2 = torch.stack([exz, eyz, ezz], dim=-1)
-    return torch.stack([row0, row1, row2], dim=-2), m[:, 0]
+    return torch.stack([row0, row1, row2], dim=-2), m[..., 0]

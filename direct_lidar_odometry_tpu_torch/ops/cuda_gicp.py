@@ -33,6 +33,13 @@ Payload ``pay [Q, 8]``: mu_b xyz, n_b xyz, w, best d2 (the search's final
 bound: r^2 where nothing was found, 0 for queries of weight 0); zero
 point and normal where w = 0.
 
+K3 and its plain version take a leading lane dimension as K2 does
+(``ops/cuda_nn.py``; the JAX package's ``_fused_linearize_batched``): [B,
+Q, 3] sources against [B, T, 3] targets in one launch, ``hb`` [B, Q // 32,
+32]. :func:`fused_linearize` sums each lane's rows with the unbatched
+entry's own ``torch.sum`` (``utils/lanes.per_lane``), so a lane's H and b
+equal those of its inputs launched alone, bit for bit.
+
 ``launches`` counts the wrapper's calls per route (``"cuda"``/``"plain"``).
 """
 
@@ -51,6 +58,7 @@ from direct_lidar_odometry_tpu_torch.ops.cuda_nn import (
     nn1_plain,
     subtile_gap2,
 )
+from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 N_SLOTS = 32
 _QUERY_SLOTS = 29
@@ -66,7 +74,7 @@ def reset_launches() -> None:
 class FusedLinearization(NamedTuple):
     """Unpacked fused-kernel results (see the module's row layout)."""
 
-    h: torch.Tensor              # [6, 6]
+    h: torch.Tensor              # [6, 6]  (each field with a leading [B] for B lanes)
     b: torch.Tensor              # [6]
     error: torch.Tensor          # f32
     n_corr: torch.Tensor         # int32
@@ -160,8 +168,14 @@ def fused_linearize_plain(
     maths and per-sub-tile sums. The seed changes which chunks the kernel
     visits, never its result, so the exhaustive search ignores it; slots
     29/30 count the kernel's selection (:func:`ops.cuda_nn.subtile_gap2`
-    against :func:`seed_bounds` and against r^2).
+    against :func:`seed_bounds` and against r^2). With a leading lane
+    dimension on every tensor, lane by lane: ([B, Q // 32, 32], [B, Q, 8],
+    [B, Q]).
     """
+    if p_t.dim() == 3:
+        return per_lane(fused_linearize_plain, p_t, m_rot, query_weight, seed, targets,
+                        target_mask, target_normals, target_normals_valid, chunk_lo, chunk_hi,
+                        radius, plane_eps, lanes=p_t.shape[0])
     idx, d2 = nn1_plain(p_t, query_weight, targets, target_mask, radius)
     found = idx >= 0
     j = torch.clamp(idx, min=0).to(torch.int64)
@@ -196,12 +210,14 @@ def fused_linearize_pruned(
     bool; chunk_lo/chunk_hi the targets' [3, T//512] masked chunk AABBs.
     The kernel selects the candidate chunks of each 32-query sub-tile of
     query_weight itself. A CUDA tensor launches the kernel on the current
-    stream (no allocation inside, no synchronization).
+    stream (no allocation inside, no synchronization). With a leading lane
+    dimension [B] on every tensor, one launch covers B independent lanes:
+    ([B, Q // 32, 32], [B, Q, 8], [B, Q]), indices local to each lane.
     """
-    check_search_inputs(p_t, query_weight, targets, target_mask, chunk_lo, chunk_hi)
-    extra = dict(m_rot=(m_rot, torch.float32, p_t.shape), seed=(seed, torch.int32, (p_t.shape[0],)),
+    lanes = check_search_inputs(p_t, query_weight, targets, target_mask, chunk_lo, chunk_hi)
+    extra = dict(m_rot=(m_rot, torch.float32, p_t.shape), seed=(seed, torch.int32, p_t.shape[:-1]),
                  target_normals=(target_normals, torch.float32, targets.shape),
-                 target_normals_valid=(target_normals_valid, torch.bool, (targets.shape[0],)))
+                 target_normals_valid=(target_normals_valid, torch.bool, targets.shape[:-1]))
     for name, (t, dt, shape) in extra.items():
         if not t.is_contiguous() or t.device != p_t.device or t.dtype != dt or t.shape != shape:
             raise ValueError(f"{name} must be a contiguous {dt} tensor of shape {tuple(shape)} "
@@ -213,22 +229,41 @@ def fused_linearize_pruned(
                                      radius, plane_eps)
     if p_t.device.type != "cuda":
         raise ValueError(f"unsupported device {p_t.device}")
-    q_total = p_t.shape[0]
-    hb = torch.empty((q_total // SUB_TILE, N_SLOTS), dtype=torch.float32, device=p_t.device)
-    pay = torch.empty((q_total, 8), dtype=torch.float32, device=p_t.device)
-    idx = torch.empty((q_total,), dtype=torch.int32, device=p_t.device)
+    lead = p_t.shape[:-2]
+    q_total = p_t.shape[-2]
+    hb = torch.empty(lead + (q_total // SUB_TILE, N_SLOTS), dtype=torch.float32,
+                     device=p_t.device)
+    pay = torch.empty(lead + (q_total, 8), dtype=torch.float32, device=p_t.device)
+    idx = torch.empty(lead + (q_total,), dtype=torch.int32, device=p_t.device)
     with torch.cuda.device(p_t.device):
         err = cuda_build.library().dlo_fused_linearize(
             p_t.data_ptr(), m_rot.data_ptr(), query_weight.data_ptr(), seed.data_ptr(),
             targets.data_ptr(), target_mask.data_ptr(), target_normals.data_ptr(),
             target_normals_valid.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
-            q_total, chunk_lo.shape[1], f32_radius2(radius), float(np.float32(1.0 - plane_eps)),
+            q_total, chunk_lo.shape[-1], lanes, f32_radius2(radius),
+            float(np.float32(1.0 - plane_eps)),
             hb.data_ptr(), pay.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(p_t.device).cuda_stream,
         )
     cuda_build.check(err, "fused_linearize")
     launches["cuda"] += 1
     return hb, pay, idx
+
+
+def _unpack_h(sums: torch.Tensor) -> torch.Tensor:
+    """H [..., 6, 6] from the summed row slots 0-20 ([..., 32])."""
+    h00, h01, h02, h11, h12, h22 = sums[..., 0:6].unbind(-1)
+    tr = sums[..., 6:15].reshape(sums.shape[:-1] + (3, 3))
+    m00, m01, m02, m11, m12, m22 = sums[..., 15:21].unbind(-1)
+
+    def sym3(a, b, c, d, e, f):
+        return torch.stack([torch.stack([a, b, c], -1), torch.stack([b, d, e], -1),
+                            torch.stack([c, e, f], -1)], -2)
+
+    h_tl = sym3(h00, h01, h02, h11, h12, h22)
+    h_br = sym3(m00, m01, m02, m11, m12, m22)
+    # the kernel emits S M = -S^T M; _linearize's h_tr = -sum S^T M = +sum S M
+    return torch.cat([torch.cat([h_tl, tr], dim=-1), torch.cat([tr.mT, h_br], dim=-1)], dim=-2)
 
 
 def fused_linearize(
@@ -255,6 +290,9 @@ def fused_linearize(
     shrink each sub-tile's chunk selection); the result is exactly the
     unseeded one. ``bb_visits`` / ``bb_candidates`` count chunks per
     32-query sub-tile: the kernel evaluates 32 * 512 * bb_visits pairs.
+    With a leading lane dimension [B] on every tensor, one launch serves B
+    lanes and every field gains the lane dimension (each lane's rows summed
+    as the unbatched entry sums them).
     """
     p_t = p_t.contiguous()
     m_rot = m_rot.contiguous()
@@ -266,18 +304,13 @@ def fused_linearize(
         p_t, m_rot, query_weight, seed, target_points, target_mask,
         target_normals, target_normals_valid, chunk_lo, chunk_hi, radius, plane_eps,
     )
-    sums = torch.sum(hb, dim=0)
-    h00, h01, h02, h11, h12, h22 = sums[0:6].unbind()
-    tr = sums[6:15].reshape(3, 3)
-    m00, m01, m02, m11, m12, m22 = sums[15:21].unbind()
-    h_tl = torch.stack([torch.stack([h00, h01, h02]), torch.stack([h01, h11, h12]),
-                        torch.stack([h02, h12, h22])])
-    h_br = torch.stack([torch.stack([m00, m01, m02]), torch.stack([m01, m11, m12]),
-                        torch.stack([m02, m12, m22])])
-    # the kernel emits S M = -S^T M; _linearize's h_tr = -sum S^T M = +sum S M
-    h = torch.cat([torch.cat([h_tl, tr], dim=1), torch.cat([tr.T, h_br], dim=1)], dim=0)
+    if hb.dim() == 3:
+        sums = per_lane(torch.sum, hb, 0)
+    else:
+        sums = torch.sum(hb, dim=0)
     return FusedLinearization(
-        h=h, b=sums[21:27], error=sums[27], n_corr=sums[28].to(torch.int32),
-        mu_b=pay[:, 0:3], n_b=pay[:, 3:6], weight=pay[:, 6], best_d2=pay[:, 7], corr=corr,
-        bb_visits=sums[29], bb_candidates=sums[30],
+        h=_unpack_h(sums), b=sums[..., 21:27], error=sums[..., 27],
+        n_corr=sums[..., 28].to(torch.int32), mu_b=pay[..., 0:3], n_b=pay[..., 3:6],
+        weight=pay[..., 6], best_d2=pay[..., 7], corr=corr, bb_visits=sums[..., 29],
+        bb_candidates=sums[..., 30],
     )

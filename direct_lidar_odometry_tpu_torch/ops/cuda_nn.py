@@ -26,10 +26,19 @@ every GICP iteration, and the exhaustive ``query_1nn``.
   (query tile, target split) blocks; :func:`exhaustive_splits` sizes that
   grid.
 
+The pruned kernels K1-K4 take a leading lane dimension (the JAX
+package's batched entries under ``jax.vmap``, ``_pruned_1nn_batched``):
+[B, Q, 3] queries against [B, T, 3] targets with [B, 3, C] chunk AABBs, B
+independent clouds in one launch on a grid of (Q / 32, B) blocks, with
+indices local to each lane. [Q, 3] inputs are one lane and give unbatched
+outputs. A lane of a B-lane launch equals a launch of that lane alone bit
+for bit; the plain versions take the same lane dimension and run lane by
+lane.
+
 Each kernel has its own launch counter, counted per route: ``"cuda"``
 where the wrapper launched the kernel, ``"plain"`` where it ran the plain
 version: ``launches`` (K2), ``mxu_launches`` (K4), ``exhaustive_launches``
-(K5).
+(K5). A launch counts once whatever its number of lanes.
 """
 
 from __future__ import annotations
@@ -37,7 +46,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from direct_lidar_odometry_tpu_torch.core.cloud import gather_rows
 from direct_lidar_odometry_tpu_torch.ops import cuda_build, morton
+from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 TILE = 128                    # queries per tile (one CUDA block row of K5, K6)
 SUB_TILE = 32                 # queries per sub-tile (one CUDA block of K1-K4)
@@ -45,6 +56,7 @@ CHUNK = morton.TARGET_CHUNK   # targets per Morton chunk
 MAX_CHUNKS = 1024             # chunks per target cloud, every pruned kernel
 SCAN_BLOCKS_PER_SM = 16       # blocks of the K5/K6 scan grid per multiprocessor
 MAX_SPLITS = 65535            # the grid's second dimension
+MAX_LANES = 65535             # lanes of one K1-K4 launch (the grid's second dimension)
 
 launches = {"cuda": 0, "plain": 0}
 mxu_launches = {"cuda": 0, "plain": 0}
@@ -195,8 +207,12 @@ def nn1_plain(
 
     Coordinate differences, d2 = (dx*dx + dy*dy) + dz*dz (the kernel's
     order), ties to the lower target index. Returns (idx int32 [Q], -1 =
-    none; d2 f32 [Q], +inf where none).
+    none; d2 f32 [Q], +inf where none); [B, Q, 3] queries against [B, T, 3]
+    targets give [B, Q] outputs, lane by lane.
     """
+    if queries.dim() == 3:
+        return per_lane(nn1_plain, queries, query_mask, targets, target_mask, radius,
+                        lanes=queries.shape[0])
     return _radius_plain(queries, query_mask, targets, target_mask, radius)
 
 
@@ -207,7 +223,11 @@ def nn1_mxu_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4: :func:`nn1_plain` on the distance
     expansion, evaluated in the kernel's order (so the two agree bit for
-    bit). Returns (idx int32 [Q], expansion d2 f32 [Q], +inf where none)."""
+    bit). Returns (idx int32 [Q], expansion d2 f32 [Q], +inf where none);
+    with a lane dimension, as :func:`nn1_plain`."""
+    if queries.dim() == 3:
+        return per_lane(nn1_mxu_plain, queries, query_mask, targets, target_mask, radius,
+                        lanes=queries.shape[0])
     return _radius_plain(queries, query_mask, targets, target_mask, radius, expansion=True)
 
 
@@ -240,10 +260,11 @@ def _check_sizes(q_total: int, t_total: int) -> None:
 
 
 def check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi,
-                        visits=None):
+                        visits=None) -> int:
     """Inputs of the sub-tile kernels K1-K4: the clouds, the targets' [3, C]
     chunk AABBs with C = T // 512 <= 1024, and the optional int32
-    [Q // 32] ``visits`` output."""
+    [Q // 32] ``visits`` output; each with the same leading lane dimension
+    [B] or none. Returns the lanes (1 without a lane dimension)."""
     tensors = dict(queries=queries, query_mask=query_mask, targets=targets,
                    target_mask=target_mask, chunk_lo=chunk_lo, chunk_hi=chunk_hi)
     if visits is not None:
@@ -251,27 +272,41 @@ def check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chu
     _check_tensors(dict(queries=torch.float32, targets=torch.float32, query_mask=torch.bool,
                         target_mask=torch.bool, chunk_lo=torch.float32,
                         chunk_hi=torch.float32, visits=torch.int32), **tensors)
-    q_total, t_total = queries.shape[0], targets.shape[0]
+    if queries.dim() not in (2, 3):
+        raise ValueError(f"queries must be [Q, 3] or [B, Q, 3], got {tuple(queries.shape)}")
+    lead = tuple(queries.shape[:-2])
+    q_total, t_total = queries.shape[-2], targets.shape[-2]
     _check_sizes(q_total, t_total)
     n_chunks = t_total // CHUNK
-    if chunk_lo.shape != (3, n_chunks) or chunk_hi.shape != (3, n_chunks):
-        raise ValueError(f"chunk AABBs {tuple(chunk_lo.shape)} / {tuple(chunk_hi.shape)} "
-                         f"do not match T={t_total}")
+    want = dict(queries=(q_total, 3), query_mask=(q_total,), targets=(t_total, 3),
+                target_mask=(t_total,), chunk_lo=(3, n_chunks), chunk_hi=(3, n_chunks),
+                visits=(q_total // SUB_TILE,))
+    for name, t in tensors.items():
+        if tuple(t.shape) != lead + want[name]:
+            what = "chunk AABBs" if name.startswith("chunk") else name
+            raise ValueError(f"{what} {tuple(t.shape)} do not match queries "
+                             f"{tuple(queries.shape)} and targets {tuple(targets.shape)}")
     if n_chunks > MAX_CHUNKS:
         raise ValueError(f"{n_chunks} chunks exceed the kernels' {MAX_CHUNKS}")
-    if visits is not None and visits.shape != (q_total // SUB_TILE,):
-        raise ValueError(f"visits {tuple(visits.shape)} does not match Q={q_total}")
+    lanes = lead[0] if lead else 1
+    if lanes > MAX_LANES:
+        raise ValueError(f"{lanes} lanes exceed the kernels' {MAX_LANES}")
+    return lanes
 
 
 def plain_visits(visits, queries, query_mask, chunk_lo, chunk_hi, radius,
                  expansion: bool = False) -> None:
     """The CPU route of the ``visits`` output of K1/K2 (each sub-tile's
     candidate count from :func:`subtile_candidates`) and of K4
-    (``expansion``, from :func:`expansion_candidates`)."""
+    (``expansion``, from :func:`expansion_candidates`), lane by lane."""
     if visits is not None:
         select = expansion_candidates if expansion else subtile_candidates
-        cand = select(queries, query_mask, chunk_lo, chunk_hi, radius)
-        visits.copy_(cand.sum(dim=1, dtype=torch.int32))
+        if queries.dim() == 3:
+            cand = per_lane(select, queries, query_mask, chunk_lo, chunk_hi, radius,
+                            lanes=queries.shape[0])
+        else:
+            cand = select(queries, query_mask, chunk_lo, chunk_hi, radius)
+        visits.copy_(cand.sum(dim=-1, dtype=torch.int32))
 
 
 def check_exhaustive_inputs(queries, targets, target_mask):
@@ -296,7 +331,8 @@ def _pruned_search(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2 (or with ``expansion`` K4): check, then the plain version on a CPU
     tensor or the kernel on a CUDA one."""
-    check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi, visits)
+    lanes = check_search_inputs(queries, query_mask, targets, target_mask, chunk_lo, chunk_hi,
+                                visits)
     counter = mxu_launches if expansion else launches
     if queries.device.type == "cpu":
         counter["plain"] += 1
@@ -306,14 +342,14 @@ def _pruned_search(
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     name = "dlo_nn1_pruned_mxu" if expansion else "dlo_nn1_pruned"
-    q_total = queries.shape[0]
-    idx = torch.empty((q_total,), dtype=torch.int32, device=queries.device)
-    d2 = torch.empty((q_total,), dtype=torch.float32, device=queries.device)
+    q_total = queries.shape[-2]
+    idx = torch.empty(queries.shape[:-1], dtype=torch.int32, device=queries.device)
+    d2 = torch.empty(queries.shape[:-1], dtype=torch.float32, device=queries.device)
     with torch.cuda.device(queries.device):
         err = getattr(cuda_build.library(), name)(
             queries.data_ptr(), query_mask.data_ptr(), targets.data_ptr(),
             target_mask.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
-            q_total, chunk_lo.shape[1], f32_radius2(radius), idx.data_ptr(), d2.data_ptr(),
+            q_total, chunk_lo.shape[-1], lanes, f32_radius2(radius), idx.data_ptr(), d2.data_ptr(),
             None if visits is None else visits.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
@@ -339,7 +375,9 @@ def nn1_pruned(
     32 * 512 * visits.sum() pairs. A CUDA tensor launches the kernel on the
     current stream (no allocation inside, no synchronization); a CPU tensor
     runs the plain version and fills ``visits`` from
-    :func:`subtile_candidates`.
+    :func:`subtile_candidates`. With a leading lane dimension (queries
+    [B, Q, 3], targets [B, T, 3], AABBs [B, 3, C], ``visits`` [B, Q // 32])
+    one launch searches B independent lanes and returns [B, Q] outputs.
     """
     return _pruned_search(False, queries, query_mask, targets, target_mask,
                           chunk_lo, chunk_hi, radius, visits)
@@ -373,7 +411,8 @@ def query_1nn_sorted(
     """1-NN within ``radius`` over a Morton-sorted target cloud.
 
     ``chunk_lo``/``chunk_hi`` are the targets' [3, T//512] masked chunk
-    AABBs. Returns (idx [Q] int64, -1 where not found; exact d2 [Q], +inf
+    AABBs; every argument may carry a leading lane dimension [B] (one
+    launch, [B, Q] outputs, indices local to each lane). Returns (idx [Q] int64, -1 where not found; exact d2 [Q], +inf
     where no winner; found [Q] bool), the JAX package's contract.
     ``mxu=True`` searches with kernel K4's distance expansion: the winner
     may differ among near-ties and borderline radius hits, the reported d2
@@ -384,7 +423,7 @@ def query_1nn_sorted(
                          chunk_lo, chunk_hi, radius)
     best_idx = best_idx.to(torch.int64)
     # the winner's d2 from the index, in the public contract's own form
-    sel = target_points[torch.clamp(best_idx, min=0)]
+    sel = gather_rows(target_points, torch.clamp(best_idx, min=0))
     best_d2 = torch.sum((queries - sel) ** 2, dim=-1)
     found = query_mask & (best_idx >= 0) & (best_d2 < f32_radius2(radius))
     best_d2 = torch.where(best_idx >= 0, best_d2, torch.inf)

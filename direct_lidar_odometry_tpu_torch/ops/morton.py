@@ -6,6 +6,10 @@ spatially compact; the per-chunk AABBs then let the pruned kernels
 (``ops/cuda_nn.py``, ``ops/cuda_cov.py``) skip whole chunks whose box lies
 beyond the search radius — the tile-granular analog of a kd-tree's pruning.
 
+Every function takes a leading lane dimension as well: [B, N, 3] clouds
+are sorted and chunked lane by lane (the batched step,
+``parallel/batched.py``).
+
 The reference's codes are uint32. PyTorch's uint32 support is thin
 (especially on CUDA), so codes here are int64 holding the same 32-bit
 values; the invalid sentinel ``0xFFFFFFFF`` still sorts after every valid
@@ -15,6 +19,8 @@ values; the invalid sentinel ``0xFFFFFFFF`` still sorts after every valid
 from __future__ import annotations
 
 import torch
+
+from direct_lidar_odometry_tpu_torch.core.cloud import gather_rows
 
 # quantization cell for the 10-bit-per-axis Morton code. Only locality
 # quality depends on this, never correctness; 1024 cells cover +-256 m.
@@ -45,12 +51,13 @@ def interleave3(c: torch.Tensor) -> torch.Tensor:
 def morton_codes(
     points: torch.Tensor, mask: torch.Tensor, cell: float = DEFAULT_CELL
 ) -> torch.Tensor:
-    """[N,3],[N] -> int64 Z-order codes; invalid points get INVALID_CODE.
+    """[..., N,3],[..., N] -> int64 Z-order codes; invalid points get
+    INVALID_CODE.
 
     The origin is the masked minimum, so codes are translation-invariant per
     cloud and the 10-bit range is spent on the cloud's actual extent.
     """
-    origin = torch.amin(torch.where(mask[:, None], points, torch.inf), dim=0)
+    origin = torch.amin(torch.where(mask[..., None], points, torch.inf), dim=-2, keepdim=True)
     origin = torch.where(torch.isfinite(origin), origin, 0.0)
     q = torch.clamp((points - origin) / cell, 0.0, 1023.0).to(torch.int64)
     code = interleave3(q)
@@ -60,32 +67,35 @@ def morton_codes(
 def sort_order(
     points: torch.Tensor, mask: torch.Tensor, cell: float = DEFAULT_CELL
 ) -> torch.Tensor:
-    """[N] int64 permutation putting the cloud in Z-order, invalid last."""
+    """[..., N] int64 permutation putting the cloud in Z-order, invalid last."""
     return torch.sort(morton_codes(points, mask, cell), stable=True).indices
 
 
 def sort_cloud(
     points: torch.Tensor, mask: torch.Tensor, cell: float = DEFAULT_CELL
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Z-order the cloud: ``(points [N,3], mask [N])`` sorted, invalid last."""
+    """Z-order the cloud: ``(points [..., N,3], mask [..., N])`` sorted,
+    invalid last."""
     order = sort_order(points, mask, cell)
-    return points[order], mask[order]
+    return gather_rows(points, order), gather_rows(mask, order)
 
 
 def chunk_aabbs(
     points: torch.Tensor, mask: torch.Tensor, chunk: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Masked per-chunk bounds. [N,3],[N] -> (lo [3,C], hi [3,C]).
+    """Masked per-chunk bounds. [..., N,3],[..., N] -> (lo [..., 3,C], hi
+    [..., 3,C]).
 
     Empty chunks give (+inf, -inf), which makes every AABB-distance test
     against them +inf — always skipped, never wrong.
     """
-    n = points.shape[0]
+    n = points.shape[-2]
     if n % chunk:
         raise ValueError(f"cloud size {n} is not a multiple of chunk {chunk}")
     c = n // chunk
-    p = points.reshape(c, chunk, 3)
-    m = mask.reshape(c, chunk, 1)
-    lo = torch.amin(torch.where(m, p, torch.inf), dim=1)    # [C, 3]
-    hi = torch.amax(torch.where(m, p, -torch.inf), dim=1)   # [C, 3]
-    return lo.T.contiguous(), hi.T.contiguous()
+    lead = points.shape[:-2]
+    p = points.reshape(lead + (c, chunk, 3))
+    m = mask.reshape(lead + (c, chunk, 1))
+    lo = torch.amin(torch.where(m, p, torch.inf), dim=-2)    # [..., C, 3]
+    hi = torch.amax(torch.where(m, p, -torch.inf), dim=-2)   # [..., C, 3]
+    return lo.mT.contiguous(), hi.mT.contiguous()

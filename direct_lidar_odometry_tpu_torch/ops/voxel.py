@@ -22,13 +22,19 @@ sorted points, not a float scatter-add: on the card ``index_add_`` of
 floats accumulates through atomics in no fixed order, so two runs over the
 same frames would differ in the last bits of the centroids and their
 trajectories would drift apart.
+
+Every function takes a leading lane dimension too ([B, N, 3] clouds, the
+batched step): the sorts run along each lane's rows, the segment scatters
+go to per-lane slots (``lane * (cap + 1) + slot``) and the float64 prefix
+scan runs along each lane's rows over its kept points only, so a lane gives
+what the same cloud gives alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.core.cloud import PAD_VALUE, PointCloud
+from direct_lidar_odometry_tpu_torch.core.cloud import PAD_VALUE, PointCloud, gather_rows
 from direct_lidar_odometry_tpu_torch.ops import morton
 
 _GRID_DIM = 1024  # cells per axis; 1024^3 < 2^31 keeps linear ids in int32
@@ -77,18 +83,28 @@ def _segment_mean(
     contiguous, so its sum is ``prefix[last + 1] - prefix[last + 1 - count]``
     over float64 prefix sums of the kept rows: the same bits on every run.
     Dropped rows are zeroed first (the 1e6 pad would cost the prefix its
-    precision)."""
-    n = spts.shape[0]
+    precision). With a lane dimension ([B, n, 3], [B, n]) each lane's slots
+    are counted apart (flat index ``lane * (cap + 1) + slot``) and its
+    prefix runs along its own rows."""
+    n = spts.shape[-2]
+    lead = slot.shape[:-1]
     dev = spts.device
     slot = torch.clamp(slot, max=cap)
-    counts = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
-    counts.index_add_(0, slot, torch.ones((n,), dtype=torch.int64, device=dev))  # exact in any order
-    last = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
-    last.scatter_reduce_(0, slot, torch.arange(n, device=dev), reduce="amax")
-    prefix = torch.zeros((n + 1, 3), dtype=torch.float64, device=dev)
-    prefix[1:] = torch.cumsum(torch.where((slot < cap)[:, None], spts, 0.0).to(torch.float64), dim=0)
-    counts, last = counts[:cap], last[:cap]
-    sums = prefix[last + 1] - prefix[last + 1 - counts]
+    flat = slot
+    if lead:
+        flat = (slot + (cap + 1) * torch.arange(lead[0], device=dev)[:, None]).reshape(-1)
+    cells = (lead[0] if lead else 1) * (cap + 1)
+    counts = torch.zeros((cells,), dtype=torch.int64, device=dev)
+    counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.int64, device=dev))  # exact in any order
+    last = torch.full((cells,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, flat, torch.arange(n, device=dev).expand(slot.shape).reshape(-1),
+                         reduce="amax")
+    prefix = torch.zeros(lead + (n + 1, 3), dtype=torch.float64, device=dev)
+    prefix[..., 1:, :] = torch.cumsum(
+        torch.where((slot < cap)[..., None], spts, 0.0).to(torch.float64), dim=-2)
+    counts = counts.reshape(lead + (cap + 1,))[..., :cap]
+    last = last.reshape(lead + (cap + 1,))[..., :cap]
+    sums = gather_rows(prefix, last + 1) - gather_rows(prefix, last + 1 - counts)
     out_mask = counts > 0
     centroids = (sums / torch.clamp(counts, min=1)[..., None]).to(torch.float32)
     centroids = torch.where(out_mask[..., None], centroids, PAD_VALUE)
@@ -115,13 +131,13 @@ def voxel_downsample_morton(
     code = torch.where(cloud.mask, morton.interleave3(cu), morton.INVALID_CODE)
 
     scode, order = torch.sort(code, stable=True)
-    spts = cloud.points[order]
+    spts = gather_rows(cloud.points, order)
     svalid = scode != morton.INVALID_CODE
     first = torch.ones_like(svalid)
-    first[1:] = scode[1:] != scode[:-1]
+    first[..., 1:] = scode[..., 1:] != scode[..., :-1]
     first = first & svalid
-    seg = torch.cumsum(first.to(torch.int64), dim=0) - 1
-    s_total = torch.clamp(torch.sum(first.to(torch.int64)), min=1)
+    seg = torch.cumsum(first.to(torch.int64), dim=-1) - 1
+    s_total = torch.clamp(torch.sum(first.to(torch.int64), dim=-1, keepdim=True), min=1)
 
     # Bresenham stride over Z-ordered segments when S > cap: kept segments
     # get strictly increasing slots in [0, cap); dropped ones go to `cap`
@@ -149,12 +165,12 @@ def voxel_downsample(
     # equal ids and randomizes group order. Invalid points share one key
     # (INT32_MAX's) and are dropped by the svalid gating below.
     _, order = torch.sort(_scramble(ids), stable=True)
-    sids = ids[order]
-    spts = cloud.points[order]
-    svalid = cloud.mask[order]
+    sids = gather_rows(ids, order)
+    spts = gather_rows(cloud.points, order)
+    svalid = gather_rows(cloud.mask, order)
     first = torch.ones_like(svalid)
-    first[1:] = sids[1:] != sids[:-1]
+    first[..., 1:] = sids[..., 1:] != sids[..., :-1]
     first = first & svalid
-    slot = torch.cumsum(first.to(torch.int64), dim=0) - 1
+    slot = torch.cumsum(first.to(torch.int64), dim=-1) - 1
     slot = torch.where(svalid, slot, cap)
     return _segment_mean(spts, slot, cap)

@@ -17,10 +17,12 @@ relative-pose constraints, the odometry chain and any loop-closure edges.
 - the normal system is dense, H is [6K, 6K], assembled by accumulating the
   per-edge 6x6 blocks into a [K, K, 6, 6] view;
 - the gauge is fixed by pinning pose 0 with a strong prior; the system is
-  Jacobi-equilibrated before the float32 solve.
-
-The JAX package's ``axis_name`` form (edges sharded across devices, H/b
-summed over the mesh) is not ported.
+  Jacobi-equilibrated before the float32 solve;
+- distributed (the JAX package's ``axis_name`` form): with a
+  ``torch.distributed`` process group each rank holds a shard of the
+  edges, and every iteration sums H, b and the error over the group
+  (``all_reduce``, SUM) before the solve, which every rank repeats on the
+  same sums (``parallel/sharded.py`` ``make_distributed_refine``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from direct_lidar_odometry_tpu_torch.core import se3
 from direct_lidar_odometry_tpu_torch.utils.precision import pin_float32
@@ -104,11 +107,18 @@ def refine(
     iterations: int = 10,
     damping: float = 1e-4,
     prior_weight: float = 1e6,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gauss-Newton refinement; returns (poses, error of the last
     linearization). The iterations loop on the host; each solves the dense
     system with ``torch.linalg.solve`` (a singular H raises: with the gauge
-    pin and the damping it cannot be singular unless a pose is not finite)."""
+    pin and the damping it cannot be singular unless a pose is not finite).
+
+    ``group``: a ``torch.distributed`` process group over which the edges
+    are sharded (this rank's edges in ``graph``, the poses replicated):
+    H, b and the error are summed over the group (``all_reduce``, SUM)
+    before the replicated solve, as the JAX package ``psum``s them. None
+    (the default) refines the graph as it is, with no collective."""
     pin_float32()
     k = graph.poses.shape[0]
     dev = graph.poses.device
@@ -121,6 +131,9 @@ def refine(
     err = torch.zeros((), dtype=torch.float32, device=dev)
     for _ in range(iterations):
         h, b, err = build_normal_system(graph._replace(poses=poses))
+        if group is not None:
+            for t in (h, b, err):
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         h = h + torch.diag(diag)
         # Jacobi (symmetric diagonal) equilibration before the f32 solve:
         # the raw system spans the 1e6 gauge pin to the 1e-4 damping floor,

@@ -27,6 +27,18 @@ The JAX package runs both loops as ``lax.while_loop`` on the device. Here
 they are Python loops; each inner iteration reads its two flags (accept,
 converged) in ONE host read (``utils/sync.py``), and nothing else in the
 loop waits for the device.
+
+:func:`align_batched` registers B independent lanes at once on the
+pruned-kernel backends (the JAX package's ``align`` under ``jax.vmap``):
+sources, targets and guesses carry a leading [B], every search or fused
+linearization is one launch over all lanes, and each lane's LM state (x,
+lambda, nu, iterations, converged, failed) lives in [B] tensors. The loops
+run while any lane is live; a lane that has finished keeps its carry
+frozen (``torch.where``), and each inner iteration still reads its flags,
+now [2, B], in one host read. Each lane's sums, reducing products and 4x4
+pose products run in the single-sequence operations
+(``utils/lanes.per_lane``), so a lane follows its own :func:`align` bit
+for bit.
 """
 
 from __future__ import annotations
@@ -37,9 +49,11 @@ import torch
 
 from direct_lidar_odometry_tpu_torch.config import GicpStageConfig
 from direct_lidar_odometry_tpu_torch.core import se3
+from direct_lidar_odometry_tpu_torch.core.cloud import gather_rows
 from direct_lidar_odometry_tpu_torch.ops import bruteforce, cuda_gicp, cuda_nn, hashgrid, morton
 from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS, cov_from_normal
 from direct_lidar_odometry_tpu_torch.utils import sync
+from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 
 def is_pallas(backend: str) -> bool:
@@ -73,6 +87,10 @@ class GicpSource(NamedTuple):
 
 
 class GicpResult(NamedTuple):
+    """:func:`align`'s result; :func:`align_batched` gives every field a
+    leading [B], with ``iterations`` (int32), ``converged`` and
+    ``lm_failed`` (bool) as [B] device tensors."""
+
     transform: torch.Tensor          # [4, 4] final estimate
     hessian: torch.Tensor            # [6, 6] final accepted H
     iterations: int                  # outer iterations executed
@@ -142,8 +160,9 @@ def _update_correspondences(
     """1-NN + Mahalanobis. Reference nano_gicp_impl.hpp:173-211.
 
     Serves the unfused backends; "pallas_fused" takes the fused kernel in
-    :func:`_linearize` and never calls this."""
-    r = x0[:3, :3]
+    :func:`_linearize` and never calls this. With B lanes (x0 [B, 4, 4],
+    clouds [B, N, ...]; pruned-kernel backends) one search serves them all."""
+    r = x0[..., :3, :3]
     p_t = se3.transform_points(x0, src.points)  # [Ns, 3]
     radius = cfg.max_correspondence_distance
     if is_pallas(backend):
@@ -159,10 +178,10 @@ def _update_correspondences(
         idx, _, found = hashgrid.query_1nn(target.grid, p_t, src.mask, radius, cap)
     j = torch.clamp(idx, min=0)
     # both endpoints need usable normals
-    ok = found & src.normals_valid & target.normals_valid[j]
+    ok = found & src.normals_valid & gather_rows(target.normals_valid, j)
     # C_B + R C_A R^T = 2 I - (1-eps)(nB nB^T + (R nA)(R nA)^T)
-    n_a_rot = src.normals @ r.T
-    n_b = target.normals[j]
+    n_a_rot = src.normals @ r.mT
+    n_b = gather_rows(target.normals, j)
     mahal = _sym_inv3(cov_from_normal(n_b) + cov_from_normal(n_a_rot))
     w = ok.to(torch.float32)
     mahal = mahal * w[..., None, None]
@@ -197,6 +216,14 @@ def _linearize(
                                                                 cap)
     j = torch.clamp(corr, min=0)
     mu_b = target.points[j]
+    h, b, err, n_corr = _normal_equations(p_t, mu_b, weight, mahal)
+    return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
+                          mu_b=mu_b, n_b=n_b, m0=m0, n_corr=n_corr)
+
+
+def _normal_equations(p_t, mu_b, weight, mahal):
+    """H [6, 6], b [6], the error and n_corr of one cloud's weighted
+    correspondences (the masked reduction of :func:`_linearize`)."""
     e = (mu_b - p_t) * weight[..., None]               # [Ns, 3]
     me = torch.einsum("nij,nj->ni", mahal, e)         # [Ns, 3]
     err = torch.sum(e * me)
@@ -216,18 +243,18 @@ def _linearize(
     b_bot = -torch.sum(me, dim=0)
     b = torch.cat([b_top, b_bot])
     n_corr = torch.sum(weight).to(torch.int32)
-    return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
-                          mu_b=mu_b, n_b=n_b, m0=m0, n_corr=n_corr)
+    return h, b, err, n_corr
 
 
 def _compute_error(x0: torch.Tensor, src: GicpSource, lin: _Linearization) -> torch.Tensor:
     """Reference nano_gicp_impl.hpp:272-296 — frozen correspondences, with
-    M = w * (2I - (1-eps)(n_b n_b^T + m0 m0^T))^{-1} rebuilt columnwise."""
+    M = w * (2I - (1-eps)(n_b n_b^T + m0 m0^T))^{-1} rebuilt columnwise.
+    With B lanes (x0 [B, 4, 4]) the error of each lane, [B]."""
     p_t = se3.transform_points(x0, src.points)
     e = lin.mu_b - p_t
-    ex, ey, ez = e[:, 0], e[:, 1], e[:, 2]
-    nx, ny, nz = lin.n_b[:, 0], lin.n_b[:, 1], lin.n_b[:, 2]
-    mx, my, mz = lin.m0[:, 0], lin.m0[:, 1], lin.m0[:, 2]
+    ex, ey, ez = e[..., 0], e[..., 1], e[..., 2]
+    nx, ny, nz = lin.n_b[..., 0], lin.n_b[..., 1], lin.n_b[..., 2]
+    mx, my, mz = lin.m0[..., 0], lin.m0[..., 1], lin.m0[..., 2]
     a = 1.0 - PLANE_EPS
     a00 = 2.0 - a * (nx * nx + mx * mx)
     a01 = -a * (nx * ny + mx * my)
@@ -249,6 +276,8 @@ def _compute_error(x0: torch.Tensor, src: GicpSource, lin: _Linearization) -> to
     mex = m00 * ex + m01 * ey + m02 * ez
     mey = m01 * ex + m11 * ey + m12 * ez
     mez = m02 * ex + m12 * ey + m22 * ez
+    if x0.dim() == 3:
+        return per_lane(torch.sum, ex * mex + ey * mey + ez * mez)
     return torch.sum(ex * mex + ey * mey + ez * mez)
 
 
@@ -262,9 +291,10 @@ def _is_converged(delta: torch.Tensor, cfg: GicpStageConfig) -> torch.Tensor:
 
 
 def _reorthonormalize(x: torch.Tensor) -> torch.Tensor:
-    """Keep the rotation block orthonormal under f32 compounding (quat roundtrip)."""
-    q = se3.rotmat_to_quat(x[:3, :3])
-    return se3.make_se3(se3.quat_to_rotmat(q), x[:3, 3])
+    """Keep the rotation block orthonormal under f32 compounding (quat
+    roundtrip). [..., 4, 4]."""
+    q = se3.rotmat_to_quat(x[..., :3, :3])
+    return se3.make_se3(se3.quat_to_rotmat(q), x[..., :3, 3])
 
 
 def _solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -346,6 +376,154 @@ def align(
         iterations=iters,
         converged=converged,
         lm_failed=failed,
+        final_error=err_fin,
+        num_correspondences=nc_fin,
+    )
+
+
+def _linearize_batched(
+    x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig, backend: str,
+) -> _Linearization:
+    """:func:`_linearize` over B lanes (x0 [B, 4, 4], clouds [B, N, ...]) on
+    the pruned-kernel backends: one K2/K4 search or one fused K3 launch for
+    all lanes, then each lane's masked reduction in :func:`_linearize`'s
+    own operations."""
+    if backend == "pallas_fused":
+        p_t = se3.transform_points(x0, src.points)
+        m0 = src.normals @ x0[:, :3, :3].mT
+        fl = cuda_gicp.fused_linearize(
+            target.points, target.mask, target.normals, target.normals_valid,
+            target.chunk_lo, target.chunk_hi, p_t, m0, src.mask & src.normals_valid,
+            cfg.max_correspondence_distance, PLANE_EPS,
+        )
+        return _Linearization(h=fl.h, b=fl.b, error=fl.error, corr=fl.corr, weight=fl.weight,
+                              mu_b=fl.mu_b, n_b=fl.n_b, m0=m0, n_corr=fl.n_corr)
+
+    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend,
+                                                                cap=0)
+    mu_b = gather_rows(target.points, torch.clamp(corr, min=0))
+    h, b, err, n_corr = per_lane(_normal_equations, p_t, mu_b, weight, mahal)
+    return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
+                          mu_b=mu_b, n_b=n_b, m0=m0, n_corr=n_corr)
+
+
+def _is_converged_batched(delta: torch.Tensor, cfg: GicpStageConfig) -> torch.Tensor:
+    """:func:`_is_converged` of each lane: [B, 4, 4] -> [B] bool."""
+    r = delta[:, :3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
+    r_max = torch.amax(torch.abs(r), dim=(-2, -1)) / cfg.rotation_epsilon
+    t_max = torch.amax(torch.abs(delta[:, :3, 3]), dim=-1) / cfg.transformation_epsilon
+    return torch.maximum(r_max, t_max) < 1.0
+
+
+def align_batched(
+    src: GicpSource,
+    target: GicpTarget,
+    guess: torch.Tensor,
+    cfg: GicpStageConfig,
+    backend: str = "pallas",
+    active: tuple[torch.Tensor, list] | None = None,
+) -> GicpResult:
+    """:func:`align` over B lanes: ``src`` and ``target`` with a leading [B]
+    (``make_target`` over [B, T, 3] clouds), ``guess`` [B, 4, 4]; backends
+    "pallas" (alias "pallas_unfused"), "pallas_mxu", "pallas_fused".
+
+    Each lane follows :func:`align`'s loops on its own state: the outer loop
+    runs while some lane is live (below ``max_iterations``, neither
+    converged nor failed), the LM inner loop while some live lane has not
+    accepted or converged; a lane that has left either loop keeps its x,
+    lambda and nu. One host read per inner iteration ([2, B] flags: accept,
+    converged) for all lanes, as :func:`align` reads two. ``active`` (a [B]
+    bool tensor and the same flags already read on the host) runs only
+    those lanes; the others return their guess, reorthonormalized, and zero
+    iterations.
+    """
+    dev = guess.device
+    lanes = guess.shape[0]
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    use_lm = cfg.optimizer == "lm"
+
+    x = _reorthonormalize(guess.to(torch.float32))
+    if active is None:
+        live_dev = torch.ones((lanes,), dtype=torch.bool, device=dev)
+        live = [True] * lanes
+    else:
+        live_dev, live = active[0].clone(), list(active[1])
+    iters = [0] * lanes
+    iters_dev = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    conv_dev = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    failed_dev = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    h_fin = eye6.expand(lanes, 6, 6)
+    err_fin = torch.zeros((lanes,), dtype=torch.float32, device=dev)
+    nc_fin = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    lam = None
+    while any(live):
+        lin = _linearize_batched(x, src, target, cfg, backend)
+        if use_lm:
+            # step_lm (lsq_registration_impl.hpp:161-208), lane by lane
+            if lam is None:  # every lane's first linearization
+                lam = cfg.lm_init_lambda_factor * torch.amax(
+                    torch.abs(torch.diagonal(lin.h, dim1=-2, dim2=-1)), dim=-1)
+            nu = torch.full((lanes,), 2.0, dtype=torch.float32, device=dev)
+            inner, inner_dev = list(live), live_dev
+            ok, conv = [False] * lanes, [False] * lanes
+            ok_dev = torch.zeros_like(live_dev)
+            conv_in = torch.zeros_like(live_dev)
+            x_new = x
+            for _ in range(cfg.lm_max_iterations):
+                if not any(inner):
+                    break
+                d = _solve6(lin.h + lam[:, None, None] * eye6, lin.b)
+                delta = se3.se3_exp(d)
+                xi = _reorthonormalize(per_lane(torch.matmul, delta, x))
+                yi = _compute_error(xi, src, lin)
+                denom = per_lane(torch.dot, d, lam[:, None] * d - lin.b)
+                denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+                rho = (lin.error - yi) / denom
+                flags = torch.stack([rho >= 0.0, _is_converged_batched(delta, cfg)])
+                accept_h, conv_h = sync.read(flags)
+                accept, stop = flags[0], flags[0] | flags[1]
+                acc = inner_dev & accept
+                rej = inner_dev & ~accept
+                lam = torch.where(acc, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+                                  torch.where(rej, nu * lam, lam))
+                nu = torch.where(rej, 2.0 * nu, nu)
+                x_new = torch.where(acc[:, None, None], xi, x_new)
+                # the reference returns true on acceptance and on a rejected
+                # step that is already below the convergence test
+                done = inner_dev & stop
+                ok_dev = ok_dev | done
+                conv_in = torch.where(done, flags[1], conv_in)
+                inner_dev = inner_dev & ~stop
+                for b in range(lanes):
+                    if inner[b] and (accept_h[b] or conv_h[b]):
+                        ok[b], conv[b], inner[b] = True, bool(conv_h[b]), False
+        else:
+            # step_gn (lsq_registration_impl.hpp:142-158)
+            d = _solve6(lin.h, lin.b)
+            delta = se3.se3_exp(d)
+            x_new = _reorthonormalize(per_lane(torch.matmul, delta, x))
+            conv_in = _is_converged_batched(delta, cfg)
+            conv = sync.read(conv_in)
+            ok, ok_dev = list(live), live_dev
+        moved = live_dev & ok_dev
+        x = torch.where(moved[:, None, None], x_new, x)
+        iters_dev = iters_dev + live_dev.to(torch.int32)
+        h_fin = torch.where(live_dev[:, None, None], lin.h, h_fin)
+        err_fin = torch.where(live_dev, lin.error, err_fin)
+        nc_fin = torch.where(live_dev, lin.n_corr, nc_fin)
+        conv_dev = conv_dev | (moved & conv_in)
+        failed_dev = failed_dev | (live_dev & ~ok_dev)
+        live_dev = live_dev & ok_dev & ~conv_in & (iters_dev < cfg.max_iterations)
+        for b in range(lanes):
+            if live[b]:
+                iters[b] += 1
+                live[b] = ok[b] and not conv[b] and iters[b] < cfg.max_iterations
+    return GicpResult(
+        transform=x,
+        hessian=h_fin,
+        iterations=iters_dev,
+        converged=conv_dev,
+        lm_failed=failed_dev,
         final_error=err_fin,
         num_correspondences=nc_fin,
     )

@@ -43,7 +43,7 @@ def save_state(path: str, state: OdomState, extra: dict | None = None) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_state(path: str, cfg: DloConfig, device="cpu") -> tuple[OdomState, dict]:
+def load_state(path: str, cfg: DloConfig, device="cuda") -> tuple[OdomState, dict]:
     """Restore a state saved under the same config (shapes must match)
     onto ``device``. Returns (state, extra)."""
     data = np.load(path)
@@ -51,7 +51,7 @@ def load_state(path: str, cfg: DloConfig, device="cpu") -> tuple[OdomState, dict
     if version != FORMAT_VERSION:
         raise ValueError(f"checkpoint {path!r} is format v{version}; only v{FORMAT_VERSION} "
                          "(field-path keys) can be mapped onto the state")
-    template = state_to_numpy(empty_state(cfg))
+    template = state_to_numpy(empty_state(cfg, device="cpu"))
     leaves = {k: data[_key(k)] if _key(k) in data else v for k, v in template.items()
               if _key(k) in data or not k.startswith("submap_grid.")}
     for k, v in leaves.items():

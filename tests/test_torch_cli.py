@@ -149,7 +149,7 @@ def test_checkpoint_readable_by_reference_and_back(port_run, tmp_path):
         f: jnp.asarray(leaves[f]) for f in jstate.OdomState._fields
         if f not in ("keyframes", "submap_grid")})
     jckpt.save_state(str(tmp_path / "jax.npz"), jst, extra={"prev_stamp": 0.3})
-    back, extra = tckpt.load_state(str(tmp_path / "jax.npz"), cfg)
+    back, extra = tckpt.load_state(str(tmp_path / "jax.npz"), cfg, device="cpu")
     assert extra == {"prev_stamp": 0.3}
     for key, value in tstate.state_to_numpy(back).items():
         np.testing.assert_array_equal(value, leaves[key], err_msg=key)
@@ -162,14 +162,14 @@ def test_checkpoint_resume_continues_identically(port_run, tmp_path):
     tckpt.save_state(str(tmp_path / "s.npz"), runner.state,
                      extra={"prev_stamp": runner.prev_stamp})
     resumed = OdometryRunner(cfg, device="cpu")
-    resumed.state, extra = tckpt.load_state(str(tmp_path / "s.npz"), cfg)
+    resumed.state, extra = tckpt.load_state(str(tmp_path / "s.npz"), cfg, device="cpu")
     resumed.prev_stamp = extra["prev_stamp"]
     a = runner.process_scan(scans[4], 0.4, sync=True)
     b = resumed.process_scan(scans[4], 0.4, sync=True)
     np.testing.assert_allclose(b.pose.numpy(), a.pose.numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="shape"):
         tckpt.load_state(str(tmp_path / "s.npz"), cfg.replace(
-            shapes=dataclasses.replace(cfg.shapes, n_scan=4096)))
+            shapes=dataclasses.replace(cfg.shapes, n_scan=4096)), device="cpu")
 
 
 def test_build_map_matches_reference_as_sets(port_run):

@@ -361,6 +361,102 @@ def test_runner_on_cuda_uses_kernels(dev, backend):
     assert np.isfinite(runner.trajectory()).all()
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_kernel_lanes_equal_single_launches(dev, kernel):
+    """K1-K4 over B = 3 lanes in one launch: each lane bitwise equal to the
+    same lane launched alone (unbatched), the visits counted per lane, the
+    lane axis counted as one launch; K2 and K1 also against their plain
+    versions lane by lane (K2 bitwise, K1's counts identical); K3's public
+    entry gives a lane the same H and b in the batch as alone."""
+    lanes = 3
+    if kernel == "K3":
+        probs = [_fused_problem(dev, seed) for seed in range(lanes)]
+        tp, tm, nrm, nval, p, m, qw = (torch.stack(x) for x in zip(*probs))
+        clo, chi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
+        cold = torch.full(qw.shape, -1, dtype=torch.int32, device=dev)
+        before = cuda_gicp.launches["cuda"]
+        got = cuda_gicp.fused_linearize_pruned(p, m, qw, cold, tp, tm, nrm, nval, clo, chi, 0.5,
+                                               1e-3)
+        assert cuda_gicp.launches["cuda"] == before + 1
+        fl = cuda_gicp.fused_linearize(tp, tm, nrm, nval, clo, chi, p, m, qw, 0.5)
+        for b in range(lanes):
+            one = cuda_gicp.fused_linearize_pruned(p[b], m[b], qw[b], cold[b], tp[b], tm[b],
+                                                   nrm[b], nval[b], clo[b], chi[b], 0.5, 1e-3)
+            assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+            alone = cuda_gicp.fused_linearize(*(a[b:b + 1] for a in (tp, tm, nrm, nval, clo, chi,
+                                                                       p, m, qw)), 0.5)
+            assert all(torch.equal(x[b], y[0]) for x, y in zip(fl, alone))
+        return
+    clouds = [(_sorted_cloud(10 + b, 8192, dev), _sorted_cloud(20 + b, 4096, dev))
+              for b in range(lanes)]
+    tp, tm = (torch.stack([c[0][i] for c in clouds]) for i in range(2))
+    qp, qm = (torch.stack([c[1][i] for c in clouds]) for i in range(2))
+    clo, chi = morton.chunk_aabbs(tp, tm, morton.TARGET_CHUNK)
+    visits = torch.full((lanes, 4096 // cuda_nn.SUB_TILE), -1, dtype=torch.int32, device=dev)
+    if kernel == "K1":
+        def run(*a, v=None):
+            return (cuda_cov.cov_pruned(a[2], a[3], a[0], a[1], a[4], a[5], 1.0, v),)
+        counter = cuda_cov.launches
+    else:
+        fn = cuda_nn.nn1_pruned if kernel == "K2" else cuda_nn.nn1_pruned_mxu
+
+        def run(*a, v=None):
+            return fn(*a, 1.0, v)
+        counter = cuda_nn.launches if kernel == "K2" else cuda_nn.mxu_launches
+    before = counter["cuda"]
+    got = run(qp, qm, tp, tm, clo, chi, v=visits)
+    assert counter["cuda"] == before + 1
+    for b in range(lanes):
+        v = torch.full((4096 // cuda_nn.SUB_TILE,), -1, dtype=torch.int32, device=dev)
+        one = run(qp[b], qm[b], tp[b], tm[b], clo[b], chi[b], v=v)
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+        assert torch.equal(visits[b], v)
+    if kernel == "K2":
+        ip, dp = cuda_nn.nn1_plain(qp, qm, tp, tm, 1.0)
+        assert torch.equal(got[0], ip) and torch.equal(got[1], dp)
+    elif kernel == "K1":
+        mp = cuda_cov.cov_plain(tp, tm, qp, qm, 1.0)
+        assert torch.equal(got[0][..., 0], mp[..., 0])
+
+
+def test_batched_step_on_card_uses_kernels(dev):
+    """The batched step at small shapes on the card: K1 and K2 launched,
+    no plain version, and lane 0 within 1e-4 m of its single-sequence run."""
+    from direct_lidar_odometry_tpu_torch.config import DloConfig, ShapeConfig
+    from direct_lidar_odometry_tpu_torch.core import cloud
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+    from direct_lidar_odometry_tpu_torch.odometry import hulls, pipeline
+    from direct_lidar_odometry_tpu_torch.parallel import batched
+
+    cfg = DloConfig(nn_backend="pallas", shapes=ShapeConfig(
+        n_raw=16384, n_scan=4096, n_keyframe=2048, max_keyframes=16, max_submap_kf=4,
+        n_submap_flat=8192, hull_directions=16))
+    rng = np.random.default_rng(0)
+    world = synthetic.make_urban_world(rng, n_frames=6, speed=1.0, n_dynamic=0)
+    beams = synthetic.BeamModel(n_beams=32, n_azimuth=512)
+    scans = [[cloud.from_numpy(synthetic.render_raycast(world, t, np.random.default_rng(b + 10 * t),
+                                                        max_points=16384, beams=beams), 16384, dev)
+              for b in range(2)] for t in range(6)]
+    init_fn, step_fn = batched.make_batched_fns(cfg)
+    for mod in (cuda_nn, cuda_cov, cuda_gicp):
+        mod.reset_launches()
+    st = init_fn(batched.batched_state(cfg, 2, dev),
+                 *(torch.stack([getattr(c, f) for c in scans[0]]) for f in ("points", "mask")))
+    eye = torch.eye(4, device=dev).expand(2, 4, 4).clone()
+    poses = []
+    for t in range(1, 6):
+        st, res = step_fn(st, *(torch.stack([getattr(c, f) for c in scans[t]])
+                                for f in ("points", "mask")), eye)
+        poses.append(res.pose[0])
+    assert cuda_nn.launches["cuda"] > 0 and cuda_cov.launches["cuda"] > 0
+    assert cuda_nn.launches["plain"] == 0 and cuda_cov.launches["plain"] == 0
+    directions = torch.from_numpy(hulls.fibonacci_directions(16)).to(dev)
+    s = pipeline.init_frame(cfg, pipeline.fresh_state(cfg, device=dev), *scans[0][0])
+    for t in range(1, 6):
+        s, r = pipeline.odom_frame(cfg, directions, s, *scans[t][0], eye[0])
+        assert float((r.pose - poses[t - 1]).abs().max()) <= 1e-4
+
+
 def _drifted_loop_graph(k=96, radius=15.0, seed=3):
     """A circle of ``k`` keyframe poses that drifted over eight keyframes
     half way round, chained from the drifted estimates (the chain edges of

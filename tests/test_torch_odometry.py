@@ -173,7 +173,7 @@ def test_keyframe_insert_and_evict_match_reference(count):
 def test_state_numpy_round_trip():
     cfg = tcfg.DloConfig().replace(shapes=tcfg.ShapeConfig(
         n_scan=1024, n_keyframe=512, max_keyframes=4, max_submap_kf=2, n_submap_flat=1024))
-    st = tstate.empty_state(cfg)
+    st = tstate.empty_state(cfg, device="cpu")
     leaves = tstate.state_to_numpy(st)
     back = tstate.state_to_numpy(tstate.state_from_numpy(leaves, "cpu"))
     assert leaves.keys() == back.keys()
