@@ -76,7 +76,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    passed to the step, no plain version run; plus the same scans without
    the IMU, for its ATE;
 9. print one JSON line of per-kernel results, then the final JSON line
-   (after phases 10-12, which run before it);
+   (after phases 10-14, which run before it);
 10. host preprocessing at full width: the native host library (built in
    phase 2) must load; one raw scan
    prepared on the host (``io/hostprep.py``) and on the device must give
@@ -101,7 +101,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    gate, S2M correspondences > 100 and every hand kernel and every plain
    version launched 0 times; prints the wall ms a frame (synced), the host
    reads a frame and the peak device memory, with the card's name and
-   power limit;
+   power limit; then six steady frames of a fresh runner on each under
+   torch.profiler (device operations, busy ms, idle share a frame);
 13. the batched step at full width (``parallel/batched.py``): the phase-3
    lanes over 30 frames through ``make_batched_fns`` on "pallas" at B = 4
    (counters reset just before): each lane's ATE gate, lane 0 within 1e-4 m
@@ -121,7 +122,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    correspondences, and ``make_distributed_refine`` on phase 7's refined
    keyframe graph bitwise equal to ``posegraph.refine``; the group is
    destroyed before the phase ends. The ``kernels`` line gives K1-K4 their
-   batched launch counts and device ms at B = 1, 4 and 8.
+   batched launch counts and device ms at B = 1, 4 and 8;
+14. the batched step on the tensor-op backends at full width: phase 13's
+   lanes through ``make_batched_fns`` at B = 4, 10 frames on "hashgrid"
+   and 5 on "brute" (counters reset just before): each lane's ATE gate and
+   S2M correspondences > 100, lane 0 within 1e-4 m of its own
+   single-sequence drive on the same backend (bitwise reported), no hand
+   kernel and no plain version launched, host reads a step (median and
+   max) at most the single drive's + 2, synced ms a step, frames/s and peak
+   memory; profiled steps (device operations, busy ms, idle share a step)
+   of "hashgrid" at B = 1 and 4 (six steps) and of "brute" at B = 4 (two
+   steps); then NCCL at world size 1 on a file store: the sharded step on
+   "hashgrid" over 5 steps, states (hash grid included) and results
+   bitwise equal to the batched drive's.
 
 It imports torch and the port, nothing of JAX. Each phase's seconds are
 printed.
@@ -163,7 +176,8 @@ K3_REL = 2e-4            # max|dH| <= K3_REL * max|H|, the same form for b and t
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PROFILED_FRAMES = 6
-BACKEND_FRAMES = 10     # phase 12: the first phase-4 frames on "brute" and "hashgrid"
+BACKEND_FRAMES = 10     # phases 12 and 14: frames on "brute" and "hashgrid" (14: "brute" 5)
+BRUTE_BATCH_FRAMES = 5  # phase 14: "brute" at B = 4 is ~B times one lane's exhaustive search
 HOST_PREP_TOL = 1e-4    # m: host- vs device-prepared scan (JAX tests/test_native.py:76-100)
 LANES = 4               # phases 3 and 13: bench.py's batch, lane i rendered with rng(100 + i)
 LANE_SWEEP = (1, 4, 8)  # lanes timed; 8 = the 4 lanes twice
@@ -752,6 +766,17 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
     return out
 
 
+def device_events(prof) -> list:
+    """(name, start ns, end ns) of each device operation (kernel, copy, set)
+    of a finished torch.profiler window, read from its kineto results:
+    ``prof.events()`` would build the whole host-and-device event tree
+    first, tens of seconds for the ~10^5 operations of a profiled
+    tensor-op window."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
     """Per ``unit`` (a frame, or a batched step) of a profiled window of
     ``n`` units and ``wall_ms``: the device operations (kernels, copies,
@@ -759,7 +784,7 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
     intervals merged, overlaps counted once), each by kind, the eight
     operations that take the most time, and the idle share of the window;
     null where the profiler saw no device activity."""
-    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = device_events(prof)
     out = {f"device_ops_per_{unit}": None, f"profiled_wall_ms_per_{unit}": wall_ms / n}
     if ops:
         def kind(name: str) -> str:
@@ -768,9 +793,8 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
 
         summed, busy, count, by_name = {}, {}, {}, {}
         for k in ("kernel", "memcpy", "memset", "all"):
-            spans = sorted((e.time_range.start, e.time_range.end) for e in ops
-                           if k == "all" or kind(e.name) == k)
-            summed[k] = sum(b - a for a, b in spans) / 1e3 / n
+            spans = sorted((a, b) for name, a, b in ops if k == "all" or kind(name) == k)
+            summed[k] = sum(b - a for a, b in spans) / 1e6 / n
             count[k] = len(spans) / n
             merged, end = 0, None
             for a, b in spans:
@@ -780,9 +804,9 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
                 elif b > end:
                     merged += b - end
                     end = b
-            busy[k] = merged / 1e3 / n
-        for e in ops:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+            busy[k] = merged / 1e6 / n
+        for name, a, b in ops:
+            by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e6 / n
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         out.update({
             f"device_ops_per_{unit}": count["all"], f"ops_per_{unit}_by_kind": count,
@@ -1571,27 +1595,31 @@ def batched_drive(cfg, world, frames, label, snapshot_at=None):
 
 
 def single_lane_drive(cfg, frames, lane: int = 0):
-    """Phase 13: lane ``lane`` of ``frames`` through the single-sequence
-    step on the card, ``odom_frame(hull_masks=None)`` driven directly:
-    (poses [T-1, 4, 4], keyframe count)."""
+    """Phases 13 and 14: lane ``lane`` of ``frames`` through the
+    single-sequence step on the card, ``odom_frame(hull_masks=None)``
+    driven directly: (poses [T-1, 4, 4], keyframe count, host reads a
+    frame)."""
     from direct_lidar_odometry_tpu_torch.odometry import hulls, pipeline
+    from direct_lidar_odometry_tpu_torch.utils import sync
 
     dev = frames[0][0].device
     directions = torch.from_numpy(hulls.fibonacci_directions(cfg.shapes.hull_directions)).to(dev)
     st = pipeline.init_frame(cfg, pipeline.fresh_state(cfg, device=dev), frames[0][0][lane],
                              frames[0][1][lane])
-    poses = []
+    poses, reads = [], []
     for pts, mask in frames[1:]:
+        before = sync.counts["host_reads"]
         st, res = pipeline.odom_frame(cfg, directions, st, pts[lane], mask[lane],
                                       torch.eye(4, device=dev), hull_masks=None)
+        reads.append(sync.counts["host_reads"] - before)
         poses.append(res.pose)
-    return torch.stack(poses), int(st.keyframes.count)
+    return torch.stack(poses), int(st.keyframes.count), reads
 
 
-def batched_profile(cfg, frames):
-    """Phase 13: PROFILED_FRAMES steady batched steps (after 1 + WARMUP)
-    under torch.profiler: device operations, busy ms, idle share and the
-    prefix scan's ms a step."""
+def batched_profile(cfg, frames, warmup: int = WARMUP, steps: int = PROFILED_FRAMES):
+    """Phases 13 and 14: ``steps`` steady batched steps (after 1 +
+    ``warmup``) under torch.profiler: device operations, busy ms, idle
+    share and the prefix scan's ms a step."""
     from torch.profiler import ProfilerActivity, profile
 
     from direct_lidar_odometry_tpu_torch.parallel import batched
@@ -1601,37 +1629,46 @@ def batched_profile(cfg, frames):
     dev = frames[0][0].device
     states = init_fn(batched.batched_state(cfg, b, dev), *frames[0])
     eye = torch.eye(4, device=dev).expand(b, 4, 4).clone()
-    first = 1 + WARMUP
+    first = 1 + warmup
     for t in range(1, first):
         states, _ = step_fn(states, *frames[t], eye)
     torch.cuda.synchronize()
-    steps = range(first, first + PROFILED_FRAMES)
+    steps = range(first, first + steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in steps:
             states, _ = step_fn(states, *frames[t], eye)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = dict(lanes=b, steps=len(steps))
+    out = dict(backend=cfg.nn_backend, lanes=b, steps=len(steps))
     out.update(profile_summary(prof, len(steps), wall_ms, unit="step"))
     print(f"# batched profile {json.dumps(out)}")
     return out
 
 
-def sharded_check(cfg, frames, results, snapshot, refine_graph):
-    """Phase 13: ``init_distributed`` with NCCL at world size 1 (a file
-    store in a temporary directory, so no port), the sharded step over the
-    first SHARDED_STEPS steps of the batched drive's lanes, states and
-    results bitwise equal to the batched drive's, the fleet health
-    (mean_corr equal to the mean of the drive's S2M correspondences); then
-    ``make_distributed_refine`` on the phase-7 keyframe graph, bitwise
-    equal to ``posegraph.refine``. The group is destroyed before the phase
-    ends."""
+def sharded_check(cfg, frames, results, snapshot, refine_graph=None, label="phase 13"):
+    """Phases 13 and 14: ``init_distributed`` with NCCL at world size 1 (a
+    file store in a temporary directory, so no port), the sharded step over
+    the first SHARDED_STEPS steps of the batched drive's lanes, states (the
+    hash grid's leaves included, where the backend has one) and results
+    bitwise equal to the batched drive's, the fleet health (mean_corr equal
+    to the mean of the drive's S2M correspondences); then, given
+    ``refine_graph``, ``make_distributed_refine`` on the phase-7 keyframe
+    graph, bitwise equal to ``posegraph.refine``. The group is destroyed
+    before the phase ends."""
     import torch.distributed as dist
 
     from direct_lidar_odometry_tpu_torch.parallel import batched, posegraph, sharded
 
-    graph, iterations = refine_graph
+    def leaves(st):
+        out = []
+        for v in st:
+            if isinstance(v, tuple):
+                out.extend(v)
+            elif v is not None:
+                out.append(v)
+        return out
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
         sharded.init_distributed(f"file://{tmp}/store", num_processes=1, process_id=0)
         try:
@@ -1654,21 +1691,24 @@ def sharded_check(cfg, frames, results, snapshot, refine_graph):
                 want = ref.s2m_num_corr.to(torch.float32).mean()
                 health.append(dict(mean_corr=float(mean_corr), max_err=float(max_err),
                                    mean_corr_equal=bool(torch.equal(mean_corr, want))))
-            same_state = all(bool(torch.equal(a, b)) for a, b in
-                             zip(list(states.keyframes) + [v for k, v in states._asdict().items()
-                                                           if k not in ("keyframes", "submap_grid")],
-                                 list(snapshot.keyframes) + [v for k, v in snapshot._asdict().items()
-                                                             if k not in ("keyframes", "submap_grid")]))
-            poses_d, err_d = sharded.make_distributed_refine(mesh, iterations)(graph)
-            poses_s, err_s = posegraph.refine(graph, iterations=iterations)
-            torch.cuda.synchronize()
-            refine_same = bool(torch.equal(poses_d, poses_s)) and bool(torch.equal(err_d, err_s))
-            sharded.barrier("phase 13")
+            got, want = leaves(states), leaves(snapshot)
+            same_state = len(got) == len(want) and all(bool(torch.equal(a, b))
+                                                       for a, b in zip(got, want))
+            refine_same, refine = True, {}
+            if refine_graph is not None:
+                graph, iterations = refine_graph
+                poses_d, err_d = sharded.make_distributed_refine(mesh, iterations)(graph)
+                poses_s, err_s = posegraph.refine(graph, iterations=iterations)
+                torch.cuda.synchronize()
+                refine_same = bool(torch.equal(poses_d, poses_s)) and bool(torch.equal(err_d, err_s))
+                refine = dict(refine_edges=int(graph.edges.shape[0]), refine_iterations=iterations,
+                              refine_equal=refine_same)
+            sharded.barrier(label)
         finally:
             dist.destroy_process_group()
-    out = dict(backend=backend, world=1, steps=SHARDED_STEPS, results_equal=same,
-               states_equal=same_state, health=health, refine_edges=int(graph.edges.shape[0]),
-               refine_iterations=iterations, refine_equal=refine_same)
+    out = dict(backend=backend, nn_backend=cfg.nn_backend, world=1, steps=SHARDED_STEPS,
+               results_equal=same, states_equal=same_state, state_leaves=len(got),
+               health=health, **refine)
     print(f"# sharded {json.dumps(out)}")
     require(same, "sharded: a result of the world-size-1 sharded step differs from the batched step")
     require(same_state, "sharded: the sharded states differ from the batched drive's")
@@ -1690,7 +1730,7 @@ def batch_phase(world, lscans, refine_graph, card):
                                             snapshot_at=SHARDED_STEPS)
     for name in ("nn1_pruned", "cov_pruned"):
         require(main["launches"][name]["cuda"] > 0, f"batched pallas: {name} was never launched")
-    single, single_kf = single_lane_drive(cfg, frames)
+    single, single_kf, _ = single_lane_drive(cfg, frames)
     lane0 = torch.stack([r.pose[0] for r in results])
     lane_diff = float((lane0[:, :3, 3] - single[:, :3, 3]).abs().max())
     require(lane_diff <= LANE_POSE_TOL,
@@ -1736,6 +1776,72 @@ def batch_phase(world, lscans, refine_graph, card):
     print(f"# batched summary {json.dumps(summary)}")
     return dict(main=main, profile=profile, sweep=sweep, others=others, sharded=shard,
                 summary=summary)
+
+
+def tensor_op_lanes(backend, world, frames, card, single_profile):
+    """Phase 14, one backend: the batched drive at B = 4 over ``frames``,
+    lane 0 against its single-sequence drive, no kernel and no plain
+    version launched, host reads a step against the single drive's."""
+    cfg = slice_config(backend)
+    out, results, snapshot = batched_drive(cfg, world, frames, f"{backend} B={LANES}",
+                                           snapshot_at=SHARDED_STEPS)
+    for name, cnt in out["launches"].items():
+        require(cnt["cuda"] == 0 and cnt["plain"] == 0,
+                f"batched {backend}: {name} launched {cnt['cuda']} times, "
+                f"its plain version {cnt['plain']}")
+    single, single_kf, single_reads = single_lane_drive(cfg, frames)
+    lane0 = torch.stack([r.pose[0] for r in results])
+    lane_diff = float((lane0[:, :3, 3] - single[:, :3, 3]).abs().max())
+    reads = out["host_reads_per_step"]
+    summary = dict(
+        backend=backend, card=card, lanes=LANES, frames=len(frames),
+        lane0_vs_single_max_m=lane_diff, lane0_bitwise=bool(torch.equal(lane0, single)),
+        lane0_keyframes=out["keyframes"][0], single_keyframes=single_kf,
+        host_reads_per_step_median=float(np.median(reads)), host_reads_per_step_max=max(reads),
+        single_reads_per_frame_median=float(np.median(single_reads)),
+        single_reads_per_frame_max=max(single_reads),
+        synced_ms_per_step_median=out["synced_ms_per_step_median"],
+        frames_per_s=out["frames_per_s"], peak_mem_gib=out["peak_mem_gib"],
+        single_frame_profile={k: single_profile.get(k) for k in (
+            "device_ops_per_frame", "device_busy_ms_per_frame", "idle_share_profiled")},
+    )
+    print(f"# tensor-op lanes {json.dumps(summary)}")
+    require(lane_diff <= LANE_POSE_TOL,
+            f"batched {backend}: lane 0 is {lane_diff:.2e} m from its single-sequence drive")
+    require(out["keyframes"][0] == single_kf,
+            f"batched {backend}: lane 0 has {out['keyframes'][0]} keyframes, its single drive "
+            f"{single_kf}")
+    require(np.median(reads) <= np.median(single_reads) + 2 and max(reads) <= max(single_reads) + 2,
+            f"batched {backend}: host reads a step {reads} against the single drive's "
+            f"{single_reads}")
+    return cfg, out, results, snapshot, summary
+
+
+def tensor_op_batch_phase(world, lscans, card, single_profiles):
+    """Phase 14: the batched step on "hashgrid" (BACKEND_FRAMES frames) and
+    "brute" (BRUTE_BATCH_FRAMES) at B = 4 on phase 13's lanes, profiled
+    steps (hashgrid at B = 1 and 4, brute at B = 4), then the NCCL
+    world-size-1 sharded step on "hashgrid"."""
+    dev = torch.device("cuda")
+    frames = device_frames(lscans[:BACKEND_FRAMES], slice_config().shapes.n_raw, dev)
+    hcfg, hout, hres, hsnap, hsum = tensor_op_lanes("hashgrid", world, frames, card,
+                                                    single_profiles["hashgrid"])
+    _, bout, _, _, bsum = tensor_op_lanes("brute", world, frames[:BRUTE_BATCH_FRAMES], card,
+                                          single_profiles["brute"])
+    profiles = {
+        "hashgrid B=1": batched_profile(hcfg, [tuple(t[:1] for t in f) for f in frames]),
+        f"hashgrid B={LANES}": batched_profile(hcfg, frames),
+        f"brute B={LANES}": batched_profile(slice_config("brute"), frames[:BRUTE_BATCH_FRAMES],
+                                            warmup=1, steps=2),
+    }
+    torch.cuda.empty_cache()
+    shard = sharded_check(hcfg, frames, hres, hsnap, label="phase 14")
+    keys = ("device_ops_per_step", "device_busy_ms_per_step", "idle_share_profiled",
+            "profiled_wall_ms_per_step")
+    summary = dict(card=card, hashgrid=hsum, brute=bsum,
+                   profiles={k: {f: v.get(f) for f in keys} for k, v in profiles.items()})
+    print(f"# tensor-op batched summary {json.dumps(summary)}")
+    return dict(hashgrid=hout, brute=bout, profiles=profiles, sharded=shard, summary=summary)
 
 
 def main() -> int:
@@ -1819,11 +1925,15 @@ def main() -> int:
     timed_phase(10)
     kitti = intensity_cli_check(world)
     timed_phase(11)
+    op_profiles = {}
     for backend in ("brute", "hashgrid"):
         backend_check(backend, world, scans, smi)
+        op_profiles[backend] = device_ops_per_frame(slice_config(backend), world, scans)
     timed_phase(12)
     batch = batch_phase(world, lscans, loop_graph, smi)
     timed_phase(13)
+    tensor_op_batch_phase(world, lscans, smi, op_profiles)
+    timed_phase(14)
     print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
     batched_launches = {name: batch["main"]["launches"][name]["cuda"]

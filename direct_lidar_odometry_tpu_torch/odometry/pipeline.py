@@ -27,8 +27,9 @@ and, via the carried previous scan, as the next frame's S2S target normals
 
 :func:`init_frame` and :func:`odom_frame_batched` run B independent
 sequences in lock-step on a batched state (``parallel/batched.py``), the
-JAX package's step under ``jax.vmap``: the same stages over a leading lane
-dimension, each kernel launched once for all lanes, the three branches
+JAX package's step under ``jax.vmap``, on every backend: the same stages
+over a leading lane dimension, each kernel launched (or each tensor-op
+search run) once for all lanes, the three branches
 (rescue, submap rebuild, keyframe spawn) one host read of a [B] flag each,
 run for the lanes that need them. Each lane equals the single-sequence
 :func:`odom_frame` with ``hull_masks=None``.
@@ -43,12 +44,12 @@ import torch
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend
 from direct_lidar_odometry_tpu_torch.core import se3
 from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud, gather_rows
-from direct_lidar_odometry_tpu_torch.ops import morton, preprocess as prep, voxel
+from direct_lidar_odometry_tpu_torch.ops import hashgrid, morton, preprocess as prep, voxel
 from direct_lidar_odometry_tpu_torch.odometry import adaptive, keyframes, submap
 from direct_lidar_odometry_tpu_torch.odometry.state import FrameResult, OdomState, empty_state
 from direct_lidar_odometry_tpu_torch.registration import covariance, gicp
 from direct_lidar_odometry_tpu_torch.utils import sync
-from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
+from direct_lidar_odometry_tpu_torch.utils.lanes import lanes_where, per_lane
 
 
 def preprocess_scan(
@@ -106,7 +107,7 @@ def init_frame(
 ) -> OdomState:
     """First frame: set the S2S target and spawn the first keyframe. Also
     of every lane of a batched state (raw_points [B, N, 3], raw_mask
-    [B, N]) on the pruned-kernel backends."""
+    [B, N])."""
     backend = resolve_backend(cfg)
     scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
     nrm = _scan_normals(scan, cfg, backend)
@@ -327,8 +328,8 @@ def odom_frame_batched(
 ) -> tuple[OdomState, FrameResult]:
     """:func:`odom_frame` of B lanes in lock-step: a batched state, raw
     scans [B, N, 3] / [B, N], IMU priors [B, 4, 4]; the device hull
-    surrogates (``hull_masks=None``); the pruned-kernel backends. Returns
-    the state and a :class:`FrameResult` of [B] tensors.
+    surrogates (``hull_masks=None``); every backend. Returns the state and
+    a :class:`FrameResult` of [B] tensors.
 
     Host reads: the GICP loops' flags ([2, B] per inner iteration, so as
     many reads as the slowest lane needs), then one [B] read each for the
@@ -339,6 +340,7 @@ def odom_frame_batched(
     """
     backend = resolve_backend(cfg)
     shapes = cfg.shapes
+    cap = shapes.cell_cap_1nn
     scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
     spac = adaptive.update_spaciousness(
         state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
@@ -364,22 +366,24 @@ def odom_frame_batched(
         coarse_target = gicp.make_target(
             state.prev_points[:, ::cs].contiguous(), state.prev_mask[:, ::cs].contiguous(),
             state.prev_normals[:, ::cs].contiguous(),
-            state.prev_normals_valid[:, ::cs].contiguous(), backend=backend,
+            state.prev_normals_valid[:, ::cs].contiguous(),
+            cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
         )
         coarse_cfg = dataclasses.replace(
             cfg.gicp.s2s,
             max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations),
         )
-        coarse_res = gicp.align_batched(coarse_src, coarse_target, guess, coarse_cfg, backend)
+        coarse_res = gicp.align_batched(coarse_src, coarse_target, guess, coarse_cfg, backend,
+                                        cap=cap)
         guess = coarse_res.transform
     if coarse_res is not None and not cfg.gicp.s2s_full_polish:
         s2s_res = coarse_res
     else:
         s2s_target = gicp.make_target(
             state.prev_points, state.prev_mask, state.prev_normals, state.prev_normals_valid,
-            backend=backend,
+            cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
         )
-        s2s_res = gicp.align_batched(src, s2s_target, guess, cfg.gicp.s2s, backend)
+        s2s_res = gicp.align_batched(src, s2s_target, guess, cfg.gicp.s2s, backend, cap=cap)
     t_s2s_global = per_lane(torch.matmul, state.t_s2s, s2s_res.transform)
 
     # --- submap selection + assembly ---
@@ -390,9 +394,13 @@ def odom_frame_batched(
     state, submap_changed = submap.assemble_submap_batched(state, sel, query_pos, cfg, backend)
 
     # --- S2M, and the staged-gate rescue for the lanes that need it ---
-    s2m_target = gicp.make_target(state.submap_points, state.submap_mask, state.submap_normals,
-                                  state.submap_normals_valid, backend=backend)
-    s2m_res = gicp.align_batched(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend)
+    submap_cloud = (state.submap_points, state.submap_mask, state.submap_normals,
+                    state.submap_normals_valid)
+    if gicp.is_pallas(backend):
+        s2m_target = gicp.make_target(*submap_cloud)
+    else:
+        s2m_target = gicp.GicpTarget(*submap_cloud, grid=state.submap_grid)
+    s2m_res = gicp.align_batched(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend, cap=cap)
     if cfg.gicp.s2m_rescue:
         s2s_per = _per_corr(s2s_res)
         s2m_per = _per_corr(s2m_res)
@@ -413,8 +421,20 @@ def odom_frame_batched(
                 cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance,
             )
             active = (rescue, rescue_h)
-            r1 = gicp.align_batched(src, s2m_target, t_s2s_global, wide_cfg, backend, active)
-            r2 = gicp.align_batched(src, s2m_target, r1.transform, cfg.gicp.s2m, backend, active)
+            wide_target = s2m_target
+            if backend == "hashgrid":
+                # the wide gate's own grid, built for the rescued lanes
+                # alone; the other lanes keep their S2M grid (their results
+                # are not used)
+                lanes = lanes_where(rescue, sum(rescue_h))
+                wide = hashgrid.build(state.submap_points[lanes], state.submap_mask[lanes],
+                                      cfg.gicp.rescue_corr_distance, shapes.submap_table_size)
+                wide_target = s2m_target._replace(grid=hashgrid.HashGrid(
+                    *(g.index_copy(0, lanes, w) for g, w in zip(state.submap_grid, wide))))
+            r1 = gicp.align_batched(src, wide_target, t_s2s_global, wide_cfg, backend, active,
+                                    cap=cap)
+            r2 = gicp.align_batched(src, s2m_target, r1.transform, cfg.gicp.s2m, backend, active,
+                                    cap=cap)
             s2m_res = _select(rescue, r2, s2m_res)
 
     pose = torch.where((s2m_res.num_correspondences > 0)[:, None, None], s2m_res.transform,

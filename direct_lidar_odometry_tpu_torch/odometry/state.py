@@ -18,8 +18,8 @@ it. ``submap_grid`` is the S2M hash index of the ``"hashgrid"`` backend
 
 The batched step (``parallel/batched.py``) carries B sequences as one state
 whose every tensor has a leading [B] (``batched_state``), the keyframe
-ring and the submap cache included, and returns a :class:`FrameResult`
-whose every field is a [B] tensor.
+ring, the submap cache and the hash grid's leaves included, and returns a
+:class:`FrameResult` whose every field is a [B] tensor.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def empty_keyframes(cfg: DloConfig, device) -> KeyframeStore:
 
 def build_submap_grid(cfg: DloConfig, points: torch.Tensor, mask: torch.Tensor) -> hashgrid.HashGrid | None:
     """The S2M hash index over a submap on the "hashgrid" backend (cell =
-    the S2M gate), None on the others."""
+    the S2M gate), None on the others; each lane's over [B, S, 3]."""
     if resolve_backend(cfg) != "hashgrid":
         return None
     return hashgrid.build(points, mask, cfg.gicp.s2m.max_correspondence_distance,

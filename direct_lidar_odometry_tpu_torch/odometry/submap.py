@@ -10,7 +10,7 @@ keeps every element <= the kth smallest distance, ties included
 
 The selection takes a leading lane dimension (the batched step, with the
 device hull surrogates); :func:`assemble_submap_batched` is the batched
-twin of :func:`assemble_submap`.
+twin of :func:`assemble_submap`, the S2M hash grid's rows included.
 """
 
 from __future__ import annotations
@@ -148,13 +148,14 @@ def assemble_submap_batched(
     backend: str | None = None,
 ) -> tuple[OdomState, torch.Tensor]:
     """:func:`assemble_submap` over B lanes (a batched state, ``sel`` of
-    [B, K] members, ``query_pos`` [B, 3]); pruned-kernel backends.
+    [B, K] members, ``query_pos`` [B, 3]); every backend.
 
     One host read of the [B] change flags replaces the JAX package's
     ``lax.cond`` under ``vmap``: no lane changed, nothing runs; else the
     changed lanes are gathered, their submaps assembled together and
-    written IN PLACE into their rows of the cache. Returns (state, changed
-    [B] bool tensor).
+    written IN PLACE into their rows of the cache, and on "hashgrid" their
+    S2M grids built together and written into their rows of every grid
+    leaf. Returns (state, changed [B] bool tensor).
     """
     backend = backend or resolve_backend(cfg)
     n = sum(sync.read(sel.changed))
@@ -187,4 +188,7 @@ def assemble_submap_batched(
         state.submap_mask.index_copy_(0, lanes, msk)
         state.submap_normals.index_copy_(0, lanes, nrm)
         state.submap_normals_valid.index_copy_(0, lanes, nvl)
+        if backend == "hashgrid":
+            for leaf, new in zip(state.submap_grid, build_submap_grid(cfg, pts, msk)):
+                leaf.index_copy_(0, lanes, new)
     return state._replace(submap_members=sel.members), sel.changed

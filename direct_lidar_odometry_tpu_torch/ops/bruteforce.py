@@ -15,6 +15,13 @@ winner is the first minimum over all targets, as in the JAX version.
 
 Contracts match :mod:`direct_lidar_odometry_tpu_torch.ops.hashgrid`:
 indices into the target's original order, -1 / masked where not found.
+
+Both searches also take B lanes (targets [B, T, 3], queries [B, Q, 3], the
+batched step; the JAX version under ``jax.vmap``): each lane searches its
+own targets, and the query tile is cut by B, so the lanes together hold no
+more than MAX_ELEMS elements in a temporary. Every operation is
+elementwise, an exact minimum or a top-k over unique keys, so a lane's
+result is its own call's bit for bit.
 """
 
 from __future__ import annotations
@@ -25,17 +32,23 @@ MAX_ELEMS = 1 << 25  # elements of one [query tile, target tile] temporary (128 
 
 
 def _d2(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """[A, 3] x [B, 3] -> [A, B] squared distances in the reference's order."""
-    dx = q[:, None, 0] - t[None, :, 0]
-    dy = q[:, None, 1] - t[None, :, 1]
-    dz = q[:, None, 2] - t[None, :, 2]
+    """[..., A, 3] x [..., C, 3] -> [..., A, C] squared distances in the
+    reference's order."""
+    dx = q[..., :, None, 0] - t[..., None, :, 0]
+    dy = q[..., :, None, 1] - t[..., None, :, 1]
+    dz = q[..., :, None, 2] - t[..., None, :, 2]
     return (dx * dx + dy * dy) + dz * dz
 
 
+def _lanes(queries: torch.Tensor) -> int:
+    """B of [B, Q, 3] queries, 1 of [Q, 3]."""
+    return queries.shape[0] if queries.dim() == 3 else 1
+
+
 def k_smallest(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest of each row of a contiguous [R, W] d2 (>= 0 or +inf),
-    ascending, equal values in column order (``lax.top_k``'s order):
-    (d2 [R, k], column [R, k] int64). The top-k runs over int64 keys
+    """The k smallest of each row of a contiguous [..., W] d2 (>= 0 or
+    +inf), ascending, equal values in column order (``lax.top_k``'s order):
+    (d2 [..., k], column [..., k] int64). The top-k runs over int64 keys
     (d2 bits << 32 | column), which are unique, so no tie is left to the
     sort (``torch.topk`` promises no order among equal values); d2 >= 0, so
     its f32 bits order like its values."""
@@ -53,26 +66,27 @@ def query_1nn(
     radius,
     tile: int = 8192,
 ):
-    """Exact 1-NN within ``radius``: ([T,3],[T],[Q,3],[Q]) -> (idx, d2, found).
+    """Exact 1-NN within ``radius``: ([T,3],[T],[Q,3],[Q]) -> (idx, d2, found),
+    or each lane's over [B, ...] inputs.
 
     Tiles the target axis by ``tile`` with a running (min, argmin) carry;
-    the query axis is tiled so a [query tile, tile] block stays within
-    MAX_ELEMS. ``d2`` is the raw minimum (inf when no valid target).
+    the query axis is tiled so the lanes' [query tile, tile] blocks stay
+    within MAX_ELEMS. ``d2`` is the raw minimum (inf when no valid target).
     """
-    t_total = target_points.shape[0]
+    t_total = target_points.shape[-2]
     if t_total % tile:
         raise ValueError(f"{t_total} targets are not a multiple of tile {tile}")
     dev = queries.device
     radius2 = torch.tensor(radius, dtype=torch.float32, device=dev) ** 2
-    q_tile = max(1, MAX_ELEMS // tile)
-    best_d2 = torch.full(queries.shape[:1], torch.inf, dtype=torch.float32, device=dev)
-    best_idx = torch.full(queries.shape[:1], -1, dtype=torch.int32, device=dev)
-    for q0 in range(0, queries.shape[0], q_tile):
-        q = queries[q0:q0 + q_tile]
-        bd, bi = best_d2[q0:q0 + q_tile], best_idx[q0:q0 + q_tile]
+    q_tile = max(1, MAX_ELEMS // (tile * _lanes(queries)))
+    best_d2 = torch.full(queries.shape[:-1], torch.inf, dtype=torch.float32, device=dev)
+    best_idx = torch.full(queries.shape[:-1], -1, dtype=torch.int32, device=dev)
+    for q0 in range(0, queries.shape[-2], q_tile):
+        q = queries[..., q0:q0 + q_tile, :]
+        bd, bi = best_d2[..., q0:q0 + q_tile], best_idx[..., q0:q0 + q_tile]
         for base in range(0, t_total, tile):
-            d2 = _d2(q, target_points[base:base + tile])
-            d2 = torch.where(target_mask[None, base:base + tile], d2, torch.inf)
+            d2 = _d2(q, target_points[..., base:base + tile, :])
+            d2 = torch.where(target_mask[..., None, base:base + tile], d2, torch.inf)
             tile_d2, arg = torch.min(d2, dim=-1)  # first minimum
             better = tile_d2 < bd
             bd.copy_(torch.where(better, tile_d2, bd))
@@ -92,21 +106,22 @@ def query_knn(
 ):
     """Exact k-NN, unbounded radius (the reference's kd-tree kNN): (idx [Q,k],
     d2 [Q,k], valid [Q,k]), nearest first, equal distances in target order
-    (``lax.top_k``'s order in the JAX version). Queries go in chunks of
-    ``chunk`` (the JAX version's shape contract), each cut further so its
-    [rows, T] block stays within MAX_ELEMS.
+    (``lax.top_k``'s order in the JAX version); each lane's ([B, Q, k])
+    over [B, ...] inputs. Queries go in chunks of ``chunk`` (the JAX
+    version's shape contract), each cut further so the lanes' [rows, T]
+    blocks stay within MAX_ELEMS.
     """
-    q_total, t_total = queries.shape[0], target_points.shape[0]
+    q_total, t_total = queries.shape[-2], target_points.shape[-2]
     if q_total % chunk:
         raise ValueError(f"{q_total} queries are not a multiple of chunk {chunk}")
     dev = queries.device
-    rows = max(1, min(chunk, MAX_ELEMS // max(t_total, 1)))
-    idx = torch.empty((q_total, k), dtype=torch.int32, device=dev)
-    d2 = torch.empty((q_total, k), dtype=torch.float32, device=dev)
+    rows = max(1, min(chunk, MAX_ELEMS // max(t_total * _lanes(queries), 1)))
+    idx = torch.empty(queries.shape[:-1] + (k,), dtype=torch.int32, device=dev)
+    d2 = torch.empty(queries.shape[:-1] + (k,), dtype=torch.float32, device=dev)
     for q0 in range(0, q_total, rows):
-        dd = torch.where(target_mask[None, :], _d2(queries[q0:q0 + rows], target_points),
-                         torch.inf)
-        d2[q0:q0 + rows], col = k_smallest(dd, k)
-        idx[q0:q0 + rows] = col.to(torch.int32)
-    valid = query_mask[:, None] & torch.isfinite(d2)
+        dd = torch.where(target_mask[..., None, :],
+                         _d2(queries[..., q0:q0 + rows, :], target_points), torch.inf)
+        d2[..., q0:q0 + rows, :], col = k_smallest(dd, k)
+        idx[..., q0:q0 + rows, :] = col.to(torch.int32)
+    valid = query_mask[..., None] & torch.isfinite(d2)
     return torch.where(valid, idx, -1), d2, valid

@@ -5,10 +5,12 @@ sequential in time, so the way to give one card more work is to run
 independent sequences side by side. The JAX package ``vmap``s its pure
 per-frame step; here the step has a batched twin
 (``pipeline.odom_frame_batched``) that carries a leading lane dimension
-through every stage and launches each kernel (K1 normals, K2/K4 searches or
-the fused K3) once for all lanes. Host reads per step do not grow with B:
-each GICP inner iteration reads one [2, B] flag tensor and each branch one
-[B] tensor.
+through every stage, on every backend: it launches each kernel (K1
+normals, K2/K4 searches or the fused K3) once for all lanes, and on
+"brute" and "hashgrid" runs each tensor-op search (and builds each hash
+grid) once for all lanes. Host reads per step do not grow with B: each
+GICP inner iteration reads one [2, B] flag tensor and each branch one [B]
+tensor.
 
 Semantics (those of ``jax.vmap`` over the JAX step): every lane equals its
 own single-sequence ``pipeline.odom_frame`` driven directly with
@@ -23,41 +25,28 @@ from typing import Callable
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend
+from direct_lidar_odometry_tpu_torch.config import DloConfig
 from direct_lidar_odometry_tpu_torch.odometry import hulls, pipeline
-from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore, OdomState
+from direct_lidar_odometry_tpu_torch.odometry.state import OdomState
 from direct_lidar_odometry_tpu_torch.utils.precision import pin_float32
-
-UNBATCHED_BACKENDS = ("brute", "hashgrid")
-
-
-def check_backend(cfg: DloConfig) -> str:
-    """The resolved backend; "brute" and "hashgrid" raise: their batched
-    form is not ported (ROADMAP Queue 1, "batched brute and hashgrid")."""
-    backend = resolve_backend(cfg)
-    if backend in UNBATCHED_BACKENDS:
-        raise NotImplementedError(
-            f"nn_backend={backend!r} has no batched step yet (ROADMAP Queue 1, item "
-            "\"batched brute and hashgrid\"); the batched step runs on pallas, "
-            "pallas_unfused, pallas_fused and pallas_mxu")
-    return backend
 
 
 def batched_state(cfg: DloConfig, batch: int, device="cuda") -> OdomState:
     """``batch`` fresh per-sequence states stacked along a leading lane
-    dimension: every tensor, the keyframe ring and the submap cache
+    dimension: every tensor, the keyframe ring, the submap cache and the
+    hash grid ("hashgrid" only; its ``cell_size`` becomes [batch])
     included, gets a leading [batch]; each lane is a copy of
     ``pipeline.fresh_state``."""
-    check_backend(cfg)
     one = pipeline.fresh_state(cfg, device=device)
 
-    def stack(t: torch.Tensor) -> torch.Tensor:
-        return t.expand((batch,) + t.shape).clone()
+    def stack(v):
+        if v is None:
+            return None
+        if isinstance(v, tuple):
+            return type(v)(*(stack(t) for t in v))
+        return v.expand((batch,) + v.shape).clone()
 
-    fields = {f: stack(getattr(one, f)) for f in OdomState._fields
-              if f not in ("keyframes", "submap_grid")}
-    return OdomState(keyframes=KeyframeStore(*(stack(t) for t in one.keyframes)),
-                     submap_grid=None, **fields)
+    return stack(one)
 
 
 def make_batched_fns(cfg: DloConfig) -> tuple[Callable, Callable]:
@@ -67,12 +56,11 @@ def make_batched_fns(cfg: DloConfig) -> tuple[Callable, Callable]:
     step_fn(states, raw_points, raw_mask, imu_priors[B,4,4])
         -> (states, FrameResult[B])
 
-    Both run on the device of ``states``. A state passed in is consumed (its
-    ring and submap cache are written in place), as in the single-sequence
-    step. Raises NotImplementedError on "brute" and "hashgrid".
+    Both run on the device of ``states``, on every backend. A state passed
+    in is consumed (its ring, submap cache and hash grid are written in
+    place), as in the single-sequence step.
     """
     cfg = cfg.replace(host_preprocess=False)
-    check_backend(cfg)
     pin_float32()
     fib = torch.from_numpy(hulls.fibonacci_directions(cfg.shapes.hull_directions))
     directions = {}

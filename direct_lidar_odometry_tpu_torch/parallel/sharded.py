@@ -13,7 +13,7 @@ mesh is the process group: one process per card (NCCL) or per CPU worker
 - :func:`shard_states` keeps this rank's ``B / world`` lanes of a batched
   state or of any batched tensor;
 - :func:`make_sharded_step` is the batched step on the local lanes
-  (``parallel/batched.py``), then the fleet health: the global mean S2M
+  (``parallel/batched.py``, every backend), then the fleet health: the global mean S2M
   correspondence count (SUM of the count's sum and of the lanes) and the
   global max S2M error (MAX), reduced on the device, with no host read;
 - :func:`make_distributed_refine` splits the pose graph's edges over the
@@ -110,7 +110,8 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
 def shard_states(states, mesh: Mesh):
     """A copy of this rank's ``B / size`` lanes of a batched state, on its
     device: of every tensor its contiguous share of the leading dimension
-    (a tuple or NamedTuple field by field, None kept), so also of the scans
+    (a tuple or NamedTuple field by field, the hash grid's leaves and its
+    [B] ``cell_size`` included, None kept), so also of the scans
     of a step or of a pose graph's edges. B must divide by the group's
     size, as the JAX package's mesh requires."""
     if states is None:

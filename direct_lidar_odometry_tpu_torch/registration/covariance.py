@@ -17,6 +17,12 @@ Morton-sorted cloud, the exhaustive kernel K6 over any cloud); the
 The reference divides by k even when fewer neighbours are returned
 (``nano_gicp_impl.hpp:319``); normals are scale-invariant, so the masked
 k-NN statistics here divide by the true count, as in the JAX package.
+
+The k-NN estimates also take B lanes (clouds [B, N, 3], the batched step):
+the searches and the grids are lane-generic; each lane's neighbourhood
+sums run in the single-cloud operations (``utils/lanes.per_lane``), since
+on the card a reduction or a batched product over [B, N, ...] may add in
+another order than over [N, ...].
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from direct_lidar_odometry_tpu_torch.ops import bruteforce, cuda_cov, eigh3, hashgrid
+from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 PLANE_EPS = 1e-3  # reference nano_gicp_impl.hpp:339: values = (1, 1, 1e-3)
 
@@ -40,15 +47,26 @@ def _masked_normals(normal: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[..., None], normal, z)
 
 
-def _normals_from_knn(points, kidx, kvalid, mask, min_neighbors):
-    """Normal per point from its k-NN rows (indices into ``points``):
-    (normals, valid, neighbours found)."""
-    neigh = points[torch.clamp(kidx, min=0)]           # [N, k, 3]
-    w = kvalid.to(torch.float32)[..., None]             # [N, k, 1]
+def _knn_cov(neigh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Covariance [N, 3, 3] of each point's weighted neighbours ([N, k, 3],
+    weights [N, k, 1])."""
     cnt = torch.clamp(torch.sum(w, dim=-2), min=1.0)    # [N, 1]
     mean = torch.sum(neigh * w, dim=-2) / cnt
     centered = (neigh - mean[..., None, :]) * w
-    cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
+    return torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
+
+
+def _normals_from_knn(points, kidx, kvalid, mask, min_neighbors):
+    """Normal per point from its k-NN rows (indices into ``points``):
+    (normals, valid, neighbours found); of each lane for [B, N, 3] points
+    and [B, N, k] rows."""
+    j = torch.clamp(kidx, min=0)
+    w = kvalid.to(torch.float32)[..., None]             # [N, k, 1]
+    if kidx.dim() == 3:
+        lane = torch.arange(points.shape[0], device=points.device)[:, None, None]
+        cov = per_lane(_knn_cov, points[lane, j], w)
+    else:
+        cov = _knn_cov(points[j], w)                    # neighbours [N, k, 3]
     normal, _ = eigh3.smallest_eigvec3(cov)
     found = torch.sum(kvalid, dim=-1)
     valid = mask & (found >= min_neighbors)

@@ -28,10 +28,10 @@ they are Python loops; each inner iteration reads its two flags (accept,
 converged) in ONE host read (``utils/sync.py``), and nothing else in the
 loop waits for the device.
 
-:func:`align_batched` registers B independent lanes at once on the
-pruned-kernel backends (the JAX package's ``align`` under ``jax.vmap``):
-sources, targets and guesses carry a leading [B], every search or fused
-linearization is one launch over all lanes, and each lane's LM state (x,
+:func:`align_batched` registers B independent lanes at once on every
+backend (the JAX package's ``align`` under ``jax.vmap``): sources,
+targets (a hash grid too) and guesses carry a leading [B], every search or
+fused linearization is one launch or one tensor-op pass over all lanes, and each lane's LM state (x,
 lambda, nu, iterations, converged, failed) lives in [B] tensors. The loops
 run while any lane is live; a lane that has finished keeps its carry
 frozen (``torch.where``), and each inner iteration still reads its flags,
@@ -107,7 +107,8 @@ def make_target(
     """Build the backend's search index over the target: chunk AABBs over a
     Morton-ordered cloud (contiguous tensors) on the pruned-kernel
     backends, a hash grid of cell ``radius`` and ``table_size`` slots on
-    ``"hashgrid"``, nothing on ``"brute"``."""
+    ``"hashgrid"``, nothing on ``"brute"``; each lane's over [B, T, 3]
+    clouds."""
     chunk_lo = chunk_hi = grid = None
     if is_pallas(backend):
         chunk_lo, chunk_hi = morton.chunk_aabbs(points, mask, morton.TARGET_CHUNK)
@@ -161,7 +162,7 @@ def _update_correspondences(
 
     Serves the unfused backends; "pallas_fused" takes the fused kernel in
     :func:`_linearize` and never calls this. With B lanes (x0 [B, 4, 4],
-    clouds [B, N, ...]; pruned-kernel backends) one search serves them all."""
+    clouds [B, N, ...], a batched grid) one search serves them all."""
     r = x0[..., :3, :3]
     p_t = se3.transform_points(x0, src.points)  # [Ns, 3]
     radius = cfg.max_correspondence_distance
@@ -171,7 +172,7 @@ def _update_correspondences(
             p_t, src.mask, radius, mxu=(backend == "pallas_mxu"),
         )
     elif backend == "brute":
-        tile = min(8192, target.points.shape[0])
+        tile = min(8192, target.points.shape[-2])
         idx, _, found = bruteforce.query_1nn(target.points, target.mask, p_t, src.mask, radius,
                                              tile=tile)
     else:
@@ -383,11 +384,12 @@ def align(
 
 def _linearize_batched(
     x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig, backend: str,
+    cap: int = 16,
 ) -> _Linearization:
-    """:func:`_linearize` over B lanes (x0 [B, 4, 4], clouds [B, N, ...]) on
-    the pruned-kernel backends: one K2/K4 search or one fused K3 launch for
-    all lanes, then each lane's masked reduction in :func:`_linearize`'s
-    own operations."""
+    """:func:`_linearize` over B lanes (x0 [B, 4, 4], clouds [B, N, ...]):
+    one K2/K4 search, one fused K3 launch or one tensor-op search for all
+    lanes, then each lane's masked reduction in :func:`_linearize`'s own
+    operations."""
     if backend == "pallas_fused":
         p_t = se3.transform_points(x0, src.points)
         m0 = src.normals @ x0[:, :3, :3].mT
@@ -400,7 +402,7 @@ def _linearize_batched(
                               mu_b=fl.mu_b, n_b=fl.n_b, m0=m0, n_corr=fl.n_corr)
 
     corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend,
-                                                                cap=0)
+                                                                cap)
     mu_b = gather_rows(target.points, torch.clamp(corr, min=0))
     h, b, err, n_corr = per_lane(_normal_equations, p_t, mu_b, weight, mahal)
     return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
@@ -422,10 +424,11 @@ def align_batched(
     cfg: GicpStageConfig,
     backend: str = "pallas",
     active: tuple[torch.Tensor, list] | None = None,
+    cap: int = 16,
 ) -> GicpResult:
     """:func:`align` over B lanes: ``src`` and ``target`` with a leading [B]
-    (``make_target`` over [B, T, 3] clouds), ``guess`` [B, 4, 4]; backends
-    "pallas" (alias "pallas_unfused"), "pallas_mxu", "pallas_fused".
+    (``make_target`` over [B, T, 3] clouds), ``guess`` [B, 4, 4]; every
+    backend of :func:`align`, ``cap`` as there.
 
     Each lane follows :func:`align`'s loops on its own state: the outer loop
     runs while some lane is live (below ``max_iterations``, neither
@@ -457,7 +460,7 @@ def align_batched(
     nc_fin = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     lam = None
     while any(live):
-        lin = _linearize_batched(x, src, target, cfg, backend)
+        lin = _linearize_batched(x, src, target, cfg, backend, cap)
         if use_lm:
             # step_lm (lsq_registration_impl.hpp:161-208), lane by lane
             if lam is None:  # every lane's first linearization

@@ -61,10 +61,11 @@ def _check_1nn(jres, tres, q, targets):
     return len(diff)
 
 
-def _check_knn(jres, tres, q, targets):
+def _check_knn(jres, tres, q, targets, share=0.01):
     """valid equal; neighbours equal except near-ties (where two neighbours'
     d2 agree within 2^-14 relative, the reference's fused rounding may
-    order them the other way); d2 within 1e-6 relative."""
+    order them the other way), at most ``share`` of the valid neighbours;
+    d2 within 1e-6 relative."""
     jidx, jd2, jv = (np.asarray(a) for a in jres)
     tidx, td2, tv = (a.numpy() for a in tres)
     np.testing.assert_array_equal(tv, jv)
@@ -74,7 +75,7 @@ def _check_knn(jres, tres, q, targets):
     a = np.sum((q64[rows] - t64[tidx[rows, cols]]) ** 2, axis=-1)
     b = np.sum((q64[rows] - t64[jidx[rows, cols]]) ** 2, axis=-1)
     assert np.all(np.abs(a - b) <= NEAR_TIE * np.maximum(a, b)), np.abs(a - b).max()
-    assert len(rows) <= 0.01 * jv.sum()
+    assert len(rows) <= share * jv.sum()
     assert jv.sum() > 1000
 
 

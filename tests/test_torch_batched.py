@@ -13,10 +13,10 @@ lane dimension of kernels K1-K4, on the CPU.
   ``odom_frame(hull_masks=None)``, also with lanes that take different
   branches in one step (a spawn in one lane only, the rescue in one lane
   only);
-- host reads a step do not grow with B;
-- "brute" and "hashgrid" refuse to run batched.
+- host reads a step do not grow with B.
 
-The kernels' lanes on a card: ``tests/test_torch_cuda.py``.
+The same on "brute" and "hashgrid": ``tests/test_torch_batched_backends.py``;
+the kernels' lanes on a card: ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
@@ -260,15 +260,6 @@ def test_ring_updates_on_lanes_equal_single_rings(count):
                 assert torch.equal(x[b], y)
 
 
-@pytest.mark.parametrize("backend", ["brute", "hashgrid"])
-def test_unbatched_backends_raise(backend):
-    cfg = tcfg.config_from_dict(dataclasses.asdict(pallas_cfg(nn_backend=backend)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batched.make_batched_fns(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batched.batched_state(cfg, 2, device="cpu")
-
-
 # --- the batched step -------------------------------------------------------
 
 def _world(seed):
@@ -423,10 +414,10 @@ def test_lanes_taking_different_branches(two_worlds, port_drive, singles):
     seen = []
     align = tgicp.align_batched
 
-    def spy(src, target, guess, stage, backend="pallas", active=None):
+    def spy(src, target, guess, stage, backend="pallas", active=None, cap=16):
         if active is not None:
             seen.append(list(active[1]))
-        return align(src, target, guess, stage, backend, active)
+        return align(src, target, guess, stage, backend, active, cap)
 
     tgicp.align_batched = spy
     try:

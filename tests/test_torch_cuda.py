@@ -551,3 +551,71 @@ def test_bruteforce_on_card_matches_cpu(dev):
     for a, b in zip(bruteforce.query_knn(p.to(dev), m.to(dev), q.to(dev), qm.to(dev), 10, chunk=1024),
                     bruteforce.query_knn(p, m, q, qm, 10, chunk=1024)):
         assert torch.equal(a.cpu(), b)
+
+
+def _lane_clouds(seeds, dev):
+    """B lanes of 8192-point clouds and 4096 queries each, on ``dev``."""
+    clouds = [_sorted_cloud(s, 8192, "cpu") for s in seeds]
+    gen = torch.Generator().manual_seed(3)
+    qs = [(p[:4096] + 0.2 * torch.randn(4096, 3, generator=gen)).contiguous() for p, _ in clouds]
+    return (torch.stack([p for p, _ in clouds]).to(dev), torch.stack([m for _, m in clouds]).to(dev),
+            torch.stack(qs).to(dev), torch.stack([m[:4096] for _, m in clouds]).to(dev))
+
+
+@pytest.mark.parametrize("cell", [0.5, 3.0])
+def test_hashgrid_lanes_on_card_equal_single_calls(dev, cell):
+    """A B = 4 hash grid built on the card: every lane's leaves are its own
+    build's bit for bit, and so are its 1-NN and k-NN results; no hand
+    kernel and no plain version runs."""
+    from direct_lidar_odometry_tpu_torch.ops import hashgrid
+
+    p, m, q, qm = _lane_clouds([21, 22, 23, 24], dev)
+    for mod in (cuda_nn, cuda_cov):
+        mod.reset_launches()
+    grid = hashgrid.build(p, m, cell, 2**12)
+    one_nn = hashgrid.query_1nn(grid, q, qm, cell, 16)
+    knn = hashgrid.query_knn(grid, q, qm, 10, 32, chunk=1024)
+    for b in range(p.shape[0]):
+        single = hashgrid.build(p[b], m[b], cell, 2**12)
+        for f in hashgrid.HashGrid._fields:
+            assert torch.equal(getattr(grid, f)[b], getattr(single, f)), f
+        for x, y in zip(one_nn, hashgrid.query_1nn(single, q[b], qm[b], cell, 16)):
+            assert torch.equal(x[b], y)
+        for x, y in zip(knn, hashgrid.query_knn(single, q[b], qm[b], 10, 32, chunk=1024)):
+            assert torch.equal(x[b], y)
+    assert sum(cuda_nn.launches.values()) == 0 and sum(cuda_cov.launches.values()) == 0
+
+
+def test_bruteforce_lanes_on_card_equal_single_calls(dev):
+    """B = 4 lanes of the exhaustive 1-NN and k-NN on the card: every lane
+    is its own call's bit for bit (the lanes cut the query tile)."""
+    from direct_lidar_odometry_tpu_torch.ops import bruteforce
+
+    p, m, q, qm = _lane_clouds([31, 32, 33, 34], dev)
+    one_nn = bruteforce.query_1nn(p, m, q, qm, 1.0, tile=2048)
+    knn = bruteforce.query_knn(p, m, q, qm, 10, chunk=1024)
+    for b in range(p.shape[0]):
+        for x, y in zip(one_nn, bruteforce.query_1nn(p[b], m[b], q[b], qm[b], 1.0, tile=2048)):
+            assert torch.equal(x[b], y)
+        for x, y in zip(knn, bruteforce.query_knn(p[b], m[b], q[b], qm[b], 10, chunk=1024)):
+            assert torch.equal(x[b], y)
+
+
+@pytest.mark.parametrize("kind", ["brute", "twoscale"])
+def test_knn_normals_lanes_on_card_equal_single_calls(dev, kind):
+    """The k-NN normals of B = 4 lanes on the card: every lane's normals and
+    valid mask are its own call's bit for bit (the neighbourhood sums run
+    per lane)."""
+    from direct_lidar_odometry_tpu_torch.registration import covariance
+
+    p, m, _, _ = _lane_clouds([41, 42, 43, 44], dev)
+    if kind == "brute":
+        def est(pts, mask):
+            return covariance.estimate_normals_brute(pts, mask, k=10, chunk=2048)
+    else:
+        def est(pts, mask):
+            return covariance.estimate_normals_twoscale(pts, mask, k=10, chunk=2048)
+    got = est(p, m)
+    for b in range(p.shape[0]):
+        one = est(p[b], m[b])
+        assert torch.equal(got.normals[b], one.normals) and torch.equal(got.valid[b], one.valid)
