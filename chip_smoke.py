@@ -76,7 +76,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    passed to the step, no plain version run; plus the same scans without
    the IMU, for its ATE;
 9. print one JSON line of per-kernel results, then the final JSON line
-   (after phases 10-14, which run before it);
+   (after phases 10-15, which run before it);
 10. host preprocessing at full width: the native host library (built in
    phase 2) must load; one raw scan
    prepared on the host (``io/hostprep.py``) and on the device must give
@@ -134,10 +134,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    of "hashgrid" at B = 1 and 4 (six steps) and of "brute" at B = 4 (two
    steps); then NCCL at world size 1 on a file store: the sharded step on
    "hashgrid" over 5 steps, states (hash grid included) and results
-   bitwise equal to the batched drive's.
+   bitwise equal to the batched drive's;
+15. the long drive past ring saturation, through
+   ``tools_torch/long_validation.py``'s ``drive``: its closed loop with
+   elevation at full width (OS1-64, 40 m, noise 0.01), 240 frames rendered
+   once (the host's scans/s printed), on "pallas" with the tool's
+   configuration (loop closure on, ``check_every`` 64, ``min_index_gap``
+   20, ``loop_radius`` 12, a forced round at the end), counters reset
+   before each drive. Drive A, the 512-slot ring: the ATE gate, at least
+   one unforced round, every trigger check whose two gates pass runs its
+   round and no other does, S2M correspondences > 100 on every frame, each
+   frame without a round reads on the host what its step reads (one read
+   a GICP LM step, the steps counted apart from the reads and 1 to
+   ``lm_max_iterations`` an outer iteration, and one each for the submap
+   flag, the spawn decision and the rescue trigger) plus the trigger's
+   count read on a check frame, peak device memory at the end within 64
+   MiB of its value at frame 50, finite state, K1 and K2 launched, no
+   plain version; each round's frame, keyframes, candidates, accepted
+   edges, wall ms and its frame's synced ms, and the keyframe-map error
+   before and after the forced round printed. Drive B, the same scans
+   with a 24-slot ring and an 8-keyframe submap (flat budget 8 x 16384):
+   the same gates except the unforced round and the memory, at least one
+   eviction, 24 keyframes at the end, each slot's ``seq`` the frame of the
+   last spawn written to it (distinct, in spawn order), at most one
+   unforced round with the ring full and none after it; median frame ms
+   before and after saturation printed.
 
-It imports torch and the port, nothing of JAX. Each phase's seconds are
-printed.
+It imports torch, the port and ``tools_torch``, nothing of JAX. Each
+phase's seconds are printed.
 """
 
 from __future__ import annotations
@@ -184,6 +208,13 @@ LANE_SWEEP = (1, 4, 8)  # lanes timed; 8 = the 4 lanes twice
 SHORT_FRAMES = 10       # phase 13: the pallas_fused / pallas_mxu drives and the B = 1 / 8 timing
 SHARDED_STEPS = 5       # phase 13: steps of the NCCL world-size-1 sharded drive
 LANE_POSE_TOL = 1e-4    # m: lane 0 of the batched drive against its single-sequence drive
+LONG_FRAMES = 240       # phase 15: one lap of the long-validation loop (~240 m)
+LONG_RING = 24          # phase 15, drive B: the JAX tool's LV_MAX_KF ring
+LONG_SUBMAP_KF = 8      # phase 15, drive B: keyframes in the submap
+LONG_MEM_GROWTH_MIB = 64  # phase 15: peak device memory growth allowed after frame 50
+# phase 15: the step's host reads outside GICP's LM loop: the submap-changed
+# flag, the spawn decision, the rescue trigger (one each, every frame)
+STEP_FIXED_READS = {"submap": 1, "keyframes": 1, "pipeline": 1}
 REPO = Path(__file__).resolve().parent
 CFG_PATH = REPO / "cfg" / "tpu_dlo.yaml"
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
@@ -1844,6 +1875,173 @@ def tensor_op_batch_phase(world, lscans, card, single_profiles):
     return dict(hashgrid=hout, brute=bout, profiles=profiles, sharded=shard, summary=summary)
 
 
+def long_world():
+    """Phase 15's scans: the closed loop with elevation of
+    ``tools_torch/long_validation.py`` at LONG_FRAMES frames, rendered
+    once (noise 0.01, no burst) at full width (OS1-64, 40 m)."""
+    from tools_torch import long_validation as lv
+
+    world, render = lv.make_world(LONG_FRAMES)
+    return world, list(lv.render_scans(world, render, LONG_FRAMES, noise=0.01))
+
+
+def long_config(ring: int | None = None):
+    """The long-validation tool's configuration with loop closure on (512
+    slots); with ``ring``, drive B's: ``ring`` slots and an 8-keyframe
+    submap whose flat budget holds all 8 keyframes, as in the JAX tool's
+    ``LV_MAX_KF`` regime."""
+    from tools_torch import long_validation as lv
+
+    cfg = lv.with_posegraph(lv.make_config(), True)
+    if ring is not None:
+        sh = cfg.shapes
+        cfg = cfg.replace(shapes=dataclasses.replace(
+            sh, max_keyframes=ring, max_submap_kf=LONG_SUBMAP_KF,
+            n_submap_flat=LONG_SUBMAP_KF * sh.n_keyframe))
+    return cfg
+
+
+def long_drive(cfg, world, scans, label, device="cuda"):
+    """Phase 15: one drive of ``tools_torch.long_validation.drive`` with every
+    launch counter reset just before; prints its row, its rounds and its
+    trigger checks, then holds the gates every drive shares: the ATE gate,
+    S2M correspondences > 100 on every frame, every trigger check whose
+    two gates pass runs its round (and no other does), the host reads of
+    each frame without a round, finite state, K1 and K2 launched, no plain
+    version. Returns (the printed summary, the drive's trace)."""
+    from tools_torch import long_validation as lv
+
+    reset_counters()
+    row, tr = lv.drive(cfg, world, scans, device)
+    launches = read_counters()
+    del tr["runner"]  # free the drive's state before the next one
+    cap = tr["capacity"]
+    round_at = {e["index"] for e in tr["refine_log"] if not e["forced"]}
+    checked = {c["frame"] for c in tr["checks"]}
+    # every frame without a round reads what its step reads: one read per
+    # GICP LM step, counted apart from the reads (1 to lm_max_iterations
+    # steps an outer iteration, at least the reported S2S + S2M iterations:
+    # the coarse stage and the rescue report none), and the fixed three; a
+    # trigger check adds the runner's read of the keyframe count
+    lm_max = max(cfg.gicp.s2s.lm_max_iterations, cfg.gicp.s2m.lm_max_iterations)
+    quiet = [t for t in range(1, len(tr["host_reads"])) if t not in round_at]
+    off = []
+    for t in quiet:
+        sites = dict(tr["reads_by_module"][t])
+        lm, lin = sites.pop("gicp", 0), tr["linearizations"][t]
+        expect = dict(STEP_FIXED_READS, **({"runner": 1} if t in checked else {}))
+        reported = tr["s2s_iterations"][t] + tr["s2m_iterations"][t]
+        if sites != expect or lm != tr["lm_steps"][t] or not reported <= lin <= lm <= lin * lm_max:
+            off.append((t, tr["reads_by_module"][t], tr["linearizations"][t], tr["lm_steps"][t]))
+    reads = [tr["host_reads"][t] for t in quiet]
+    ms = tr["frame_ms"]
+    full = row["ring_full_frame"]
+    steady = [t for t in range(1 + WARMUP, len(ms)) if t not in round_at]
+    before = [ms[t] for t in steady if full is None or t <= full]
+    after = [ms[t] for t in steady if full is not None and t > full]
+    rounds = [dict(frame=e["index"], forced=e["forced"], keyframes=e["n_keyframes"],
+                   candidates=e["n_candidates"], accepted=e["n_accepted"],
+                   graph_error=e["graph_error"], round_wall_ms=e["wall_ms"],
+                   frame_ms=None if e["forced"] else ms[e["index"]])
+              for e in tr["refine_log"]]
+    corr = [c for c in tr["s2m_num_corr"] if c is not None]
+    mem = dict(peak_frame50_mib=row["peak_mem_frame50_mib"], peak_end_mib=row["peak_mem_end_mib"],
+               allocated_mib=tr["mem_current_mib"])
+    out = dict(
+        label=label, ring_slots=cap, submap_kf=cfg.shapes.max_submap_kf,
+        submap_flat=cfg.shapes.n_submap_flat, row=row, rounds=rounds,
+        checks=[dict(c) for c in tr["checks"]], min_s2m_num_corr=min(corr),
+        host_reads_quiet_frames=dict(median=float(np.median(reads)), min=min(reads),
+                                     max=max(reads)),
+        gicp_lm_steps_quiet_frames=dict(
+            median=float(np.median([tr["lm_steps"][t] for t in quiet])),
+            min=min(tr["lm_steps"][t] for t in quiet), max=max(tr["lm_steps"][t] for t in quiet)),
+        frames_off_the_step_reads=off,
+        median_frame_ms=float(np.median([ms[t] for t in steady])),
+        median_frame_ms_before_full=float(np.median(before)) if before else None,
+        median_frame_ms_after_full=float(np.median(after)) if after else None,
+        memory=mem, state_finite=tr["state_finite"], launches=launches,
+    )
+    print(f"# long drive {label} {json.dumps(out)}")
+    for r in rounds:
+        print(f"# long drive {label} round {json.dumps(r)}")
+    gate = max(0.10, 0.001 * row["path_m"])
+    require(row["ate_rmse_m"] <= gate,
+            f"long drive {label}: ATE {row['ate_rmse_m']:.4f} m > {gate:.4f} m")
+    require(min(corr) > 100, f"long drive {label}: a frame has s2m_num_corr {min(corr)} <= 100")
+    for c in tr["checks"]:
+        require(c["due"] == c["ran"], f"long drive {label}: trigger check {c} ran "
+                                      f"{'a round it was not due' if c['ran'] else 'no round'}")
+    require(not off, f"long drive {label}: frames without a round read more than their "
+                     f"step and trigger: {off[:5]}")
+    require(tr["state_finite"], f"long drive {label}: a state leaf is not finite")
+    for name in ("nn1_pruned", "cov_pruned"):
+        require(launches[name]["cuda"] > 0, f"long drive {label}: {name} was never launched")
+    for name, cnt in launches.items():
+        require(cnt["plain"] == 0, f"long drive {label}: {name} plain version ran {cnt['plain']} times")
+    return out, tr
+
+
+def long_drive_phase(card, device="cuda"):
+    """Phase 15: the long drive at full width on "pallas" past ring
+    saturation, through ``tools_torch/long_validation.py``'s drive: A with
+    the tool's 512-slot ring, B with LONG_RING slots (see the module
+    docstring). Returns the K2 and K1 launches of both drives."""
+    t0 = time.perf_counter()
+    world, scans = long_world()
+    render_s = time.perf_counter() - t0
+    print(f"# rendered {len(scans)} long-drive scans in {render_s:.1f} s "
+          f"({len(scans) / render_s:.2f} scans/s on this host, "
+          f"{int(np.mean([len(s) for s in scans]))} points mean)")
+
+    a, _ = long_drive(long_config(), world, scans, "A", device)
+    ra = a["row"]
+    mem_growth = (None if ra["peak_mem_end_mib"] is None
+                  else ra["peak_mem_end_mib"] - ra["peak_mem_frame50_mib"])
+    unforced_a = [r for r in a["rounds"] if not r["forced"]]
+    require(len(unforced_a) >= 1, "long drive A: no unforced loop-closure round ran")
+    require(mem_growth is not None and mem_growth <= LONG_MEM_GROWTH_MIB,
+            f"long drive A: peak device memory grew {mem_growth} MiB from frame 50 to the end")
+
+    b, trb = long_drive(long_config(LONG_RING), world, scans, "B", device)
+    rb = b["row"]
+    require(rb["evictions"] >= 1, "long drive B: no keyframe was evicted")
+    require(rb["keyframes"] == LONG_RING,
+            f"long drive B: the ring holds {rb['keyframes']} keyframes, not {LONG_RING}")
+    # every slot's seq is the frame of the last spawn written there, so the
+    # seqs are distinct and follow spawn order after eviction
+    last = {}
+    for t, slot in enumerate(trb["kf_slot"]):
+        if t == 0:
+            last[0] = 0  # the init frame writes slot 0
+        elif trb["new_keyframe"][t]:
+            last[slot] = t
+    expect = [last[s] for s in range(LONG_RING)]
+    require(trb["seq"] == expect, f"long drive B: ring seq {trb['seq']} is not the spawn "
+                                  f"frames {expect}")
+    require(len(set(trb["seq"])) == LONG_RING, "long drive B: two slots share a seq")
+    full = rb["ring_full_frame"]
+    full_rounds = [r for r in b["rounds"] if not r["forced"] and r["keyframes"] == LONG_RING]
+    require(full is not None, "long drive B: the ring never filled")
+    require(len(full_rounds) <= 1,
+            f"long drive B: {len(full_rounds)} unforced rounds ran with the ring full")
+    if full_rounds:
+        require(all(r["frame"] <= full_rounds[0]["frame"] for r in b["rounds"] if not r["forced"]),
+                "long drive B: an unforced round ran after the one with the ring full")
+    launches = {name: a["launches"][name]["cuda"] + b["launches"][name]["cuda"]
+                for name in ("nn1_pruned", "cov_pruned")}
+    summary = dict(card=card, frames=LONG_FRAMES, render_s=render_s, path_m=ra["path_m"],
+                   ate_m={"A": ra["ate_rmse_m"], "B": rb["ate_rmse_m"]},
+                   rounds={"A": len(a["rounds"]), "B": len(b["rounds"])},
+                   evictions_b=rb["evictions"], ring_full_frame_b=full,
+                   mem_growth_a_mib=mem_growth,
+                   frame_ms_b_before_after_full=[b["median_frame_ms_before_full"],
+                                                 b["median_frame_ms_after_full"]],
+                   launches=launches)
+    print(f"# long drive summary {json.dumps(summary)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1934,6 +2132,8 @@ def main() -> int:
     timed_phase(13)
     tensor_op_batch_phase(world, lscans, smi, op_profiles)
     timed_phase(14)
+    long_launches = long_drive_phase(smi)
+    timed_phase(15)
     print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
     batched_launches = {name: batch["main"]["launches"][name]["cuda"]
@@ -1963,7 +2163,8 @@ def main() -> int:
     def host_paths(name):
         cli_launches = sum(run["launches"][name]["cuda"] for run in kitti.values())
         return (f"; host preprocessing ({host['drive']['launches'][name]['cuda']} launches); "
-                f"KITTI cli, xyzi and feeder ({cli_launches} launches)")
+                f"KITTI cli, xyzi and feeder ({cli_launches} launches); long drive past ring "
+                f"saturation (phase 15, drives A and B: {long_launches[name]} launches)")
 
     kernels = [
         entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192",

@@ -407,9 +407,7 @@ class OdometryRunner:
         if self.state is None:
             return None
         n_kf = sync.read(self.state.keyframes.count)
-        if n_kf < cfg.posegraph.min_index_gap + 2:
-            return None
-        if not force and (n_kf - self._kf_at_refine) < cfg.posegraph.refine_every_kf:
+        if not self._refine_due(n_kf, force):
             return None
         t0 = time.perf_counter()
         self.state, info = loopclosure.refine_and_reanchor(self.state, cfg, resolve_backend(cfg))
@@ -426,6 +424,15 @@ class OdometryRunner:
         }
         self.refine_log.append(entry)
         return entry
+
+    def _refine_due(self, n_kf: int, force: bool = False) -> bool:
+        """The trigger's gates for a ring of ``n_kf`` keyframes: enough
+        keyframes to admit a loop, and (unless ``force``)
+        ``refine_every_kf`` added since the last round."""
+        pg = self.cfg.posegraph
+        if n_kf < pg.min_index_gap + 2:
+            return False
+        return force or n_kf - self._kf_at_refine >= pg.refine_every_kf
 
     # -- health -----------------------------------------------------------
     def health_check(self, result: FrameResult, min_corr_frac: float = 0.05) -> str:

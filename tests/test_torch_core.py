@@ -92,8 +92,9 @@ def test_precision_pin():
 
 
 def test_port_imports_no_jax():
-    """The import graphs of the runner, the CLI and every other public
-    module stay free of jax."""
+    """The import graphs of the runner, the CLI, every other public module,
+    every long-drive tool in ``tools_torch/`` and ``chip_smoke.py`` stay
+    free of jax."""
     code = (
         "import sys, direct_lidar_odometry_tpu_torch.odometry.runner, "
         "direct_lidar_odometry_tpu_torch.io.synthetic, "
@@ -108,7 +109,9 @@ def test_port_imports_no_jax():
         "direct_lidar_odometry_tpu_torch.io.native, "
         "direct_lidar_odometry_tpu_torch.io.hostprep, "
         "direct_lidar_odometry_tpu_torch.ops.bruteforce, "
-        "direct_lidar_odometry_tpu_torch.ops.hashgrid\n"
+        "direct_lidar_odometry_tpu_torch.ops.hashgrid, "
+        "tools_torch.long_validation, tools_torch.staleness_sweep, tools_torch.hull_ab, "
+        "tools_torch.trace_frames, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)"
