@@ -76,7 +76,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    passed to the step, no plain version run; plus the same scans without
    the IMU, for its ATE;
 9. print one JSON line of per-kernel results, then the final JSON line
-   (after phases 10-15, which run before it);
+   (after phases 10-16, which run before it);
 10. host preprocessing at full width: the native host library (built in
    phase 2) must load; one raw scan
    prepared on the host (``io/hostprep.py``) and on the device must give
@@ -158,10 +158,25 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    eviction, 24 keyframes at the end, each slot's ``seq`` the frame of the
    last spawn written to it (distinct, in spawn order), at most one
    unforced round with the ring full and none after it; median frame ms
-   before and after saturation printed.
+   before and after saturation printed;
+16. the graft-entry twin, the loop-closure dissections and the scaling
+   tool: ``graft_entry_torch.entry()``'s step once (finite pose, K1 and
+   K2 launched, no plain version) and ``dryrun_multichip(1)`` (NCCL at
+   world size 1 on a file store; the sharded step and the distributed
+   refine, their asserts); ``tools_torch/debug_loopclosure.dissect`` on
+   phase 15's drive-A (512 slots) and drive-B (24 slots) states, and of
+   ``tools_torch/long_validation.py``'s small noise-burst drive at 24
+   slots (``SMALL=1 LV_FRAMES=300 LV_NOISE_BURST=100:140:0.15
+   LV_MAX_KF=24``, loop closure on, driven here), each taken just before
+   its forced round: the same candidate and accepted-edge
+   counts as the round, its 8-iteration graph error the round's bit for
+   bit, every row finite, K2 launched, no plain version, the rows
+   printed; ``tools_torch/scaling_bench.py`` at N = 1 (one NCCL process,
+   its default batch and frames): its rows, a finite positive aggregate
+   fps.
 
-It imports torch, the port and ``tools_torch``, nothing of JAX. Each
-phase's seconds are printed.
+It imports torch, the port, ``tools_torch`` and ``graft_entry_torch``,
+nothing of JAX. Each phase's seconds are printed.
 """
 
 from __future__ import annotations
@@ -212,6 +227,11 @@ LONG_FRAMES = 240       # phase 15: one lap of the long-validation loop (~240 m)
 LONG_RING = 24          # phase 15, drive B: the JAX tool's LV_MAX_KF ring
 LONG_SUBMAP_KF = 8      # phase 15, drive B: keyframes in the submap
 LONG_MEM_GROWTH_MIB = 64  # phase 15: peak device memory growth allowed after frame 50
+# phase 16: the long-validation tool's small noise-burst drive at 24 slots
+# (SMALL=1 LV_FRAMES=300 LV_NOISE_BURST=100:140:0.15 LV_MAX_KF=24)
+SMALL_BURST_FRAMES = 300
+SMALL_BURST = (100, 140, 0.15)
+SMALL_BURST_RING = 24
 # phase 15: the step's host reads outside GICP's LM loop: the submap-changed
 # flag, the spawn decision, the rescue trigger (one each, every frame)
 STEP_FIXED_READS = {"submap": 1, "keyframes": 1, "pipeline": 1}
@@ -1561,11 +1581,6 @@ def device_frames(lscans, n_raw: int, dev):
     return out
 
 
-def clone_state(st):
-    return type(st)(*(None if v is None else clone_state(v) if isinstance(v, tuple)
-                      else v.clone() for v in st))
-
-
 def batched_drive(cfg, world, frames, label, snapshot_at=None):
     """Phase 13: ``make_batched_fns(cfg)`` over ``frames`` (every launch
     counter and the host-read count reset just before), each step synced:
@@ -1573,6 +1588,7 @@ def batched_drive(cfg, world, frames, label, snapshot_at=None):
     host reads a step, the peak device memory, the launches. Returns
     (summary, [FrameResult], state after step ``snapshot_at`` (a copy) or
     None)."""
+    from direct_lidar_odometry_tpu_torch.odometry.state import clone_state
     from direct_lidar_odometry_tpu_torch.parallel import batched
     from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -1986,7 +2002,10 @@ def long_drive_phase(card, device="cuda"):
     """Phase 15: the long drive at full width on "pallas" past ring
     saturation, through ``tools_torch/long_validation.py``'s drive: A with
     the tool's 512-slot ring, B with LONG_RING slots (see the module
-    docstring). Returns the K2 and K1 launches of both drives."""
+    docstring). Returns the K2 and K1 launches of both drives, and for each
+    drive what phase 16 dissects: its configuration, the world, the copy
+    of its state taken just before its forced round and that round's
+    log entry."""
     t0 = time.perf_counter()
     world, scans = long_world()
     render_s = time.perf_counter() - t0
@@ -1994,7 +2013,8 @@ def long_drive_phase(card, device="cuda"):
           f"({len(scans) / render_s:.2f} scans/s on this host, "
           f"{int(np.mean([len(s) for s in scans]))} points mean)")
 
-    a, _ = long_drive(long_config(), world, scans, "A", device)
+    cfg_a, cfg_b = long_config(), long_config(LONG_RING)
+    a, tra = long_drive(cfg_a, world, scans, "A", device)
     ra = a["row"]
     mem_growth = (None if ra["peak_mem_end_mib"] is None
                   else ra["peak_mem_end_mib"] - ra["peak_mem_frame50_mib"])
@@ -2003,7 +2023,7 @@ def long_drive_phase(card, device="cuda"):
     require(mem_growth is not None and mem_growth <= LONG_MEM_GROWTH_MIB,
             f"long drive A: peak device memory grew {mem_growth} MiB from frame 50 to the end")
 
-    b, trb = long_drive(long_config(LONG_RING), world, scans, "B", device)
+    b, trb = long_drive(cfg_b, world, scans, "B", device)
     rb = b["row"]
     require(rb["evictions"] >= 1, "long drive B: no keyframe was evicted")
     require(rb["keyframes"] == LONG_RING,
@@ -2039,7 +2059,111 @@ def long_drive_phase(card, device="cuda"):
                                                  b["median_frame_ms_after_full"]],
                    launches=launches)
     print(f"# long drive summary {json.dumps(summary)}")
-    return launches
+    forced = {label: dict(cfg=c, world=world, state=tr["state_before_forced"],
+                          round=tr["refine_log"][-1])
+              for label, c, tr in (("A", cfg_a, tra), ("B", cfg_b, trb))}
+    return launches, forced
+
+
+def finite_rows(rows) -> bool:
+    """Every number in a list of JSON rows (lists flattened) is finite."""
+    values = [v for row in rows for v in row.values() if not isinstance(v, str)]
+    flat = [x for v in values for x in (v if isinstance(v, list) else [v])]
+    return all(np.isfinite(float(x)) for x in flat)
+
+
+def no_plain(launches, what: str) -> None:
+    for name, cnt in launches.items():
+        require(cnt["plain"] == 0, f"{what}: {name} plain version ran {cnt['plain']} times")
+
+
+def graft_entry_phase(card, forced):
+    """Phase 16: ``graft_entry_torch.entry()``'s step on the card and
+    ``dryrun_multichip(1)`` at NCCL world size 1 on a file store; the
+    loop-closure dissection (``tools_torch/debug_loopclosure.dissect``) of
+    phase 15's drive-A and drive-B states before their forced rounds and
+    of the long-validation tool's small noise-burst drive at 24 slots,
+    each equal to its round (candidates, accepted edges, the 8-iteration
+    graph error bit for bit); ``tools_torch/scaling_bench.py`` at N = 1
+    (its default batch and frames, one NCCL process). Counters are reset
+    before each part. Returns the K2 and K1 launches of the entry step,
+    the dry run and the dissections."""
+    import graft_entry_torch
+    from tools_torch import debug_loopclosure, scaling_bench
+
+    launches = {}
+    reset_counters()
+    fn, args = graft_entry_torch.entry()
+    _, res = fn(*args)
+    torch.cuda.synchronize()
+    launches["entry"] = read_counters()
+    pose = res.pose.cpu().numpy()
+    out = dict(card=card, entry=dict(position=pose[:3, 3].tolist(),
+                                     s2m_num_corr=int(res.s2m_num_corr)))
+    require(np.isfinite(pose).all(), "graft entry: the pose is not finite")
+    for name in ("nn1_pruned", "cov_pruned"):
+        require(launches["entry"][name]["cuda"] > 0, f"graft entry: {name} was never launched")
+    no_plain(launches["entry"], "graft entry")
+
+    import torch.distributed as dist
+
+    reset_counters()
+    graft_entry_torch.dryrun_multichip(1)
+    launches["dryrun"] = read_counters()
+    require(not dist.is_initialized(), "dryrun_multichip(1) left its group open")
+    no_plain(launches["dryrun"], "dryrun_multichip(1)")
+    out["dryrun"] = "ok"
+
+    # the drive whose forced round made the keyframe map worse when the
+    # tool ran alone: is it the loop measurements or the solver?
+    from tools_torch import long_validation as lv
+
+    cfg = lv.with_posegraph(lv.make_config(small=True, max_kf=SMALL_BURST_RING), True)
+    world, render = lv.make_world(SMALL_BURST_FRAMES, small=True)
+    row, tr = lv.drive(cfg, world, lv.render_scans(world, render, SMALL_BURST_FRAMES, 0.01,
+                                                   SMALL_BURST), "cuda")
+    del tr["runner"]
+    print(f"# small burst drive {json.dumps(row)}")
+    forced = dict(forced, small_burst=dict(cfg=cfg, world=world, state=tr["state_before_forced"],
+                                           round=tr["refine_log"][-1]))
+
+    for label, f in forced.items():
+        reset_counters()
+        t0 = time.perf_counter()
+        d = debug_loopclosure.dissect(f["cfg"], f["state"], f["world"], "cuda")
+        launches[f"dissect {label}"] = read_counters()
+        rnd = f["round"]
+        summary = dict(seconds=time.perf_counter() - t0, n_candidates=d["n_candidates"],
+                       n_accepted=d["n_accepted"], round_candidates=rnd["n_candidates"],
+                       round_accepted=rnd["n_accepted"],
+                       graph_error_8=d["refine"][1]["graph_error"],
+                       round_graph_error=rnd["graph_error"])
+        print(f"# dissection {label} {json.dumps(summary)}")
+        for row in debug_loopclosure.rows(d):
+            print(f"# dissection {label} row {json.dumps(row)}")
+        out[f"dissect_{label}"] = summary
+        require((d["n_candidates"], d["n_accepted"]) == (rnd["n_candidates"], rnd["n_accepted"]),
+                f"dissection {label}: {d['n_candidates']} candidates, {d['n_accepted']} accepted; "
+                f"the forced round had {rnd['n_candidates']}, {rnd['n_accepted']}")
+        require(d["refine"][1]["iters"] == f["cfg"].posegraph.iterations
+                and d["refine"][1]["graph_error"] == rnd["graph_error"],
+                f"dissection {label}: graph error {d['refine'][1]['graph_error']!r} at 8 "
+                f"iterations, the forced round's {rnd['graph_error']!r}")
+        require(finite_rows(debug_loopclosure.rows(d)), f"dissection {label}: a row is not finite")
+        require(launches[f"dissect {label}"]["nn1_pruned"]["cuda"] > 0,
+                f"dissection {label}: nn1_pruned was never launched")
+        no_plain(launches[f"dissect {label}"], f"dissection {label}")
+
+    t0 = time.perf_counter()
+    rows = scaling_bench.run(sizes=[1], device="cuda")
+    for row in rows:
+        print(f"# scaling_bench {json.dumps(row)}")
+    fps = rows[0]["aggregate_fps"]
+    require(np.isfinite(fps) and fps > 0, f"scaling_bench N = 1: aggregate fps {fps}")
+    out["scaling_bench"] = dict(rows[0], seconds=time.perf_counter() - t0)
+    print(f"# graft entry summary {json.dumps(out)}")
+    return {name: {part: cnt[name]["cuda"] for part, cnt in launches.items()}
+            for name in ("nn1_pruned", "cov_pruned")}
 
 
 def main() -> int:
@@ -2132,8 +2256,11 @@ def main() -> int:
     timed_phase(13)
     tensor_op_batch_phase(world, lscans, smi, op_profiles)
     timed_phase(14)
-    long_launches = long_drive_phase(smi)
+    long_launches, forced = long_drive_phase(smi)
     timed_phase(15)
+    entry_launches = graft_entry_phase(smi, forced)
+    del forced
+    timed_phase(16)
     print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
     batched_launches = {name: batch["main"]["launches"][name]["cuda"]
@@ -2164,7 +2291,10 @@ def main() -> int:
         cli_launches = sum(run["launches"][name]["cuda"] for run in kitti.values())
         return (f"; host preprocessing ({host['drive']['launches'][name]['cuda']} launches); "
                 f"KITTI cli, xyzi and feeder ({cli_launches} launches); long drive past ring "
-                f"saturation (phase 15, drives A and B: {long_launches[name]} launches)")
+                f"saturation (phase 15, drives A and B: {long_launches[name]} launches); "
+                f"phase 16: graft entry step, sharded dry run, loop-closure dissections of "
+                f"drives A, B and the small noise-burst drive "
+                f"({json.dumps(entry_launches[name])} launches)")
 
     kernels = [
         entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192",

@@ -44,6 +44,40 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[lane, idx]
 
 
+def make_cloud(points: torch.Tensor, mask: torch.Tensor | None = None) -> PointCloud:
+    """A float32 cloud of ``points`` on their device, every point valid
+    without ``mask``; invalid rows are set to PAD_VALUE."""
+    if mask is None:
+        mask = torch.ones(points.shape[:-1], dtype=torch.bool, device=points.device)
+    points = torch.where(mask[..., None], points, PAD_VALUE)
+    return PointCloud(points=points.to(torch.float32), mask=mask)
+
+
+def to_numpy(cloud: PointCloud) -> np.ndarray:
+    """The valid points as a dense [M, 3] numpy array (host side)."""
+    return cloud.points.cpu().numpy()[cloud.mask.cpu().numpy()]
+
+
+def compact(cloud: PointCloud) -> PointCloud:
+    """Move the valid points to the front, in their order (a stable sort of
+    the invalid flags), and set the tail to PAD_VALUE."""
+    order = torch.argsort((~cloud.mask).to(torch.uint8), dim=-1, stable=True)
+    points = gather_rows(cloud.points, order)
+    mask = torch.gather(cloud.mask, -1, order)
+    points = torch.where(mask[..., None], points, PAD_VALUE)
+    return PointCloud(points=points, mask=mask)
+
+
+def concat_clouds(clouds: list[PointCloud], capacity: int | None = None) -> PointCloud:
+    """Concatenate along the point axis (masks kept, not compacted); raises
+    when ``capacity`` is given and the result has another."""
+    out = PointCloud(points=torch.cat([c.points for c in clouds], dim=-2),
+                     mask=torch.cat([c.mask for c in clouds], dim=-1))
+    if capacity is not None and out.capacity != capacity:
+        raise ValueError(f"concat capacity {out.capacity} != requested {capacity}")
+    return out
+
+
 def from_numpy(points: np.ndarray, capacity: int, device="cuda") -> PointCloud:
     """Pad/truncate an [M, 3] numpy array into a capacity-N cloud."""
     points = np.asarray(points, dtype=np.float32)

@@ -3,7 +3,9 @@
 The parts of the JAX package's ``io/synthetic.py`` that drive the port: the
 urban-corridor :class:`BoxWorld`, the OS1-64 :class:`BeamModel` and the
 exact ray-cast renderer (``chip_smoke.py``, the CLI's ``--synthetic``), and
-the point-soup :class:`SyntheticWorld` with its closed-loop world,
+the point-soup :class:`SyntheticWorld` with its wandering world
+(:func:`make_world`, the world of ``tools_torch/scaling_bench.py``), its
+moving boxes (:func:`add_dynamic_boxes`), its closed-loop world,
 :func:`render_scan` and :func:`dump_kitti` (the CLI's ``--kitti`` path,
 tested on a dumped sequence), and :func:`make_imu_between` (gyro and
 accel samples from the ground truth, for the IMU path). They are copied,
@@ -121,6 +123,107 @@ def _box_surface(rng, center, size, density):
             p = np.stack([u[:, 0], u[:, 1], z], axis=1)
         pts.append(p * np.array(size) + np.array(center))
     return np.concatenate(pts, axis=0)
+
+
+def make_world(
+    rng: np.random.Generator,
+    n_frames: int = 50,
+    extent: float = 60.0,
+    n_boxes: int = 40,
+    density: float = 60.0,
+    speed: float = 1.2,
+    dt: float = 0.1,
+    yaw_rate: float = 0.04,
+    ground_points: int = 40000,
+) -> SyntheticWorld:
+    """Build a world and a smooth wandering trajectory through it.
+
+    NOTE on scan overlap: consecutive scans rendered from this world see
+    the *same* surface points (plus noise) wherever their ranges overlap —
+    like a real LiDAR densely sampling continuous surfaces. Keep the world
+    dense enough (ground_points/density vs extent) that
+    :func:`render_scan`'s ``max_points`` does NOT force random
+    subsampling, otherwise scans become near-disjoint sparse subsets and
+    scan-to-map matching at realistic radii breaks down.
+    """
+    surf = [
+        # ground plane as a thin grid of points
+        np.stack(
+            [
+                rng.uniform(-extent, extent, size=ground_points),
+                rng.uniform(-extent, extent, size=ground_points),
+                np.zeros(ground_points),
+            ],
+            axis=1,
+        )
+    ]
+    for _ in range(n_boxes):
+        center = [
+            rng.uniform(-extent * 0.9, extent * 0.9),
+            rng.uniform(-extent * 0.9, extent * 0.9),
+            rng.uniform(1.0, 4.0),
+        ]
+        size = rng.uniform(1.0, 8.0, size=3)
+        surf.append(_box_surface(rng, center, size, density))
+    surface_points = np.concatenate(surf, axis=0).astype(np.float32)
+
+    # smooth trajectory: constant speed, AR(1) yaw rate (white-noise yaw
+    # produces 20deg+ single-frame jumps that alias scan matching without
+    # an IMU prior — real platforms turn smoothly), sensor 1.5m up
+    poses = np.zeros((n_frames, 4, 4))
+    stamps = np.arange(n_frames) * dt
+    yaw = 0.0
+    yaw_vel = 0.0
+    pos = np.array([0.0, 0.0, 1.5])
+    for t in range(n_frames):
+        yaw_vel = 0.8 * yaw_vel + rng.normal(scale=yaw_rate)
+        yaw_vel = np.clip(yaw_vel, -0.09, 0.09)  # <= ~5 deg/frame, 10 Hz realistic
+        yaw += yaw_vel * dt * 10
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        poses[t] = np.eye(4)
+        poses[t, :3, :3] = R
+        poses[t, :3, 3] = pos
+        pos = pos + R @ np.array([speed * dt * 10, 0, 0])
+    return SyntheticWorld(surface_points=surface_points, poses=poses, stamps=stamps)
+
+
+def add_dynamic_boxes(
+    world: SyntheticWorld,
+    rng: np.random.Generator,
+    n: int = 2,
+    density: float = 60.0,
+    speed: float = 1.5,
+    offset: float = 10.0,
+) -> SyntheticWorld:
+    """Scatter ``n`` moving boxes (cars/pedestrians class) near the path.
+
+    Each box is placed within ``offset`` m of a random trajectory pose so
+    the sensor actually sees it, and drifts at up to ``speed`` m/s along a
+    random ground-plane heading. Points violate the static-world
+    assumption — the odometry must reject them as outliers (real
+    sequences are full of them).
+    """
+    pts, vels = [], []
+    for _ in range(n):
+        anchor = world.poses[rng.integers(len(world.poses)), :3, 3]
+        center = anchor + np.array([
+            rng.uniform(-offset, offset), rng.uniform(-offset, offset),
+            rng.uniform(0.5, 1.5) - anchor[2],
+        ])
+        size = rng.uniform(0.8, 3.5, size=3)
+        p = _box_surface(rng, center, size, density)
+        a = rng.uniform(0, 2 * np.pi)
+        v = speed * rng.uniform(0.3, 1.0) * np.array([np.cos(a), np.sin(a), 0.0])
+        pts.append(p)
+        vels.append(np.tile(v, (len(p), 1)))
+    return SyntheticWorld(
+        surface_points=world.surface_points,
+        poses=world.poses,
+        stamps=world.stamps,
+        dynamic_points=np.concatenate(pts, axis=0).astype(np.float32),
+        dynamic_vel=np.concatenate(vels, axis=0).astype(np.float32),
+    )
 
 
 def make_loop_world(

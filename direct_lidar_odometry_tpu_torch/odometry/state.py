@@ -165,6 +165,15 @@ _DTYPES = {
 }
 
 
+def clone_state(state):
+    """A copy of a state (or of any nested tuple of tensors, a batched
+    state included) on its device: each tensor cloned, None kept. The
+    step writes the keyframe ring and the submap cache in place, so a
+    reference to a state is not a snapshot of it."""
+    return type(state)(*(None if v is None else clone_state(v) if isinstance(v, tuple)
+                         else v.clone() for v in state))
+
+
 def state_to_numpy(state: OdomState) -> dict[str, np.ndarray]:
     """Flatten a state into numpy arrays keyed by field path (a nested
     tuple's fields as ``"keyframes.<field>"``, ``"submap_grid.<field>"``;

@@ -6,10 +6,13 @@ Counterpart of the JAX package's ``parallel/sharded.py``, which lays a
 mesh is the process group: one process per card (NCCL) or per CPU worker
 (gloo), each holding its shard.
 
-- :func:`init_distributed` joins the group (torchrun's ``MASTER_ADDR``,
-  ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` when no arguments are
-  given); a single process without them runs locally, with no group;
-- :func:`make_mesh` describes the group (size, rank, device);
+- :func:`init_distributed` joins the group on the asked device, NCCL for
+  "cuda" and gloo for "cpu" (torchrun's ``MASTER_ADDR``, ``MASTER_PORT``,
+  ``WORLD_SIZE`` and ``RANK`` when no arguments are given); a single
+  process without them runs locally, with no group;
+- :func:`make_mesh` describes the group (size, rank, device), or alone a
+  mesh of one on the asked device. Neither picks the CPU by itself:
+  "cuda", the default, raises without a card;
 - :func:`shard_states` keeps this rank's ``B / world`` lanes of a batched
   state or of any batched tensor;
 - :func:`make_sharded_step` is the batched step on the local lanes
@@ -47,18 +50,30 @@ class Mesh(NamedTuple):
     group: object | None
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a card raises (no
+    silent move to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r}: CUDA is not available")
+    return device
+
+
 def init_distributed(
     coordinator: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    device="cuda",
 ) -> None:
-    """Join the process group: NCCL when CUDA is available, else gloo.
-    ``coordinator`` is an init-method URL (``tcp://host:port``,
-    ``file:///path``) or ``host:port``; without arguments torchrun's
-    ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` are used. A
-    no-op when a group is already initialized, and when there is neither an
-    argument nor the environment (a single process runs locally, with no
-    group)."""
+    """Join the process group on ``device``: NCCL for "cuda" (one process
+    a card, this one on card ``rank % count``; raises without a card),
+    gloo for "cpu". ``coordinator`` is an init-method URL
+    (``tcp://host:port``, ``file:///path``) or ``host:port``; without
+    arguments torchrun's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
+    ``RANK`` are used. A no-op when a group is already initialized, and
+    when there is neither an argument nor the environment (a single
+    process runs locally, with no group)."""
+    device = require_device(device)
     if dist.is_initialized():
         return
     env = os.environ
@@ -70,7 +85,7 @@ def init_distributed(
         coordinator = f"tcp://{coordinator}"
     world = num_processes if num_processes is not None else int(env.get("WORLD_SIZE", "1"))
     rank = process_id if process_id is not None else int(env.get("RANK", "0"))
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = "nccl" if device.type == "cuda" else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=coordinator, world_size=world, rank=rank)
@@ -89,19 +104,22 @@ def barrier(name: str = "", timeout_s: float = 600.0) -> None:
         dist.monitored_barrier(timeout=timedelta(seconds=timeout_s))
 
 
-def make_mesh(n_devices: int | None = None) -> Mesh:
+def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     """The group as a one-axis mesh: every rank of it, each on its own
-    card under NCCL (or the CPU under gloo); alone, a mesh of one on the
-    current card, or the CPU without one. ``n_devices`` must equal the
-    group's size when given."""
+    card under NCCL (or the CPU under gloo; ``device`` must name the
+    group's kind); alone, a mesh of one on ``device`` ("cuda" raises
+    without a card). ``n_devices`` must equal the group's size when
+    given."""
+    device = require_device(device)
     if dist.is_initialized():
         size, rank = dist.get_world_size(), dist.get_rank()
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        nccl = dist.get_backend() == "nccl"
+        if nccl != (device.type == "cuda"):
+            raise ValueError(f"a {dist.get_backend()} group has no mesh on {str(device)!r}")
+        device = torch.device("cuda", torch.cuda.current_device()) if nccl else device
         group = dist.group.WORLD
     else:
         size, rank, group = 1, 0, None
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     if n_devices is not None and n_devices != size:
         raise ValueError(f"a mesh of {n_devices} needs a group of that size; it has {size}")
     return Mesh(size=size, rank=rank, device=device, group=group)

@@ -93,8 +93,8 @@ def test_precision_pin():
 
 def test_port_imports_no_jax():
     """The import graphs of the runner, the CLI, every other public module,
-    every long-drive tool in ``tools_torch/`` and ``chip_smoke.py`` stay
-    free of jax."""
+    every tool in ``tools_torch/``, ``graft_entry_torch.py`` and
+    ``chip_smoke.py`` stay free of jax."""
     code = (
         "import sys, direct_lidar_odometry_tpu_torch.odometry.runner, "
         "direct_lidar_odometry_tpu_torch.io.synthetic, "
@@ -111,7 +111,9 @@ def test_port_imports_no_jax():
         "direct_lidar_odometry_tpu_torch.ops.bruteforce, "
         "direct_lidar_odometry_tpu_torch.ops.hashgrid, "
         "tools_torch.long_validation, tools_torch.staleness_sweep, tools_torch.hull_ab, "
-        "tools_torch.trace_frames, chip_smoke\n"
+        "tools_torch.trace_frames, tools_torch.debug_loopclosure, tools_torch.scaling_procs, "
+        "tools_torch.scaling_procs_worker, tools_torch.scaling_bench, "
+        "direct_lidar_odometry_tpu_torch.parallel.sharded, graft_entry_torch, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -188,6 +190,43 @@ def test_dequantize_matches_reference():
     # the port's encoder is the JAX package's numpy encoder
     m = int(qs.count)
     np.testing.assert_allclose(_np(out.points)[:m], pts, atol=float(qs.scale.max()))
+
+
+@pytest.mark.parametrize("n_valid", [0, 5, 37, 64])
+def test_cloud_helpers_match_reference(n_valid):
+    """``make_cloud`` (with and without a mask), ``to_numpy``, ``compact``
+    (order of the valid points, PAD_VALUE rows, the mask) and
+    ``concat_clouds`` equal the JAX package's on the same random masked
+    cloud; a capacity mismatch raises in both."""
+    rng = np.random.default_rng(n_valid)
+    pts = rng.normal(scale=5.0, size=(64, 3)).astype(np.float32)
+    mask = np.zeros(64, bool)
+    mask[rng.choice(64, n_valid, replace=False)] = True
+    for m in (mask, None):
+        ref = jcloud.make_cloud(jnp.asarray(pts), None if m is None else jnp.asarray(m))
+        out = tcloud.make_cloud(_t(pts), None if m is None else _t(m))
+        assert out.points.dtype == torch.float32
+        np.testing.assert_array_equal(_np(out.points), np.asarray(ref.points))
+        np.testing.assert_array_equal(_np(out.mask), np.asarray(ref.mask))
+        np.testing.assert_array_equal(tcloud.to_numpy(out), jcloud.to_numpy(ref))
+    ref = jcloud.compact(jcloud.PointCloud(jnp.asarray(pts), jnp.asarray(mask)))
+    out = tcloud.compact(tcloud.PointCloud(_t(pts), _t(mask)))
+    np.testing.assert_array_equal(_np(out.points), np.asarray(ref.points))
+    np.testing.assert_array_equal(_np(out.mask), np.asarray(ref.mask))
+    np.testing.assert_array_equal(tcloud.to_numpy(out), pts[mask])
+    assert np.all(_np(out.points)[n_valid:] == tcloud.PAD_VALUE)
+    parts = [(pts[:40], mask[:40]), (pts[40:], mask[40:])]
+    ref = jcloud.concat_clouds([jcloud.PointCloud(jnp.asarray(p), jnp.asarray(k))
+                                for p, k in parts], capacity=64)
+    tparts = [tcloud.PointCloud(_t(p), _t(k)) for p, k in parts]
+    out = tcloud.concat_clouds(tparts, capacity=64)
+    np.testing.assert_array_equal(_np(out.points), np.asarray(ref.points))
+    np.testing.assert_array_equal(_np(out.mask), np.asarray(ref.mask))
+    with pytest.raises(ValueError, match="concat capacity 64 != requested 32"):
+        jcloud.concat_clouds([jcloud.PointCloud(jnp.asarray(p), jnp.asarray(k))
+                              for p, k in parts], capacity=32)
+    with pytest.raises(ValueError, match="concat capacity 64 != requested 32"):
+        tcloud.concat_clouds(tparts, capacity=32)
 
 
 # ---------------------------------------------------------------- preprocess

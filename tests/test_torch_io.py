@@ -1,5 +1,6 @@
-"""The port's copies of the ray-cast world generator and the ATE evaluator
-reproduce the JAX package's exactly from the same seeds."""
+"""The port's copies of the world generators (the ray-cast urban world,
+the wandering point-soup world and its moving boxes) and of the ATE
+evaluator reproduce the JAX package's exactly from the same seeds."""
 
 import numpy as np
 import pytest
@@ -25,6 +26,22 @@ def test_urban_world_and_raycast_identical(n_dynamic):
                                  max_points=4096, beams=beams_t)
         np.testing.assert_array_equal(st, sj)
         assert len(st) > 500
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wandering_world_and_dynamic_boxes_identical(seed):
+    """``make_world`` (at ``tools/scaling_bench.py``'s arguments and at its
+    defaults) and ``add_dynamic_boxes`` give the JAX worlds bit for bit."""
+    for kwargs in (dict(n_frames=6, extent=15.0, n_boxes=6, speed=0.4, ground_points=8000,
+                        density=6.0), dict(n_frames=4)):
+        wj = jsyn.make_world(np.random.default_rng(seed), **kwargs)
+        wt = tsyn.make_world(np.random.default_rng(seed), **kwargs)
+        wj = jsyn.add_dynamic_boxes(wj, np.random.default_rng(seed + 10), n=3)
+        wt = tsyn.add_dynamic_boxes(wt, np.random.default_rng(seed + 10), n=3)
+        for f in ("surface_points", "poses", "stamps", "dynamic_points", "dynamic_vel"):
+            np.testing.assert_array_equal(getattr(wt, f), getattr(wj, f), err_msg=f)
+            assert getattr(wt, f).dtype == getattr(wj, f).dtype, f
+        assert len(wt.dynamic_points) > 0
 
 
 def test_ate_identical():

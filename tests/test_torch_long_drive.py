@@ -102,6 +102,7 @@ def drives():
         decisions.append(None if r is None else (
             bool(r.new_keyframe), int(r.kf_slot), bool(r.kf_evicted), int(r.num_keyframes)))
     final = _jax_leaves(runner.state)
+    jstore = runner.state.keyframes  # immutable: the ring before the forced round
     n_drive_rounds = len(runner.refine_log)
     jax_before = _jax_map_error(runner.state, gt_pos)
     runner.maybe_refine(force=True)
@@ -109,7 +110,7 @@ def drives():
     jax = dict(decisions=decisions, log=runner.refine_log, n_drive_rounds=n_drive_rounds,
                seq=np.asarray(runner.state.keyframes.seq[:n]).tolist(),
                trajectory=runner.trajectory(), map_before=jax_before,
-               map_after=_jax_map_error(runner.state, gt_pos))
+               map_after=_jax_map_error(runner.state, gt_pos), store=jstore, final=final)
 
     pcfg = tcfg.config_from_dict(dataclasses.asdict(cfg))
     row, trace = lv.drive(pcfg, world, scans, device="cpu")
@@ -118,7 +119,8 @@ def drives():
     carried.state = tstate.state_from_numpy(final, "cpu", pcfg)
     carried_round = carried.maybe_refine(force=True)
     return dict(jax=jax, row=row, trace=trace, carried_round=carried_round,
-                carried_map_after=lv.kf_map_error(carried.state, gt_pos))
+                carried_map_after=lv.kf_map_error(carried.state, gt_pos), world=world,
+                cfg=cfg, pcfg=pcfg)
 
 
 def test_keyframe_decisions_and_evictions_match_reference(drives):
@@ -187,3 +189,141 @@ def test_forced_round_on_the_reference_state_matches(drives):
     assert (pe["n_candidates"], pe["n_accepted"]) == (je["n_candidates"], je["n_accepted"])
     assert abs(pe["graph_error"] - je["graph_error"]) <= GRAPH_REL * abs(je["graph_error"])
     assert abs(drives["carried_map_after"] - drives["jax"]["map_after"]) <= MAP_TOL
+
+
+# ------------------------------------------- loop-closure dissection
+
+
+def _jax_dissection(cfg, store, world) -> dict:
+    """The rows of the JAX package's ``tools/debug_loopclosure.py`` (its
+    code after the drive) on a JAX keyframe ring, its f64 Gauss-Newton
+    run with ``tests/test_loopclosure.py``'s residual and retraction."""
+    from direct_lidar_odometry_tpu.config import resolve_backend
+    from direct_lidar_odometry_tpu.core import se3 as jse3
+    from direct_lidar_odometry_tpu.odometry import loopclosure as jlc
+    from direct_lidar_odometry_tpu.parallel import posegraph as jpg
+    from tests import test_loopclosure as jlct
+    from tools_torch import debug_loopclosure as dlc
+
+    gt_all = lv.gt_poses(world)
+    kfc = int(store.count)
+    seq = np.asarray(store.seq[:kfc])
+    pos = np.asarray(store.positions[:kfc])
+    rot = [np.asarray(jse3.quat_to_rotmat(store.quats[k])) for k in range(kfc)]
+    kf_err = np.linalg.norm(pos - gt_all[seq, :3, 3], axis=-1)
+    rot_err = np.asarray([np.degrees(np.arccos(np.clip(
+        (np.trace(rot[k] @ gt_all[seq[k], :3, :3].T) - 1) / 2, -1, 1))) for k in range(kfc)])
+    pg = cfg.posegraph
+    edges, cand = jlc.loop_candidates(store, pg.loop_radius, pg.min_index_gap, pg.max_loops)
+    loops = jlc.register_loop_edges(store, edges, cand, cfg, resolve_backend(cfg))
+    e, cand, w, rel = (np.asarray(a) for a in (edges, cand, loops.weight, loops.rel))
+
+    def pose(k):
+        x = np.eye(4)
+        x[:3, :3], x[:3, 3] = rot[k], pos[k]
+        return x
+
+    def ang(r):
+        return float(np.degrees(np.arccos(np.clip((np.trace(r[:3, :3]) - 1) / 2, -1, 1))))
+
+    rows = []
+    for m in range(len(e)):
+        if not cand[m]:
+            continue
+        i, j = int(e[m, 0]), int(e[m, 1])
+        z_true = np.linalg.inv(gt_all[seq[i]]) @ gt_all[seq[j]]
+        resid = np.linalg.inv(rel[m]) @ (np.linalg.inv(pose(i)) @ pose(j))
+        rows.append(dict(edge=[i, j], seq=[int(seq[i]), int(seq[j])], weight=float(w[m]),
+                         z_err_m=float(np.linalg.norm(rel[m][:3, 3] - z_true[:3, 3])),
+                         z_rot_err_deg=ang(rel[m] @ np.linalg.inv(z_true)),
+                         resid_t_m=float(np.linalg.norm(resid[:3, 3]))))
+    graph = jlc.build_refinement_graph(store, loops, pg.chain_weight)
+
+    def after(poses):
+        moved = np.asarray(poses)[:kfc, :3, 3]
+        err = np.linalg.norm(moved - gt_all[seq, :3, 3], axis=-1)
+        return dict(kf_err_after_mean=float(err.mean()), kf_err_after_max=float(err.max()),
+                    max_move=float(np.linalg.norm(moved - pos, axis=-1).max()))
+
+    refine = []
+    for iters in (2, 8, 24):
+        poses, err = jpg.refine(graph, iterations=iters)
+        refine.append(dict(after(poses), iters=iters, graph_error=float(err)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dlc, "_residual_np", jlct._residual_np)
+        mp.setattr(dlc, "_retract", jlct._retract)
+        gn = after(dlc.solve_numpy({f: np.asarray(v) for f, v in graph._asdict().items()}))
+    return dict(drift=dict(keyframes=kfc, kf_err_mean=float(kf_err.mean()),
+                           kf_err_max=float(kf_err.max()),
+                           rot_drift_deg_mean=float(rot_err.mean()),
+                           rot_drift_deg_max=float(rot_err.max()),
+                           rot_drift_deg_last5=rot_err[-5:].tolist()),
+                n_candidates=int(cand.sum()), n_accepted=int((w > 0).sum()), edges=rows,
+                refine=refine, gn=gn)
+
+
+@pytest.fixture(scope="module")
+def dissections(drives):
+    """The port's dissection of the JAX drive's ring before its forced
+    round (carried into the port) and of its own drive's, beside the JAX
+    tool's rows on the JAX ring."""
+    from tools_torch import debug_loopclosure as dlc
+
+    world, pcfg = drives["world"], drives["pcfg"]
+    carried = tstate.state_from_numpy(drives["jax"]["final"], "cpu", pcfg)
+    return dict(jax=_jax_dissection(drives["cfg"], drives["jax"]["store"], world),
+                carried=dlc.dissect(pcfg, carried, world, "cpu"),
+                own=dlc.dissect(pcfg, drives["trace"]["state_before_forced"], world, "cpu"))
+
+
+def test_dissection_on_the_reference_state_matches(drives, dissections):
+    """On the same ring: the candidate pairs, their ``seq`` and the accepted
+    edges identical; the drift rows within 1e-3 m (and degrees); graph
+    error at 2, 8 and 24 iterations within 1e-3 relative and the keyframe
+    error after each within 1e-3 m; the f64 Gauss-Newton row within 1e-3
+    m. Each edge's ``z_err_m`` and ``resid_t_m`` within the loop GICP's
+    own stopping step (``transformation_epsilon``, 1 cm): the edge
+    [4, 5] of this ring is a poor registration (1.35 m from the truth)
+    whose two packages' transforms agree within 1e-7 through GICP
+    iteration 8 and then take one different correspondence, a hash-grid
+    near-tie (d2 within 1e-6 relative, by design), and end 1.8e-4 rad
+    apart: 1.44 mm at this ring's lever arm."""
+    ref, got = dissections["jax"], dissections["carried"]
+    edge_tol = drives["cfg"].gicp.s2m.transformation_epsilon
+    assert (got["n_candidates"], got["n_accepted"]) == (ref["n_candidates"], ref["n_accepted"])
+    assert got["n_accepted"] >= 1
+    assert [(r["edge"], r["seq"]) for r in got["edges"]] == \
+        [(r["edge"], r["seq"]) for r in ref["edges"]]
+    assert [r["edge"] for r in got["edges"] if r["weight"] > 0] == \
+        [r["edge"] for r in ref["edges"] if r["weight"] > 0]
+    for g, r in zip(got["edges"], ref["edges"]):
+        for key in ("z_err_m", "resid_t_m"):
+            assert abs(g[key] - r[key]) <= edge_tol, (key, g, r)
+    assert got["drift"]["keyframes"] == ref["drift"]["keyframes"] == RING
+    for key in ("kf_err_mean", "kf_err_max", "rot_drift_deg_mean", "rot_drift_deg_max"):
+        assert abs(got["drift"][key] - ref["drift"][key]) <= MAP_TOL, key
+    np.testing.assert_allclose(got["drift"]["rot_drift_deg_last5"],
+                               ref["drift"]["rot_drift_deg_last5"], atol=MAP_TOL)
+    for g, r in zip(got["refine"], ref["refine"]):
+        assert g["iters"] == r["iters"]
+        assert abs(g["graph_error"] - r["graph_error"]) <= GRAPH_REL * abs(r["graph_error"])
+        assert abs(g["kf_err_after_mean"] - r["kf_err_after_mean"]) <= MAP_TOL
+    for key in ("kf_err_after_mean", "kf_err_after_max", "max_move"):
+        assert abs(got["gn"][key] - ref["gn"][key]) <= MAP_TOL, key
+
+
+def test_dissection_of_the_drive_equals_its_forced_round(drives, dissections):
+    """The dissection of the port's ring before its forced round runs that
+    round's calls: the same candidate and accepted counts, and its
+    8-iteration graph error is the round's bit for bit; every row is
+    finite."""
+    own, forced = dissections["own"], drives["trace"]["refine_log"][-1]
+    assert forced["forced"]
+    assert (own["n_candidates"], own["n_accepted"]) == (forced["n_candidates"],
+                                                        forced["n_accepted"])
+    assert [r["iters"] for r in own["refine"]] == [2, 8, 24]
+    assert own["refine"][1]["graph_error"] == forced["graph_error"]
+    values = [v for row in (own["drift"], *own["edges"], *own["refine"], own["gn"])
+              for v in row.values() if not isinstance(v, str)]
+    flat = [x for v in values for x in (v if isinstance(v, list) else [v])]
+    assert all(np.isfinite(float(x)) for x in flat)

@@ -321,3 +321,23 @@ def test_tracking_continues_after_refine(loop_round):
         res = runner.process_scan(scan, float(world.stamps[-1]) + 0.1 * (t + 1))
         assert runner.health_check(res) != "diverged"
     assert np.isfinite(runner.trajectory()).all()
+
+
+def test_debug_tool_numpy_oracle_is_the_reference():
+    """``tools_torch/debug_loopclosure.py``'s numpy copies of the f64 oracle
+    (``_rodrigues``, ``_log_so3``, ``_retract``, ``_residual_np``) equal
+    ``tests/test_loopclosure.py``'s on random poses, the small-angle
+    branches included."""
+    from tests import test_loopclosure as jlct
+    from tools_torch import debug_loopclosure as dlc
+
+    rng = np.random.default_rng(4)
+    for w in [np.zeros(3), np.full(3, 1e-12)] + [rng.normal(scale=0.8, size=3) for _ in range(6)]:
+        np.testing.assert_array_equal(dlc._rodrigues(w), jlct._rodrigues(w))
+        np.testing.assert_array_equal(dlc._log_so3(jlct._rodrigues(w)),
+                                      jlct._log_so3(jlct._rodrigues(w)))
+    for _ in range(6):
+        x_i, x_j, z = (_rand_pose(rng) for _ in range(3))
+        xi = rng.normal(scale=0.3, size=6)
+        np.testing.assert_array_equal(dlc._retract(x_i, xi), jlct._retract(x_i, xi))
+        np.testing.assert_array_equal(dlc._residual_np(x_i, x_j, z), _residual_np(x_i, x_j, z))

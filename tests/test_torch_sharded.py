@@ -62,8 +62,8 @@ def worker(rank: int, world: int, port: int, frames_path: str, graph_path: str,
     from direct_lidar_odometry_tpu_torch.parallel import batched, posegraph, sharded
 
     torch.set_num_threads(1)  # three workers share the test machine's cores
-    sharded.init_distributed(f"127.0.0.1:{port}", world, rank)
-    mesh = sharded.make_mesh(world)
+    sharded.init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    mesh = sharded.make_mesh(world, device="cpu")
     assert (mesh.size, mesh.rank, mesh.group is not None) == (world, rank, True)
     cfg = port_cfg()
     data = [tuple(torch.from_numpy(a) for a in f) for f in load_frames(frames_path)]
@@ -138,7 +138,7 @@ def noisy_graph(tmp_path_factory):
 def ranks(lanes, noisy_graph, tmp_path_factory):
     """Run the three workers together: {(world, rank): results}."""
     out_dir = tmp_path_factory.mktemp("ranks")
-    # no card for the workers: init_distributed then picks gloo
+    # no card for the workers, which ask for gloo on the CPU
     env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
     jobs = {}
     for world in (2, 1):
@@ -272,13 +272,52 @@ def test_alone_without_a_group(monkeypatch):
 
     for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(name, raising=False)
-    sharded.init_distributed()
+    sharded.init_distributed(device="cpu")
     assert not dist.is_initialized()
-    mesh = sharded.make_mesh(1)
-    assert (mesh.size, mesh.rank, mesh.group) == (1, 0, None)
+    mesh = sharded.make_mesh(1, device="cpu")
+    assert (mesh.size, mesh.rank, mesh.group, mesh.device.type) == (1, 0, None, "cpu")
     sharded.barrier("alone")
     with pytest.raises(ValueError, match="group of that size"):
-        sharded.make_mesh(2)
+        sharded.make_mesh(2, device="cpu")
+
+
+NO_CARD_CHECK = """
+import sys, tempfile
+import torch.distributed as dist
+from direct_lidar_odometry_tpu_torch.parallel import sharded
+
+for call in (sharded.make_mesh, lambda: sharded.make_mesh(1),
+             lambda: sharded.init_distributed("127.0.0.1:{port}", 1, 0),
+             lambda: sharded.init_distributed()):
+    try:
+        out = call()
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e), e
+    else:
+        sys.exit(f"returned {{out!r}} without a card")
+    assert not dist.is_initialized()
+mesh = sharded.make_mesh(device="cpu")
+assert (mesh.size, mesh.rank, mesh.group, mesh.device.type) == (1, 0, None, "cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    sharded.init_distributed(f"file://{{tmp}}/store", 1, 0, device="cpu")
+    assert dist.get_backend() == "gloo"
+    mesh = sharded.make_mesh(1, device="cpu")
+    assert (mesh.size, mesh.device.type, mesh.group is not None) == (1, "cpu", True)
+    dist.destroy_process_group()
+print("ok")
+"""
+
+
+def test_no_silent_cpu_without_a_card():
+    """With the card hidden, ``make_mesh()`` and ``init_distributed(...)``
+    without a device raise (no CPU mesh, no gloo group); with
+    ``device="cpu"`` they give a CPU mesh and a gloo group as before."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(name, None)
+    proc = subprocess.run([sys.executable, "-c", NO_CARD_CHECK.format(port=_free_port())],
+                          cwd=str(REPO), env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 if __name__ == "__main__":

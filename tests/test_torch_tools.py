@@ -11,12 +11,14 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
 import torch
 
-from tools_torch import hull_ab, long_validation, staleness_sweep, trace_frames
+from tools_torch import (debug_loopclosure, hull_ab, long_validation, scaling_bench,
+                         scaling_procs, staleness_sweep, trace_frames)
 
 REPO = Path(__file__).resolve().parent.parent
 LV_KEYS = ("frames", "degrade", "noise", "posegraph", "ate_rmse_m", "ate_max_m", "drift_pct",
@@ -135,14 +137,45 @@ def test_environment_and_argv_parsing(monkeypatch):
                                                overrides=[])
 
 
+def test_new_tools_environment_and_argv(monkeypatch):
+    """debug_loopclosure reads LV_FRAMES, LV_NOISE_BURST, LV_MAX_KF and
+    DLC_CACHE (empty disables the cache); scaling_bench reads
+    SCALING_BATCH, SCALING_FRAMES, SCALING_SIZES and SCALING_PLATFORM (the
+    card unless "cpu"); scaling_procs takes ``[steps] [--device cpu]``."""
+    for var in ("LV_FRAMES", "LV_NOISE_BURST", "LV_MAX_KF", "DLC_CACHE", "SCALING_BATCH",
+                "SCALING_FRAMES", "SCALING_SIZES", "SCALING_PLATFORM"):
+        monkeypatch.delenv(var, raising=False)
+    assert debug_loopclosure.env_args() == dict(
+        frames=300, burst=(100, 140, 0.15), max_kf=128,
+        cache=os.path.join(tempfile.gettempdir(), "debug_lc_state.npz"))
+    for var, value in {"LV_FRAMES": "120", "LV_NOISE_BURST": "10:20:0.3", "LV_MAX_KF": "24",
+                       "DLC_CACHE": ""}.items():
+        monkeypatch.setenv(var, value)
+    assert debug_loopclosure.env_args() == dict(frames=120, burst=(10, 20, 0.3), max_kf=24,
+                                                cache="")
+    assert scaling_bench.env_args() == dict(per_device=2, frames=10, sizes=None, device="cuda")
+    for var, value in {"SCALING_BATCH": "3", "SCALING_FRAMES": "5", "SCALING_SIZES": "1,2",
+                       "SCALING_PLATFORM": "cpu"}.items():
+        monkeypatch.setenv(var, value)
+    assert scaling_bench.env_args() == dict(per_device=3, frames=5, sizes=[1, 2], device="cpu")
+    monkeypatch.setenv("SCALING_PLATFORM", "tpu")
+    assert scaling_bench.env_args()["device"] == "cuda"
+    assert scaling_procs.parse_argv([]) == dict(steps=30, device="cuda")
+    assert scaling_procs.parse_argv(["4", "--device", "cpu"]) == dict(steps=4, device="cpu")
+    assert scaling_procs.parse_argv(["--device", "cpu", "7"]) == dict(steps=7, device="cpu")
+
+
 @pytest.mark.parametrize("tool", ["long_validation", "staleness_sweep", "hull_ab",
-                                  "trace_frames"])
+                                  "trace_frames", "debug_loopclosure", "scaling_bench",
+                                  "scaling_procs", "graft_entry_torch"])
 def test_main_refuses_missing_cuda(tool):
-    """``python3 tools_torch/<tool>.py`` without a card raises rather than
-    running on the CPU."""
+    """``python3 tools_torch/<tool>.py`` (``graft_entry_torch.py`` at the
+    repo root) without a card raises rather than running on the CPU."""
+    path = REPO / f"{tool}.py" if tool == "graft_entry_torch" else REPO / "tools_torch" / f"{tool}.py"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
-    proc = subprocess.run([sys.executable, str(REPO / "tools_torch" / f"{tool}.py")],
+    env["DLC_CACHE"] = ""
+    proc = subprocess.run([sys.executable, str(path)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr

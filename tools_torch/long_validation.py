@@ -44,7 +44,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from direct_lidar_odometry_tpu_torch.config import DloConfig, ShapeConfig  # noqa: E402
 from direct_lidar_odometry_tpu_torch.io import evaluation, synthetic  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner  # noqa: E402
-from direct_lidar_odometry_tpu_torch.odometry.state import state_to_numpy  # noqa: E402
+from direct_lidar_odometry_tpu_torch.odometry.state import clone_state, state_to_numpy  # noqa: E402
+from direct_lidar_odometry_tpu_torch.parallel.sharded import require_device  # noqa: E402
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
 from direct_lidar_odometry_tpu_torch.utils import sync  # noqa: E402
 
@@ -56,15 +57,6 @@ SMALL_SHAPES = dict(
     grid_table_size=2 ** 14, submap_table_size=2 ** 15, cell_cap_1nn=16, cell_cap_knn=48,
     knn_query_chunk=2048, hull_directions=32,
 )
-
-
-def require_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for "cuda" without a card (no
-    silent move to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={str(device)!r}: CUDA is not available")
-    return device
 
 
 def make_config(small: bool = False, degrade: bool = False, max_kf: int = 24) -> DloConfig:
@@ -202,7 +194,9 @@ def drive(cfg: DloConfig, world, scans, device="cuda", t0: float | None = None):
     runner's, with ``forced`` and the frame ``index`` added), ``seq`` (the
     final ring's, by slot), ``capacity``, ``trajectory``,
     ``state_finite``, ``mem_current_mib`` (allocated at frame MEM_FRAME
-    and at the end) and the ``runner``.
+    and at the end), the ``runner`` and ``state_before_forced`` (with loop
+    closure on, a copy of the runner's state on its device taken just
+    before the forced round; else None).
     The per-frame device values are read once, after the drive, so the
     drive's host reads are the runner's own. ``t0``: the start of the
     wall clock of ``row["wall_s"]`` (default: now; the JAX tool's starts
@@ -256,7 +250,9 @@ def drive(cfg: DloConfig, world, scans, device="cuda", t0: float | None = None):
     gt_all = gt_poses(world)
     gt_pos = gt_all[:, :3, 3]
     err_before = kf_map_error(runner.state, gt_pos)
+    before_forced = None
     if pg.use:
+        before_forced = clone_state(runner.state)  # the round re-anchors the ring in place
         runner.maybe_refine(force=True)
     err_after = kf_map_error(runner.state, gt_pos)
     est = runner.trajectory()
@@ -313,6 +309,7 @@ def drive(cfg: DloConfig, world, scans, device="cuda", t0: float | None = None):
         seq=kf.seq[:n_kf].cpu().numpy().tolist(), trajectory=est,
         state_finite=all(np.isfinite(v).all() for v in state_to_numpy(runner.state).values()),
         mem_current_mib={k: v[1] / mib for k, v in mem.items()}, runner=runner,
+        state_before_forced=before_forced,
     )
     return row, trace
 
