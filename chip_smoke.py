@@ -34,7 +34,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (its own candidate counts, or every valid target) and its bound (FLOP
    over the H100's fp32 peak or bytes over its memory rate, the larger),
    and the time of a library call that computes the same function where
-   one exists. Then K1-K4 over B = 4 lanes in one launch each, the lanes
+   one exists (K5; K2 and K4 at S2M r 0.5: ``torch.cdist``, the minimum,
+   then the radius). Then K1-K4 over B = 4 lanes in one launch each, the lanes
    made as ``bench.py`` makes them (lane i of frame t is
    ``render_scan(world, t, rng(100 + i))``, frames 0-4 built as above): K2
    and K4 at S2M r 0.5, K1 over the scans at r 0.75, K3 at S2M r 0.5; every
@@ -76,7 +77,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    passed to the step, no plain version run; plus the same scans without
    the IMU, for its ATE;
 9. print one JSON line of per-kernel results, then the final JSON line
-   (after phases 10-16, which run before it);
+   (after phases 10-17, which run before it);
 10. host preprocessing at full width: the native host library (built in
    phase 2) must load; one raw scan
    prepared on the host (``io/hostprep.py``) and on the device must give
@@ -173,7 +174,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    bit, every row finite, K2 launched, no plain version, the rows
    printed; ``tools_torch/scaling_bench.py`` at N = 1 (one NCCL process,
    its default batch and frames): its rows, a finite positive aggregate
-   fps.
+   fps;
+17. the stage-attribution tools at their production shapes on "pallas",
+   through their ``run`` (``STAGE_REPS`` timed calls a row):
+   ``tools_torch/profile_stages`` (each stage of the bench frame alone),
+   ``ablate_step`` (cumulative prefixes of ``odom_frame``),
+   ``micro_align`` (the align's and the frame's pieces with device
+   preprocessing) and ``micro_linearize`` (K2 against fused, seeded and
+   unfused linearizations). Every row printed with its synced ms, device
+   operations, busy ms, host reads and K1-K6 launches; every time finite
+   and > 0, no plain version launched, K1 launched by the normals and by
+   the keyframe spawn exactly when it spawns, K2 by the S2S and S2M
+   stages, K3 by the fused rows, and the full prefix equal to
+   ``odom_frame`` bit for bit (pose, keyframe decision, count); the
+   deltas' sum against ``odom_frame`` and the stages' device operations
+   against phase 4's frame printed.
 
 It imports torch, the port, ``tools_torch`` and ``graft_entry_torch``,
 nothing of JAX. Each phase's seconds are printed.
@@ -183,6 +198,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import subprocess
@@ -232,12 +248,31 @@ LONG_MEM_GROWTH_MIB = 64  # phase 15: peak device memory growth allowed after fr
 SMALL_BURST_FRAMES = 300
 SMALL_BURST = (100, 140, 0.15)
 SMALL_BURST_RING = 24
+STAGE_REPS = 4          # phase 17: timed calls a row of each stage tool
 # phase 15: the step's host reads outside GICP's LM loop: the submap-changed
 # flag, the spawn decision, the rescue trigger (one each, every frame)
 STEP_FIXED_READS = {"submap": 1, "keyframes": 1, "pipeline": 1}
 REPO = Path(__file__).resolve().parent
 CFG_PATH = REPO / "cfg" / "tpu_dlo.yaml"
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
+
+
+def _load_devprof():
+    """``tools_torch/devprof.py`` of this checkout, loaded from its path:
+    ``kernel_ab.py`` loads this script beside another tree's packages,
+    whose ``tools_torch`` may not have it."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_devprof",
+                                                  REPO / "tools_torch" / "devprof.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the profiler helpers, under the names kernel_ab.py and older scripts use
+_devprof = _load_devprof()
+device_events = _devprof.device_events
+profile_summary = _devprof.profile_summary
+reset_counters = _devprof.reset_launches
 
 
 def require(ok: bool, what: str) -> None:
@@ -251,20 +286,10 @@ def slice_config(backend: str = "pallas"):
     return load_config(str(CFG_PATH), overrides={"nn_backend": backend})
 
 
-def counter_modules():
+def read_counters() -> dict:
+    """Every kernel's launch counter, per route, by wrapper name."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn
 
-    return cuda_nn, cuda_cov, cuda_gicp
-
-
-def reset_counters() -> None:
-    for mod in counter_modules():
-        mod.reset_launches()
-
-
-def read_counters() -> dict:
-    """Every kernel's launch counter, per route."""
-    cuda_nn, cuda_cov, cuda_gicp = counter_modules()
     return {
         "nn1_pruned": dict(cuda_nn.launches), "nn1_pruned_mxu": dict(cuda_nn.mxu_launches),
         "nn1_exhaustive": dict(cuda_nn.exhaustive_launches),
@@ -372,10 +397,25 @@ def kernel_inputs(cfg, world, scans, dev):
         scan0=scan0, kf0=kf_clouds[0], edge_src=kf_clouds[3], edge_tgt=gicp.make_target(*kfs[0]))
 
 
-def check_k2(queries, targets, radius, label):
+def library_1nn_ms(queries, targets, radius) -> float:
+    """Device ms of the PyTorch call that computes K2's and K4's function:
+    every pairwise distance (``torch.cdist``), the minimum, then the radius
+    and the query mask (invalid targets sit at the pad coordinate, never
+    within the radius)."""
+    q, qm, t = queries.points, queries.mask, targets.points
+
+    def library():
+        d, i = torch.cdist(q, t).min(dim=1)
+        return torch.where(qm & (d <= radius), i, -1)
+
+    return cuda_median_ms(library, SLOW_RUNS)
+
+
+def check_k2(queries, targets, radius, label, library: bool = False):
     """K2 against its plain version: idx and d2 bitwise equal, and two
     launches bitwise equal. The pairs are counted from the kernel's own
-    candidate lists (its ``visits`` output)."""
+    candidate lists (its ``visits`` output). ``library``: also time the
+    PyTorch call that computes the same function."""
     from direct_lidar_odometry_tpu_torch.ops import cuda_nn
 
     q, t = queries.points, targets.points
@@ -399,7 +439,8 @@ def check_k2(queries, targets, radius, label):
         candidates_mean=float(live.mean()), candidates_max=int(live.max()), pairs=pairs,
         found=int(fk.sum()), identical=same, repeatable=repeat,
         max_abs_err=float(torch.abs(dk[fk] - dp[fk]).max()) if fk.any() else 0.0,
-        ms=ms, plain_ms=plain_ms, library_ms=None,
+        ms=ms, plain_ms=plain_ms,
+        library_ms=library_1nn_ms(queries, targets, radius) if library else None,
     )
     # per pair 3 subtractions, 3 products, 2 additions (no FMA contraction)
     with_bound(case, 8.0 * pairs, nbytes(*args[:6], ik, dk))
@@ -410,7 +451,7 @@ def check_k2(queries, targets, radius, label):
     return case
 
 
-def check_k4(queries, targets, radius):
+def check_k4(queries, targets, radius, library: bool = False):
     """K4 against its plain version (the same expansion in the same order):
     idx and d2 bitwise equal except found-disagreements within K2_BORDER of
     r^2, two launches bitwise equal, its candidate counts (``visits``, from
@@ -460,7 +501,8 @@ def check_k4(queries, targets, radius):
         max_abs_err=float(torch.abs(dk[both_p] - dp[both_p]).max()) if both_p.any() else 0.0,
         vs_exact_found_differ=int((fk != fe).sum()), vs_exact_max_d2_gap=gap,
         vs_exact_idx_same=float((ik[both] == ie[both]).float().mean()),
-        ms=ms, plain_ms=plain_ms, library_ms=None,
+        ms=ms, plain_ms=plain_ms,
+        library_ms=library_1nn_ms(queries, targets, radius) if library else None,
     )
     # per pair 3 products and 2 additions for q.t, |q|^2 + |t|^2, 2 q.t, the
     # subtraction and the max; 5 more per staged target for |t|^2
@@ -814,62 +856,6 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
     out = dict(backend=cfg.nn_backend, frames=len(frames))
     out.update(profile_summary(prof, len(frames), wall_ms))
     print(f"# device ops {cfg.nn_backend} {json.dumps(out)}")
-    return out
-
-
-def device_events(prof) -> list:
-    """(name, start ns, end ns) of each device operation (kernel, copy, set)
-    of a finished torch.profiler window, read from its kineto results:
-    ``prof.events()`` would build the whole host-and-device event tree
-    first, tens of seconds for the ~10^5 operations of a profiled
-    tensor-op window."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda]
-
-
-def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
-    """Per ``unit`` (a frame, or a batched step) of a profiled window of
-    ``n`` units and ``wall_ms``: the device operations (kernels, copies,
-    sets), their summed device time, the time the device was busy (their
-    intervals merged, overlaps counted once), each by kind, the eight
-    operations that take the most time, and the idle share of the window;
-    null where the profiler saw no device activity."""
-    ops = device_events(prof)
-    out = {f"device_ops_per_{unit}": None, f"profiled_wall_ms_per_{unit}": wall_ms / n}
-    if ops:
-        def kind(name: str) -> str:
-            return "memcpy" if name.startswith("Memcpy") else (
-                "memset" if name.startswith("Memset") else "kernel")
-
-        summed, busy, count, by_name = {}, {}, {}, {}
-        for k in ("kernel", "memcpy", "memset", "all"):
-            spans = sorted((a, b) for name, a, b in ops if k == "all" or kind(name) == k)
-            summed[k] = sum(b - a for a, b in spans) / 1e6 / n
-            count[k] = len(spans) / n
-            merged, end = 0, None
-            for a, b in spans:
-                if end is None or a > end:
-                    merged += b - a
-                    end = b
-                elif b > end:
-                    merged += b - end
-                    end = b
-            busy[k] = merged / 1e6 / n
-        for name, a, b in ops:
-            by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e6 / n
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        out.update({
-            f"device_ops_per_{unit}": count["all"], f"ops_per_{unit}_by_kind": count,
-            f"device_event_ms_per_{unit}": summed["all"],
-            f"device_busy_ms_per_{unit}": busy["all"],
-            f"event_ms_per_{unit}_by_kind": summed, f"busy_ms_per_{unit}_by_kind": busy,
-            "idle_share_profiled": 1.0 - busy["all"] / (wall_ms / n),
-            f"top_ms_per_{unit}": [[name[:80], ms] for name, ms in top],
-            # the float64 prefix scan of the voxel filter (ops/voxel.py)
-            f"prefix_scan_ms_per_{unit}": sum(ms for name, ms in by_name.items()
-                                              if "scan" in name and "double" in name),
-        })
     return out
 
 
@@ -2166,6 +2152,97 @@ def graft_entry_phase(card, forced):
             for name in ("nn1_pruned", "cov_pruned")}
 
 
+def stage_tools_phase(card, phase4_profile):
+    """Phase 17: the stage-attribution tools (``tools_torch/profile_stages``,
+    ``ablate_step``, ``micro_align``, ``micro_linearize``) through their
+    ``run`` at their production shapes on "pallas", STAGE_REPS timed calls
+    a row (the tools' own defaults: 8, 16, 20 and 16). Every row printed;
+    gates: every time finite and > 0, no plain version launched by any
+    row, K1 launched by the normals and by the keyframe spawn exactly when
+    it spawns, K2 by the S2S and S2M stages, K3 by the fused
+    linearizations, and the full prefix equal to ``odom_frame`` bit for
+    bit (pose, keyframe decision, count). Printed without a gate: the
+    ablation's deltas against its ``odom_frame`` row, and each stage's
+    device operations beside phase 4's frame. Returns the K1-K3 launches
+    of the rows' counted calls."""
+    from tools_torch import ablate_step, micro_align, micro_linearize, profile_stages
+
+    t0 = time.perf_counter()
+    tools = {
+        "profile_stages": profile_stages.run(n=STAGE_REPS),
+        "ablate_step": ablate_step.run(n=STAGE_REPS),
+        "micro_align": micro_align.run(n=STAGE_REPS),
+        "micro_linearize": micro_linearize.run(n=STAGE_REPS),
+    }
+    for tool, rows in tools.items():
+        for row in rows:
+            print(f"# {tool} row {json.dumps(row)}")
+
+    def by_name(rows, key="stage"):
+        return {r[key]: r for r in rows}
+
+    def launched(row, kernel):
+        return row["launches"][kernel]["cuda"]
+
+    for tool, rows in tools.items():
+        for row in rows:
+            name = row.get("stage", row.get("stop"))
+            times = [row["ms"]] + ([row["cum_ms"]] if "cum_ms" in row else [])
+            require(all(np.isfinite(t) and t > 0 for t in times),
+                    f"phase 17 {tool} {name}: times {times}")
+            require(all(np.isfinite(v) for v in (row["device_ops"], row["busy_ms"])),
+                    f"phase 17 {tool} {name}: no device trace")
+            for kernel, cnt in row["launches"].items():
+                require(cnt["plain"] == 0, f"phase 17 {tool} {name}: {kernel}'s plain version ran")
+    ps = by_name(tools["profile_stages"])
+    require(launched(ps["normals"], "K1") > 0, "phase 17 profile_stages: normals without K1")
+    kf = ps["keyframe maybe_spawn"]
+    require((launched(kf, "K1") > 0) == kf["spawned"],
+            f"phase 17 keyframe maybe_spawn: spawned {kf['spawned']}, K1 {launched(kf, 'K1')}")
+    for name in ("s2s align", "s2m align", "FULL step (odom_frame)"):
+        require(launched(ps[name], "K2") > 0, f"phase 17 profile_stages: {name} without K2")
+    ab = by_name(tools["ablate_step"], "stop")
+    names = list(ab)  # dispatch floor, the stops, odom_frame
+    for stop in names[names.index("normals"):]:
+        require(launched(ab[stop], "K1") > 0, f"phase 17 ablate_step {stop}: no K1")
+    for stop in names[names.index("normals") + 1:]:
+        require(launched(ab[stop], "K2") > 0, f"phase 17 ablate_step {stop}: no K2")
+    match = ab["odom_frame"]["full_matches_step"]
+    require(match["pose_equal"] and match["new_keyframe_equal"] and match["count_equal"],
+            f"phase 17: the full prefix differs from odom_frame: {match}")
+    ma = by_name(tools["micro_align"])
+    for name in ("pallas 1nn only", "update_correspondences", "full _linearize",
+                 "align (s2s, ~3 iters)", "s2m align", "FULL odom_frame"):
+        require(launched(ma[name], "K2") > 0, f"phase 17 micro_align: {name} without K2")
+    require(launched(ma["scan normals"], "K1") > 0, "phase 17 micro_align: normals without K1")
+    ml = by_name(tools["micro_linearize"])
+    for name in ("_linearize fused cold", "_linearize fused seeded"):
+        require(launched(ml[name], "K3") > 0, f"phase 17 micro_linearize: {name} without K3")
+    for name in ("NN kernel alone", "_linearize unfused"):
+        require(launched(ml[name], "K2") > 0, f"phase 17 micro_linearize: {name} without K2")
+
+    stops = [r for r in tools["ablate_step"] if r["stop"] not in ("dispatch floor", "odom_frame")]
+    summary = dict(
+        card=card, seconds=time.perf_counter() - t0, reps=STAGE_REPS,
+        ablate_delta_sum_ms=sum(r["delta_ms"] for r in stops),
+        ablate_odom_frame_ms=ab["odom_frame"]["cum_ms"], full_matches_step=match,
+        stage_device_ops={name: r["device_ops"] for name, r in ps.items()},
+        stage_device_ops_sum=sum(r["device_ops"] for name, r in ps.items()
+                                 if name != "FULL step (odom_frame)"),
+        phase4_device_ops_per_frame=phase4_profile["device_ops_per_frame"],
+        phase4_busy_ms_per_frame=phase4_profile.get("device_busy_ms_per_frame"),
+        # the profiler's dropped records, counted on the spins around each call
+        pad_records_lost={tool: [r["pad_records_lost"] for r in rows]
+                          for tool, rows in tools.items()})
+    print(f"# stage tools summary {json.dumps(summary)}")
+    counted = {k: 0 for k in ("K1", "K2", "K3")}
+    for rows in tools.values():
+        for row in rows:
+            for k in counted:
+                counted[k] += launched(row, k)
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2202,10 +2279,11 @@ def main() -> int:
 
     pin_float32()
     inp = kernel_inputs(cfg, world, scans, dev)
-    k2 = [check_k2(inp.queries, inp.submap, r, "S2M") for r in (0.5, 1.0, 1.5)]
+    # the library yardstick of K2 and K4 at S2M r 0.5, the kernels line's shape
+    k2 = [check_k2(inp.queries, inp.submap, r, "S2M", library=r == 0.5) for r in (0.5, 1.0, 1.5)]
     k2.append(check_k2(inp.queries, inp.s2s, 1.0, "S2S"))
     k2.append(check_k2(inp.edge_src, inp.edge_tgt, cfg.posegraph.loop_corr_distance, "loop edge"))
-    k4 = [check_k4(inp.queries, inp.submap, r) for r in (0.5, 1.0, 1.5)]
+    k4 = [check_k4(inp.queries, inp.submap, r, library=r == 0.5) for r in (0.5, 1.0, 1.5)]
     k1 = [check_k1(inp.scan0, 0.75, "scan"), check_k1(inp.kf0, 1.5, "keyframe")]
     k3 = [check_k3(inp.queries, inp.submap, 0.5, "S2M"), check_k3(inp.queries, inp.s2s, 1.0, "S2S")]
     k5, k6 = check_exhaustive(inp, scans, dev)
@@ -2261,6 +2339,8 @@ def main() -> int:
     entry_launches = graft_entry_phase(smi, forced)
     del forced
     timed_phase(16)
+    stage_launches = stage_tools_phase(smi, profiles["pallas"])
+    timed_phase(17)
     print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
     batched_launches = {name: batch["main"]["launches"][name]["cuda"]
@@ -2294,7 +2374,13 @@ def main() -> int:
                 f"saturation (phase 15, drives A and B: {long_launches[name]} launches); "
                 f"phase 16: graft entry step, sharded dry run, loop-closure dissections of "
                 f"drives A, B and the small noise-burst drive "
-                f"({json.dumps(entry_launches[name])} launches)")
+                f"({json.dumps(entry_launches[name])} launches)" + stage_path(name))
+
+    def stage_path(name):
+        return (f"; phase 17: the stage tools' rows (profile_stages, ablate_step, micro_align, "
+                f"micro_linearize: {stage_launches[stage_key[name]]} launches)")
+
+    stage_key = {"nn1_pruned": "K2", "cov_pruned": "K1", "fused_linearize": "K3"}
 
     kernels = [
         entry("nn1_pruned", "nn1_pruned.cu", "pallas_nn.py:192",
@@ -2303,8 +2389,8 @@ def main() -> int:
               main_path["launches"], k2),
         entry("cov_pruned", "cov_pruned.cu", "pallas_cov.py:117",
               "runner, pallas" + host_paths("cov_pruned"), main_path["launches"], k1),
-        entry("fused_linearize", "fused_linearize.cu", "pallas_gicp.py:68", "cli, pallas_fused",
-              cli_fused["launches"], k3),
+        entry("fused_linearize", "fused_linearize.cu", "pallas_gicp.py:68",
+              "cli, pallas_fused" + stage_path("fused_linearize"), cli_fused["launches"], k3),
         entry("nn1_pruned_mxu", "nn1_pruned.cu", "pallas_nn.py:200", "cli, pallas_mxu",
               cli_mxu["launches"], k4),
         entry("nn1_exhaustive", "nn1_exhaustive.cu", "pallas_nn.py:38",

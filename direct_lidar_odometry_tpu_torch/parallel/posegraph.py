@@ -14,8 +14,9 @@ relative-pose constraints, the odometry chain and any loop-closure edges.
   ``Jr^-1(w) ~ I + skew(w)/2``. Analytic rather than autograd because
   ``so3_log``'s arccos has an unbounded derivative at a zero residual,
   where every chain edge starts;
-- the normal system is dense, H is [6K, 6K], assembled by accumulating the
-  per-edge 6x6 blocks into a [K, K, 6, 6] view;
+- the normal system is dense, H is [6K, 6K], assembled from the per-edge
+  6x6 blocks into a [K, K, 6, 6] view through the edges' incidence
+  matrices (matrix products, so the sums are deterministic on the card);
 - the gauge is fixed by pinning pose 0 with a strong prior; the system is
   Jacobi-equilibrated before the float32 solve;
 - distributed (the JAX package's ``axis_name`` form): with a
@@ -75,23 +76,34 @@ def edge_jacobians(x_i: torch.Tensor, x_j: torch.Tensor, z: torch.Tensor):
 
 
 def build_normal_system(graph: PoseGraph) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Dense H [6K, 6K], b [6K] and the weighted squared error."""
+    """Dense H [6K, 6K], b [6K] and the weighted squared error.
+
+    The edges' blocks are summed through the [M, K] incidence matrices of
+    their i and j ends, as float32 matrix products, not scattered: a
+    scatter on the card adds a keyframe's repeated blocks with atomics in
+    whatever order they land, while a product adds them in an order fixed
+    by its shapes, so two builds of one graph give the same bits."""
     k = graph.poses.shape[0]
     w = graph.weights * graph.edge_mask.to(torch.float32)
     i_idx, j_idx = graph.edges[:, 0], graph.edges[:, 1]
+    m = i_idx.shape[0]
     r, j_i, j_j = edge_jacobians(graph.poses[i_idx], graph.poses[j_idx], graph.rel)
     wm = w[:, None, None]
     j_it, j_jt = j_i.transpose(-1, -2), j_j.transpose(-1, -2)
-    h_ij = wm * (j_it @ j_j)
+    h_ii = (wm * (j_it @ j_i)).reshape(m, 36)
+    h_jj = (wm * (j_jt @ j_j)).reshape(m, 36)
+    h_ij = (wm * (j_it @ j_j)).reshape(m, 1, 36)
+    b_i = w[:, None] * (j_it @ r[..., None])[..., 0]
+    b_j = w[:, None] * (j_jt @ r[..., None])[..., 0]
 
-    h = torch.zeros((k, k, 6, 6), dtype=torch.float32, device=r.device)
-    h.index_put_((i_idx, i_idx), wm * (j_it @ j_i), accumulate=True)
-    h.index_put_((j_idx, j_idx), wm * (j_jt @ j_j), accumulate=True)
-    h.index_put_((i_idx, j_idx), h_ij, accumulate=True)
-    h.index_put_((j_idx, i_idx), h_ij.transpose(-1, -2), accumulate=True)
-    b = torch.zeros((k, 6), dtype=torch.float32, device=r.device)
-    b.index_add_(0, i_idx, w[:, None] * (j_it @ r[..., None])[..., 0])
-    b.index_add_(0, j_idx, w[:, None] * (j_jt @ r[..., None])[..., 0])
+    slots = torch.arange(k, device=r.device)
+    inc_i = (i_idx[:, None] == slots).to(torch.float32)
+    inc_j = (j_idx[:, None] == slots).to(torch.float32)
+    # off-diagonal blocks H[i, j] += h_ij and their transposes H[j, i]
+    off = (inc_i.T @ (inc_j[:, :, None] * h_ij).reshape(m, k * 36)).reshape(k, k, 6, 6)
+    h = off + off.permute(1, 0, 3, 2)
+    h[slots, slots] += (inc_i.T @ h_ii + inc_j.T @ h_jj).reshape(k, 6, 6)
+    b = inc_i.T @ b_i + inc_j.T @ b_j
     err = torch.sum(w * torch.sum(r * r, dim=-1))
     h = h.permute(0, 2, 1, 3).reshape(k * 6, k * 6)
     return h, b.reshape(k * 6), err

@@ -112,7 +112,9 @@ def test_port_imports_no_jax():
         "direct_lidar_odometry_tpu_torch.ops.hashgrid, "
         "tools_torch.long_validation, tools_torch.staleness_sweep, tools_torch.hull_ab, "
         "tools_torch.trace_frames, tools_torch.debug_loopclosure, tools_torch.scaling_procs, "
-        "tools_torch.scaling_procs_worker, tools_torch.scaling_bench, "
+        "tools_torch.scaling_procs_worker, tools_torch.scaling_bench, tools_torch.devprof, "
+        "tools_torch.profile_stages, tools_torch.ablate_step, tools_torch.micro_align, "
+        "tools_torch.micro_linearize, "
         "direct_lidar_odometry_tpu_torch.parallel.sharded, graft_entry_torch, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"

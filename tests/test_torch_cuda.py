@@ -512,6 +512,37 @@ def test_posegraph_refine_on_card_matches_cpu(dev):
     assert after < before
 
 
+def test_posegraph_normal_system_on_card_is_deterministic(dev):
+    """Twenty builds of the normal system of a graph whose keyframes repeat
+    across edges (the drifted loop's chain and every fourth keyframe closed
+    to keyframe 0 three times over) give the same bits on the card."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.parallel import posegraph
+
+    graph, _ = _drifted_loop_graph()
+    k = graph.poses.shape[0]
+    loops = torch.tensor([[0, t] for t in range(4, k, 4)] * 3)
+    twist = torch.from_numpy(np.random.default_rng(7).normal(
+        scale=0.05, size=(len(loops), 6)).astype(np.float32))
+    rel = (se3.se3_inverse(graph.poses[loops[:, 0]]) @ graph.poses[loops[:, 1]]
+           @ se3.se3_exp(twist))
+    graph = posegraph.PoseGraph(
+        poses=graph.poses, pose_mask=graph.pose_mask,
+        edges=torch.cat([graph.edges, loops]), rel=torch.cat([graph.rel, rel]),
+        edge_mask=torch.cat([graph.edge_mask, torch.ones(len(loops), dtype=torch.bool)]),
+        weights=torch.cat([graph.weights, torch.full((len(loops),), 2.0)]),
+    )
+    card = posegraph.PoseGraph(*(t.to(dev) for t in graph))
+    first = posegraph.build_normal_system(card)
+    for _ in range(19):
+        again = posegraph.build_normal_system(card)
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
+    cpu = posegraph.build_normal_system(graph)
+    for got, want in zip(first, cpu):
+        scale = max(float(want.abs().max()), 1.0)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("cell", [0.5, 3.0])
 def test_hashgrid_on_card_matches_cpu(dev, cell):
     """The "hashgrid" tensor ops on the card give the CPU's grid bit for bit

@@ -87,6 +87,32 @@ def test_residual_matches_reference():
         np.testing.assert_allclose(got[m].numpy(), np.asarray(ref), atol=1e-5)
 
 
+def test_normal_system_matches_reference():
+    """H, b and the error of a graph whose keyframes repeat across edges (a
+    chain, a loop edge twice and once reversed, two masked self-edges as
+    the chain's padding makes) against the JAX package's scatter-added
+    system; H symmetric bit for bit."""
+    rng = np.random.default_rng(5)
+    k = 8
+    poses = np.stack([_rand_pose(rng) for _ in range(k)]).astype(np.float32)
+    edges = np.array([[t, t + 1] for t in range(k - 1)]
+                     + [[0, 5], [0, 5], [5, 0], [2, 6], [7, 7], [7, 7]], np.int32)
+    z = np.stack([_retract(np.linalg.inv(poses[i]) @ poses[j], rng.normal(scale=0.05, size=6))
+                  for i, j in edges]).astype(np.float32)
+    weights = rng.uniform(0.5, 2.0, len(edges)).astype(np.float32)
+    edge_mask = np.arange(len(edges)) < len(edges) - 2
+    leaves = (poses, np.ones(k, bool), edges, z, edge_mask, weights)
+    h, b, err = tpg.build_normal_system(tpg.PoseGraph(
+        *(torch.from_numpy(np.array(a)) for a in leaves))._replace(
+            edges=torch.from_numpy(edges).long()))
+    ref = jpg.build_normal_system(jpg.PoseGraph(*map(jnp.asarray, leaves)))
+    for got, want in zip((h, b, err), ref):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * max(np.abs(want).max(), 1.0))
+    assert torch.equal(h, h.T)
+
+
 def _drifted_ring():
     """The drifted 40-keyframe ring with shuffled slots and one exact loop
     edge of tests/test_loopclosure.py:187-251, as numpy leaves."""

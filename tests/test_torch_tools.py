@@ -17,8 +17,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from tools_torch import (debug_loopclosure, hull_ab, long_validation, scaling_bench,
-                         scaling_procs, staleness_sweep, trace_frames)
+from tools_torch import (ablate_step, debug_loopclosure, hull_ab, long_validation,
+                         micro_align, micro_linearize, scaling_bench, scaling_procs,
+                         staleness_sweep, trace_frames)
 
 REPO = Path(__file__).resolve().parent.parent
 LV_KEYS = ("frames", "degrade", "noise", "posegraph", "ate_rmse_m", "ate_max_m", "drift_pct",
@@ -165,9 +166,27 @@ def test_new_tools_environment_and_argv(monkeypatch):
     assert scaling_procs.parse_argv(["--device", "cpu", "7"]) == dict(steps=7, device="cpu")
 
 
+def test_stage_tools_argv():
+    """profile_stages and ablate_step take the JAX tools' ``[--small]``,
+    micro_linearize ``[ns nt]``, micro_align nothing; anything else is
+    refused."""
+    assert ablate_step.parse_argv([]) == dict(small=False)
+    assert ablate_step.parse_argv(["--small"]) == dict(small=True)
+    for argv in (["--smal"], ["--device-preprocess"]):
+        with pytest.raises(SystemExit):
+            ablate_step.parse_argv(argv)
+    assert micro_linearize.parse_argv([]) == {}
+    assert micro_linearize.parse_argv(["4096", "8192"]) == dict(ns=4096, nt=8192)
+    assert micro_align.parse_argv([]) == {}
+    for tool, argv in ((micro_linearize, ["4096"]), (micro_align, ["--small"])):
+        with pytest.raises(SystemExit):
+            tool.parse_argv(argv)
+
+
 @pytest.mark.parametrize("tool", ["long_validation", "staleness_sweep", "hull_ab",
                                   "trace_frames", "debug_loopclosure", "scaling_bench",
-                                  "scaling_procs", "graft_entry_torch"])
+                                  "scaling_procs", "graft_entry_torch", "profile_stages",
+                                  "ablate_step", "micro_align", "micro_linearize"])
 def test_main_refuses_missing_cuda(tool):
     """``python3 tools_torch/<tool>.py`` (``graft_entry_torch.py`` at the
     repo root) without a card raises rather than running on the CPU."""
