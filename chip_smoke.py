@@ -188,10 +188,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    stages, K3 by the fused rows, and the full prefix equal to
    ``odom_frame`` bit for bit (pose, keyframe decision, count); the
    deltas' sum against ``odom_frame`` and the stages' device operations
-   against phase 4's frame printed.
+   against phase 4's frame printed;
+18. the bench (``bench_torch.main``, in process, counters reset before each
+   call, each line printed behind ``#``): the default run (93 frames,
+   three pre-staged passes, synced chunks, a streamed pass, the
+   loop-closure check): ATE within the gate, frames/s and the streamed
+   frames/s > 0, at least one loop edge and a falling keyframe-map error,
+   K1 and K2 launched, no plain version, the second and third passes' and
+   the streamed pass's trajectories within 1e-5 m of the first (bitwise
+   reported); ``--batch 4 --frames 24`` (frames/s > 0, K1 and K2
+   launched); ``--imu --no-loop`` (ATE within the gate); and
+   ``--set nn_backend=pallas_fused --no-loop --frames 45`` (K3 launched,
+   no plain version).
 
-It imports torch, the port, ``tools_torch`` and ``graft_entry_torch``,
-nothing of JAX. Each phase's seconds are printed.
+It imports torch, the port, ``tools_torch``, ``graft_entry_torch`` and
+``bench_torch``, nothing of JAX. Each phase's seconds are printed.
 """
 
 from __future__ import annotations
@@ -249,6 +260,7 @@ SMALL_BURST_FRAMES = 300
 SMALL_BURST = (100, 140, 0.15)
 SMALL_BURST_RING = 24
 STAGE_REPS = 4          # phase 17: timed calls a row of each stage tool
+BENCH_POSE_TOL = 1e-5   # m: phase 18, each bench pass against the first
 # phase 15: the step's host reads outside GICP's LM loop: the submap-changed
 # flag, the spawn decision, the rescue trigger (one each, every frame)
 STEP_FIXED_READS = {"submap": 1, "keyframes": 1, "pipeline": 1}
@@ -2243,6 +2255,63 @@ def stage_tools_phase(card, phase4_profile):
     return counted
 
 
+def bench_phase(card):
+    """Phase 18: ``bench_torch.main`` in process, four calls (the module
+    docstring's list), counters reset before each; each call's line, its
+    seconds and its launches printed. Returns each call's launches."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    calls = {
+        "default": [],
+        "batch 4": ["--batch", "4", "--frames", "24"],
+        "imu": ["--imu", "--no-loop"],
+        "pallas_fused": ["--set", "nn_backend=pallas_fused", "--no-loop", "--frames", "45"],
+    }
+    lines, launches, trajs, seconds = {}, {}, {}, {}
+    for name, argv in calls.items():
+        reset_counters()
+        t = time.perf_counter()
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            lines[name] = bench_torch.main(argv, trajectories=trajs if name == "default" else None)
+        launches[name] = read_counters()
+        seconds[name] = time.perf_counter() - t
+        print(f"# bench {name} ({seconds[name]:.1f} s) line {stdout.getvalue().strip()}")
+        print(f"# bench {name} launches {json.dumps(launches[name])}")
+        require("error" not in lines[name], f"phase 18 {name}: {lines[name].get('error')}")
+        for kernel, cnt in launches[name].items():
+            require(cnt["plain"] == 0, f"phase 18 {name}: {kernel}'s plain version ran")
+    for name in ("default", "imu", "pallas_fused"):
+        line = lines[name]
+        require(line["ate_rmse_m"] <= line["gate_m"] and line["value"] > 0,
+                f"phase 18 {name}: ATE {line['ate_rmse_m']} m (gate {line['gate_m']}), "
+                f"{line['value']} frames/s")
+    default = lines["default"]
+    require(default.get("stream_fps", 0) > 0, f"phase 18: streamed {default.get('stream_fps')}")
+    loop = default["loopclosure"]
+    require(loop["loop_edges"] >= 1 and loop["kf_map_err_after_m"] < loop["kf_map_err_before_m"],
+            f"phase 18 loop closure: {loop}")
+    for name in ("default", "batch 4"):
+        for kernel in ("nn1_pruned", "cov_pruned"):
+            require(launches[name][kernel]["cuda"] > 0, f"phase 18 {name}: {kernel} not launched")
+    require(lines["batch 4"]["value"] > 0, f"phase 18 batch 4: {lines['batch 4']}")
+    require(launches["pallas_fused"]["fused_linearize"]["cuda"] > 0,
+            "phase 18 pallas_fused: fused_linearize not launched")
+    ref = trajs["pass 1"]
+    passes = {}
+    for name in ("pass 2", "pass 3", "stream"):
+        est = trajs[name]
+        require(est.shape == ref.shape, f"phase 18: {name} has {len(est)} poses, pass 1 {len(ref)}")
+        dev = float(np.abs(est[:, :3, 3] - ref[:, :3, 3]).max())
+        passes[name] = dict(max_dev_m=dev, bitwise=bool(np.array_equal(est, ref)))
+        require(dev <= BENCH_POSE_TOL, f"phase 18: {name} deviates {dev} m from pass 1")
+    summary = dict(card=card, seconds=time.perf_counter() - t0, call_seconds=seconds,
+                   passes_vs_pass1=passes)
+    print(f"# bench summary {json.dumps(summary)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2341,6 +2410,8 @@ def main() -> int:
     timed_phase(16)
     stage_launches = stage_tools_phase(smi, profiles["pallas"])
     timed_phase(17)
+    bench_launches = bench_phase(smi)
+    timed_phase(18)
     print(f"# phase seconds {json.dumps(phase_s)}, total {time.perf_counter() - t_start:.1f}")
 
     batched_launches = {name: batch["main"]["launches"][name]["cuda"]
@@ -2377,8 +2448,10 @@ def main() -> int:
                 f"({json.dumps(entry_launches[name])} launches)" + stage_path(name))
 
     def stage_path(name):
+        bench = {call: cnt[name]["cuda"] for call, cnt in bench_launches.items()}
         return (f"; phase 17: the stage tools' rows (profile_stages, ablate_step, micro_align, "
-                f"micro_linearize: {stage_launches[stage_key[name]]} launches)")
+                f"micro_linearize: {stage_launches[stage_key[name]]} launches); phase 18: "
+                f"bench_torch ({json.dumps(bench)} launches)")
 
     stage_key = {"nn1_pruned": "K2", "cov_pruned": "K1", "fused_linearize": "K3"}
 

@@ -93,8 +93,8 @@ def test_precision_pin():
 
 def test_port_imports_no_jax():
     """The import graphs of the runner, the CLI, every other public module,
-    every tool in ``tools_torch/``, ``graft_entry_torch.py`` and
-    ``chip_smoke.py`` stay free of jax."""
+    every tool in ``tools_torch/``, ``graft_entry_torch.py``,
+    ``chip_smoke.py`` and ``bench_torch.py`` stay free of jax."""
     code = (
         "import sys, direct_lidar_odometry_tpu_torch.odometry.runner, "
         "direct_lidar_odometry_tpu_torch.io.synthetic, "
@@ -114,8 +114,9 @@ def test_port_imports_no_jax():
         "tools_torch.trace_frames, tools_torch.debug_loopclosure, tools_torch.scaling_procs, "
         "tools_torch.scaling_procs_worker, tools_torch.scaling_bench, tools_torch.devprof, "
         "tools_torch.profile_stages, tools_torch.ablate_step, tools_torch.micro_align, "
-        "tools_torch.micro_linearize, "
-        "direct_lidar_odometry_tpu_torch.parallel.sharded, graft_entry_torch, chip_smoke\n"
+        "tools_torch.micro_linearize, tools_torch.run_baseline, "
+        "direct_lidar_odometry_tpu_torch.parallel.sharded, graft_entry_torch, chip_smoke, "
+        "bench_torch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('direct_lidar_odometry_tpu.') or m == 'direct_lidar_odometry_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from bench_torch import production_cfg
 from direct_lidar_odometry_tpu.odometry import state as jstate
 from direct_lidar_odometry_tpu.odometry.runner import OdometryRunner as JaxRunner
 from direct_lidar_odometry_tpu.registration import gicp as jgicp
@@ -35,7 +36,6 @@ from direct_lidar_odometry_tpu_torch.ops import cuda_cov, morton as tmorton
 from tests.test_pallas_e2e import _scans, pallas_cfg, sparse_world  # noqa: F401
 from tests.test_torch_e2e import _jax_leaves, _port_cfg
 from tools_torch import ablate_step, micro_align, micro_linearize, profile_stages
-from tools_torch.trace_frames import production_cfg
 
 CARRY_AT = 3  # the carried state is the JAX runner's before this frame
 # the tools' own runs: tiny shapes over 2 frames of the small bench world

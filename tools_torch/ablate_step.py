@@ -19,7 +19,7 @@ run the coarse align without the cap and leave the rescue out;
 ``tests/test_torch_stages.py`` holds this tool's full prefix to
 ``odom_frame`` bit for bit.
 
-The frame is ``bench.py``'s (``trace_frames.production_cfg``, the bench
+The frame is ``bench.py``'s (``bench_torch.production_cfg``, the bench
 world, the state after 8 frames through ``OdometryRunner``, frame 8 encoded
 as the runner encodes it); the device surrogates
 of the hulls stand in for the runner's host hulls, as in the JAX tool. Rows: the dispatch floor (a
@@ -46,6 +46,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from bench_torch import make_bench_world, production_cfg  # noqa: E402
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend  # noqa: E402
 from direct_lidar_odometry_tpu_torch.core import cloud as cl, se3  # noqa: E402
 from direct_lidar_odometry_tpu_torch.io import synthetic  # noqa: E402
@@ -59,7 +60,6 @@ from direct_lidar_odometry_tpu_torch.parallel.sharded import require_device  # n
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
 from direct_lidar_odometry_tpu_torch.utils import sync  # noqa: E402
 from tools_torch import devprof  # noqa: E402
-from tools_torch.trace_frames import make_bench_world, production_cfg  # noqa: E402
 
 STOPS = ("preprocess", "normals", "s2s_coarse", "s2s", "submap", "s2m", "full")
 ROUNDS = 3  # the JAX tool's best of 3

@@ -34,6 +34,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from bench_torch import production_cfg  # noqa: E402
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend  # noqa: E402
 from direct_lidar_odometry_tpu_torch.core import se3  # noqa: E402
 from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud  # noqa: E402
@@ -42,7 +43,6 @@ from direct_lidar_odometry_tpu_torch.odometry.state import clone_state  # noqa: 
 from direct_lidar_odometry_tpu_torch.ops import cuda_nn, morton, preprocess as prep, voxel  # noqa: E402
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
 from tools_torch import ablate_step, devprof  # noqa: E402
-from tools_torch.trace_frames import production_cfg  # noqa: E402
 
 ROWS = ("pallas 1nn only", "update_correspondences", "full _linearize", "align (s2s, ~3 iters)",
         "prep mask/crop 131k", "voxel_downsample 131k", "morton sort 32k", "scan normals",

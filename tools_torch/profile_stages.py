@@ -40,13 +40,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from bench_torch import production_cfg  # noqa: E402
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend  # noqa: E402
 from direct_lidar_odometry_tpu_torch.core import se3  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry import adaptive, keyframes, pipeline, submap  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.state import clone_state  # noqa: E402
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
 from tools_torch import ablate_step, devprof  # noqa: E402
-from tools_torch.trace_frames import production_cfg  # noqa: E402
 
 STAGES = ("preprocess+morton", "normals", "s2s make_target", "s2s align",
           "submap select+assemble", "s2m align", "keyframe maybe_spawn", "FULL step (odom_frame)")

@@ -4,10 +4,10 @@ Port of the JAX package's ``tools/trace_frames.py``.
 
     python3 tools_torch/trace_frames.py [world_frames] [run_frames] [--cpu] [key=val ...]
 
-Runs the bench configuration (``bench.py``'s ``production_cfg``, copied
-here) frame by frame, each frame synced, on the card (``--cpu``: on the
-CPU), and prints the position error against ground truth and the GICP
-health of every frame. This is the trace that located the JAX package's
+Runs the bench configuration (``bench_torch.production_cfg``) frame by
+frame, each frame synced, on the card (``--cpu``: on the CPU), and prints
+the position error against ground truth and the GICP health of every
+frame. This is the trace that located the JAX package's
 round-2 divergence: S2S stalled in a local minimum of the gated
 plane-to-plane objective at production density and the tight 0.5 m S2M
 gate could not pull it back, fixed by the staged-gate rescue
@@ -17,7 +17,6 @@ gate could not pull it back, fixed by the staged-gate rescue
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import sys
 import time
@@ -26,42 +25,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from direct_lidar_odometry_tpu_torch import config as config_mod  # noqa: E402
-from direct_lidar_odometry_tpu_torch.cli import _parse_override  # noqa: E402
-from direct_lidar_odometry_tpu_torch.config import DloConfig, ShapeConfig  # noqa: E402
+from bench_torch import make_bench_world, production_cfg, with_overrides  # noqa: E402
 from direct_lidar_odometry_tpu_torch.io import synthetic  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner  # noqa: E402
-from tools_torch.long_validation import SMALL_SHAPES, require_device  # noqa: E402
-
-
-def production_cfg(small: bool = False) -> DloConfig:
-    """``bench.py``'s operating point: coarse-only S2S at stride 8, host
-    preprocessing, a 12288-point scan, a 16384-point submap, a 128-slot
-    ring; ``small`` swaps in the small shapes (64-slot ring)."""
-    base = DloConfig()
-    base = base.replace(
-        s2s_prior="constant_velocity",
-        host_preprocess=True,
-        gicp=dataclasses.replace(base.gicp, s2s_full_polish=False, s2s_coarse_stride=8),
-        shapes=dataclasses.replace(base.shapes, n_scan=12288, n_submap_flat=16384,
-                                   max_keyframes=128),
-    )
-    if small:
-        return base.replace(shapes=ShapeConfig(max_keyframes=64, **SMALL_SHAPES))
-    return base
-
-
-def make_bench_world(n_frames: int, rng: np.random.Generator, small: bool):
-    """``bench.py``'s world: (world, max_range, max_points, beams). The
-    campus-corridor BoxWorld, ray-cast through an OS1-64 beam model (small:
-    32 x 512 beams, 13 m)."""
-    if small:
-        world = synthetic.make_urban_world(rng, n_frames=n_frames, speed=0.4, corridor=7.0,
-                                           n_dynamic=1)
-        return world, 13.0, 8192, synthetic.BeamModel(n_beams=32, n_azimuth=512)
-    world = synthetic.make_urban_world(rng, n_frames=n_frames, speed=1.0,
-                                       n_dynamic=max(2, n_frames // 25))
-    return world, 40.0, 131072, synthetic.BeamModel()
+from direct_lidar_odometry_tpu_torch.parallel.sharded import require_device  # noqa: E402
 
 
 def run(frames: int = 45, run_frames: int | None = None, device="cuda", overrides=(),
@@ -75,10 +42,7 @@ def run(frames: int = 45, run_frames: int | None = None, device="cuda", override
     "key=val" strings."""
     dev = require_device(device)
     run_frames = frames if run_frames is None else run_frames
-    cfg = production_cfg(small)
-    for ov in overrides:
-        key, value = _parse_override(ov)
-        cfg = config_mod._override(cfg, key.split("."), value)
+    cfg = with_overrides(production_cfg(small), overrides)
     rng = np.random.default_rng(0)
     world, max_range, max_pts, beams = make_bench_world(frames, rng, small)
     scans = [synthetic.render_scan(world, t, rng, beams=beams, max_range=max_range,
