@@ -1,0 +1,8 @@
+"""device_idle_pct.offline: the share of the profiled offline sub-window
+in which no device operation ran."""
+
+
+def read(log, cell):
+    if log.driver != "offline" or not log.profile:
+        return None
+    return 100.0 * (1.0 - log.profile["busy_s"] / log.profile["window_s"])
