@@ -1279,7 +1279,7 @@ def intensity_cli_check(world, device="cuda", max_range=40.0, max_points=131072,
     ``beams``), then the CLI twice with host preprocessing: with the
     intensity sidecar (xyzi PLY) and without it (the native ScanFeeder)."""
     from direct_lidar_odometry_tpu_torch import cli
-    from direct_lidar_odometry_tpu_torch.io import native, ply, synthetic, trajectory
+    from direct_lidar_odometry_tpu_torch.io import ply, synthetic, trajectory
     from direct_lidar_odometry_tpu_torch.utils import sync
 
     runs = {}
@@ -1304,7 +1304,7 @@ def intensity_cli_check(world, device="cuda", max_range=40.0, max_points=131072,
             stdout = io.StringIO()
             reset_counters()
             sync.reset()
-            fed = native.counts["feeder_scans"]
+            fed = sync.counts["feeder_scans"]
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(stdout):
                 rc = cli.main(argv)
@@ -1317,7 +1317,7 @@ def intensity_cli_check(world, device="cuda", max_range=40.0, max_points=131072,
             runs[name] = dict(
                 rc=rc, frames=len(est), ate_m=rmse, path_m=path, wall_s=wall_s,
                 host_reads_per_frame=sync.counts["host_reads"] / max(len(est), 1),
-                feeder_scans=native.counts["feeder_scans"] - fed,
+                feeder_scans=sync.counts["feeder_scans"] - fed,
                 map_points=len(m), map_columns=int(m.shape[1]),
                 ply_has_intensity=b"property float intensity" in header,
                 intensity_min=float(m[:, 3].min()) if m.shape[1] == 4 else None,

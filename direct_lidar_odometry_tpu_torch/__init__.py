@@ -20,8 +20,8 @@ has an obvious counterpart:
 - ``parallel``: the keyframe pose graph, the multi-sequence batched step
   (``parallel/batched.py``) and its sharding over ``torch.distributed``
   (``parallel/sharded.py``);
-- ``utils``: precision pin, host-read counter, lane helpers, checkpoint,
-  dashboard;
+- ``utils``: precision pin, tracing (spans, host waits, counters), lane
+  helpers, checkpoint, dashboard;
 - ``cli``: the process entry point (``python -m direct_lidar_odometry_tpu_torch``).
 
 The port imports ``torch`` and never ``jax``.

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from direct_lidar_odometry_tpu_torch.io import native
+from direct_lidar_odometry_tpu_torch.utils import sync
 
 
 class PointCloud(NamedTuple):
@@ -87,7 +88,8 @@ def from_numpy(points: np.ndarray, capacity: int, device="cuda") -> PointCloud:
     mask = np.zeros((capacity,), dtype=bool)
     mask[:m] = True
     return PointCloud(
-        points=torch.from_numpy(out).to(device), mask=torch.from_numpy(mask).to(device)
+        points=sync.upload(torch.from_numpy(out), device),
+        mask=sync.upload(torch.from_numpy(mask), device),
     )
 
 

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from direct_lidar_odometry_tpu_torch.utils import sync
+
 _EPS = 1e-8
 
 
@@ -82,7 +84,7 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return sync.upload([1.0, 0.0, 0.0, 0.0], device, dtype)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -105,7 +107,7 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * sync.upload([1.0, -1.0, -1.0, -1.0], q.device, q.dtype)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
@@ -176,8 +178,8 @@ def quat_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     w = 1.0 + torch.sum(a * b, dim=-1)
     q = torch.cat([w[..., None], c], dim=-1)
     # antiparallel fallback: rotate pi about any axis orthogonal to a
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device).expand(a.shape)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device).expand(a.shape)
+    ex = sync.upload([1.0, 0.0, 0.0], a.device, a.dtype).expand(a.shape)
+    ey = sync.upload([0.0, 1.0, 0.0], a.device, a.dtype).expand(a.shape)
     ortho = torch.linalg.cross(a, ex)
     ortho = torch.where(
         torch.linalg.norm(ortho, dim=-1, keepdim=True) < 1e-6, torch.linalg.cross(a, ey), ortho
@@ -197,7 +199,7 @@ def make_se3(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     r = r.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([r, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype, device=r.device)
+    bottom = sync.upload([0.0, 0.0, 0.0, 1.0], r.device, r.dtype)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

@@ -30,13 +30,12 @@ from pathlib import Path
 
 import numpy as np
 
+from direct_lidar_odometry_tpu_torch.utils import sync
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG.parent / "cpp" / "dlo_host.cpp"
 BUILD_DIR = _PKG / "_build" / "host"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
-
-# scans served by ScanFeeder objects (the CLI's KITTI path reports it)
-counts = {"feeder_scans": 0}
 
 _F = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
@@ -196,7 +195,7 @@ class ScanFeeder:
             raise IOError(f"scan {self._i} failed to read")
         i = self._i
         self._i += 1
-        counts["feeder_scans"] += 1
+        sync.count("feeder_scans")  # scans served (the CLI's KITTI path reports it)
         return i, self._buf[:n].copy()
 
     def close(self):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from direct_lidar_odometry_tpu_torch.core import se3
+from direct_lidar_odometry_tpu_torch.utils import sync
 
 
 class ImuBuffer:
@@ -145,5 +146,5 @@ def integrate_window_host(window: np.ndarray, count: int) -> np.ndarray:
 def gravity_align_quat(accel_mean: torch.Tensor) -> torch.Tensor:
     """Quaternion rotating the measured gravity direction onto +z
     (reference ``odom.cc:556-560``, FromTwoVectors onto (0, 0, 1))."""
-    grav = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=accel_mean.device)
+    grav = sync.upload([0.0, 0.0, 1.0], accel_mean.device, torch.float32)
     return se3.quat_from_two_vectors(accel_mean.to(torch.float32), grav)

@@ -51,8 +51,8 @@ def decide(
     d = torch.where(kmask, d, torch.inf)
     num_nearby = torch.sum((d <= thresh_dist[..., None] * 1.5) & kmask, dim=-1).to(torch.int32)
     closest = lane_rows(torch.argmin(d, dim=-1))
-    dd = d[closest]
-    theta_deg = se3.quat_angle_deg(quat, kf.quats[closest])
+    dd = sync.index(d, closest)
+    theta_deg = se3.quat_angle_deg(quat, sync.index(kf.quats, closest))
     spawn = (dd > thresh_dist) | ((theta_deg > thresh_rot_deg) & (num_nearby <= 1))
     # no keyframes yet -> always spawn
     spawn = spawn | (kf.count == 0)
@@ -107,8 +107,8 @@ def _eviction_slot(positions: torch.Tensor, position: torch.Tensor) -> torch.Ten
     d2 = d2 + torch.where(eye, torch.inf, 0.0)
     flat = torch.argmin(d2.flatten(-2), dim=-1)
     i, j = flat // k, flat % k
-    di = torch.sum((positions[lane_rows(i)] - position) ** 2, dim=-1)
-    dj = torch.sum((positions[lane_rows(j)] - position) ** 2, dim=-1)
+    di = torch.sum((sync.index(positions, lane_rows(i)) - position) ** 2, dim=-1)
+    dj = torch.sum((sync.index(positions, lane_rows(j)) - position) ** 2, dim=-1)
     return torch.where(di > dj, i, j)
 
 

@@ -156,23 +156,39 @@ def odom_frame(
     """One odometry frame (reference ``icpCB`` body + ``getNextPose``).
 
     ``state`` is consumed: its keyframe ring and submap cache are written in
-    place, so only the returned state may be used afterwards.
+    place, so only the returned state may be used afterwards. The frame is
+    the span ``step``, each stage a ``step.*`` span (``utils/sync.py``).
     """
+    with sync.span("step"):
+        return _odom_frame(cfg, directions, state, raw_points, raw_mask, imu_prior, hull_masks)
+
+
+def _odom_frame(
+    cfg: DloConfig,
+    directions: torch.Tensor,
+    state: OdomState,
+    raw_points: torch.Tensor,
+    raw_mask: torch.Tensor,
+    imu_prior: torch.Tensor,
+    hull_masks: tuple[torch.Tensor, torch.Tensor, bool] | None,
+) -> tuple[OdomState, FrameResult]:
     backend = resolve_backend(cfg)
     shapes = cfg.shapes
     cap = shapes.cell_cap_1nn
     # --- preprocessing + metrics (odom.cc:650-659) ---
-    scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
-    spac = adaptive.update_spaciousness(
-        state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
-    )
-    if cfg.adaptive.use:
-        thresh_dist = adaptive.keyframe_thresh_from_spaciousness(spac)
-    else:
-        thresh_dist = torch.full_like(spac, cfg.keyframe.thresh_dist)
+    with sync.span("step.preprocess"):
+        scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
+        spac = adaptive.update_spaciousness(
+            state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
+        )
+        if cfg.adaptive.use:
+            thresh_dist = adaptive.keyframe_thresh_from_spaciousness(spac)
+        else:
+            thresh_dist = torch.full_like(spac, cfg.keyframe.thresh_dist)
 
     # --- per-scan normals, computed exactly once (odom.cc:815,818) ---
-    nrm = _scan_normals(scan, cfg, backend)
+    with sync.span("step.normals"):
+        nrm = _scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(
         points=scan.points, mask=scan.mask, normals=nrm.normals, normals_valid=nrm.valid,
     )
@@ -189,68 +205,74 @@ def odom_frame(
         cs -= 1  # degrade to the nearest stride that keeps chunk alignment
     coarse_res = None
     if cs > 1:
-        coarse_src = gicp.GicpSource(*(t[::cs].contiguous() for t in src))
-        coarse_target = gicp.make_target(
-            state.prev_points[::cs].contiguous(), state.prev_mask[::cs].contiguous(),
-            state.prev_normals[::cs].contiguous(),
-            state.prev_normals_valid[::cs].contiguous(),
-            cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
-        )
-        coarse_cfg = dataclasses.replace(
-            cfg.gicp.s2s,
-            max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations),
-        )
-        coarse_res = gicp.align(coarse_src, coarse_target, guess, coarse_cfg, backend, cap)
+        with sync.span("step.s2s_coarse"):
+            coarse_src = gicp.GicpSource(*(t[::cs].contiguous() for t in src))
+            coarse_target = gicp.make_target(
+                state.prev_points[::cs].contiguous(), state.prev_mask[::cs].contiguous(),
+                state.prev_normals[::cs].contiguous(),
+                state.prev_normals_valid[::cs].contiguous(),
+                cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
+            )
+            coarse_cfg = dataclasses.replace(
+                cfg.gicp.s2s,
+                max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations),
+            )
+            coarse_res = gicp.align(coarse_src, coarse_target, guess, coarse_cfg, backend, cap)
         guess = coarse_res.transform
     if coarse_res is not None and not cfg.gicp.s2s_full_polish:
         s2s_res = coarse_res
     else:
-        s2s_target = gicp.make_target(
-            state.prev_points, state.prev_mask, state.prev_normals, state.prev_normals_valid,
-            cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
-        )
-        s2s_res = gicp.align(src, s2s_target, guess, cfg.gicp.s2s, backend, cap)
+        with sync.span("step.s2s"):
+            s2s_target = gicp.make_target(
+                state.prev_points, state.prev_mask, state.prev_normals, state.prev_normals_valid,
+                cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
+            )
+            s2s_res = gicp.align(src, s2s_target, guess, cfg.gicp.s2s, backend, cap)
 
     # --- propagate S2S into the global frame (odom.cc:812, 926-943) ---
     t_s2s_global = state.t_s2s @ s2s_res.transform
 
     # --- submap selection + assembly (odom.cc:825-834) ---
-    query_pos = se3.se3_translation(t_s2s_global)
-    sel = submap.select_submap_keyframes(
-        state.keyframes, state.submap_members, query_pos, thresh_dist, cfg,
-        directions, hull_masks,
-    )
-    state, submap_changed = submap.assemble_submap(state, sel, query_pos, cfg, backend)
+    with sync.span("step.submap"):
+        query_pos = se3.se3_translation(t_s2s_global)
+        sel = submap.select_submap_keyframes(
+            state.keyframes, state.submap_members, query_pos, thresh_dist, cfg,
+            directions, hull_masks,
+        )
+        state, submap_changed = submap.assemble_submap(state, sel, query_pos, cfg, backend)
 
     # --- S2M: scan against submap, S2S-propagated guess (odom.cc:837-847) ---
-    submap_cloud = (state.submap_points, state.submap_mask, state.submap_normals,
-                    state.submap_normals_valid)
-    if gicp.is_pallas(backend):
-        # the submap is Z-ordered at assembly; its AABBs are cheap per frame
-        s2m_target = gicp.make_target(*submap_cloud)
-    else:
-        # "hashgrid": the grid built at assembly; "brute": no index
-        s2m_target = gicp.GicpTarget(*submap_cloud, grid=state.submap_grid)
-    s2m_res = gicp.align(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend, cap)
-
-    if cfg.gicp.s2m_rescue:
-        # Staged-gate rescue (GicpConfig.s2m_rescue): when either stage's
-        # per-correspondence Mahalanobis error says the solver stalled
-        # outside the tight S2M basin, re-register with the wide gate and
-        # re-refine at the reference gate.
-        s2s_per = _per_corr(s2s_res)
-        s2m_per = _per_corr(s2m_res)
-        n_valid_src = torch.clamp(torch.sum(src.mask.to(torch.int32)), min=1).to(torch.float32)
-        corr_frac = s2m_res.num_correspondences.to(torch.float32) / n_valid_src
-        s2m_unhealthy = (
-            (s2m_per > cfg.gicp.rescue_s2m_error)
-            | (corr_frac < cfg.gicp.rescue_min_corr_frac)
-            | (s2m_res.num_correspondences == 0)
-        )
-        s2s_alarm = (s2s_per > cfg.gicp.rescue_s2s_error) & (
-            s2m_per > cfg.gicp.rescue_s2m_corroborate * cfg.gicp.rescue_s2m_error
-        )
-        if sync.read(s2m_unhealthy | s2s_alarm):
+    with sync.span("step.s2m"):
+        submap_cloud = (state.submap_points, state.submap_mask, state.submap_normals,
+                        state.submap_normals_valid)
+        if gicp.is_pallas(backend):
+            # the submap is Z-ordered at assembly; its AABBs are cheap per frame
+            s2m_target = gicp.make_target(*submap_cloud)
+        else:
+            # "hashgrid": the grid built at assembly; "brute": no index
+            s2m_target = gicp.GicpTarget(*submap_cloud, grid=state.submap_grid)
+        s2m_res = gicp.align(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend, cap)
+        rescue = False
+        if cfg.gicp.s2m_rescue:
+            # Staged-gate rescue (GicpConfig.s2m_rescue): when either stage's
+            # per-correspondence Mahalanobis error says the solver stalled
+            # outside the tight S2M basin, re-register with the wide gate and
+            # re-refine at the reference gate (step.rescue).
+            s2s_per = _per_corr(s2s_res)
+            s2m_per = _per_corr(s2m_res)
+            n_valid_src = torch.clamp(torch.sum(src.mask.to(torch.int32)), min=1).to(torch.float32)
+            corr_frac = s2m_res.num_correspondences.to(torch.float32) / n_valid_src
+            s2m_unhealthy = (
+                (s2m_per > cfg.gicp.rescue_s2m_error)
+                | (corr_frac < cfg.gicp.rescue_min_corr_frac)
+                | (s2m_res.num_correspondences == 0)
+            )
+            s2s_alarm = (s2s_per > cfg.gicp.rescue_s2s_error) & (
+                s2m_per > cfg.gicp.rescue_s2m_corroborate * cfg.gicp.rescue_s2m_error
+            )
+            rescue = sync.read(s2m_unhealthy | s2s_alarm)
+    if rescue:
+        with sync.span("step.rescue"):
             wide_cfg = dataclasses.replace(
                 cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance,
             )
@@ -268,10 +290,12 @@ def odom_frame(
     pose = torch.where(s2m_res.num_correspondences > 0, s2m_res.transform, t_s2s_global)
 
     # --- keyframing (odom.cc:678, 1097-1181) ---
-    kf, spawned, kf_evicted, kf_slot = keyframes.maybe_spawn(
-        state.keyframes, scan, pose, cfg, thresh_dist,
-        seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend,
-    )
+    with sync.span("step.keyframe"):
+        kf, spawned, kf_evicted, kf_slot = keyframes.maybe_spawn(
+            state.keyframes, scan, pose, cfg, thresh_dist,
+            seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend,
+        )
+
     # eviction rewrote a slot under a possibly-unchanged membership mask:
     # clearing the cached members forces a submap rebuild next frame
     submap_members = torch.where(kf_evicted, False, state.submap_members)

@@ -12,6 +12,12 @@ non-blocking copy of the keyframe positions whose readiness is checked
 with a CUDA event. A resumed run sets ``state`` (``utils/checkpoint.py``)
 and ``prev_stamp`` before its first frame.
 
+The runner's calls are spans of ``utils/sync.py`` (``runner.scan``,
+``runner.chunk``, ``runner.prepare``, ``runner.refine``), and every host
+wait on the device goes through it: the IMU prior's, the scans' and the
+hull masks' blocking copies, the positions copy's event. It counts the
+frames it steps and the scans it prepares.
+
 With ``host_preprocess`` each scan is voxelized and Z-ordered on the host
 (``io/hostprep.py``; ``host_prep_impl`` says whether the C++ or the numpy
 version ran) and only the n_scan centroids travel. With
@@ -28,7 +34,6 @@ the same poses as :meth:`OdometryRunner.process_scan` frame for frame.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,7 +46,7 @@ from direct_lidar_odometry_tpu_torch.odometry import (
     hosthull, hulls, imu as imu_mod, loopclosure, mapper, pipeline,
 )
 from direct_lidar_odometry_tpu_torch.odometry.state import FrameResult, OdomState
-from direct_lidar_odometry_tpu_torch.utils import sync
+from direct_lidar_odometry_tpu_torch.utils import sync as trace  # process_scan's flag is `sync`
 from direct_lidar_odometry_tpu_torch.utils.precision import pin_float32
 
 
@@ -83,9 +88,8 @@ class OdometryRunner:
         self.device = device
         # "native" or "numpy" once a scan was preprocessed on the host
         self.host_prep_impl: str | None = None
-        self.directions = torch.from_numpy(
-            hulls.fibonacci_directions(cfg.shapes.hull_directions)
-        ).to(device)
+        self.directions = trace.upload(
+            torch.from_numpy(hulls.fibonacci_directions(cfg.shapes.hull_directions)), device)
         self.imu = (
             imu_mod.ImuBuffer(cfg.imu.calib_time, cfg.imu.buffer_size) if cfg.imu.use else None
         )
@@ -134,10 +138,11 @@ class OdometryRunner:
         pos = torch.zeros(3, **f32)
         if cfg.gravity_align and self.imu is not None and self.imu.calibrated:
             rot = se3.quat_to_rotmat(imu_mod.gravity_align_quat(
-                torch.tensor(self.imu.accel_mean, **f32)))
+                trace.upload(self.imu.accel_mean, self.device, torch.float32)))
         if cfg.initial_pose.use:
-            pos = torch.tensor(cfg.initial_pose.position, **f32)
-            rot = se3.quat_to_rotmat(torch.tensor(cfg.initial_pose.orientation_wxyz, **f32))
+            pos = trace.upload(cfg.initial_pose.position, self.device, torch.float32)
+            rot = se3.quat_to_rotmat(
+                trace.upload(cfg.initial_pose.orientation_wxyz, self.device, torch.float32))
         return se3.make_se3(rot, pos)
 
     def _imu_prior(self, t0: float, t1: float) -> torch.Tensor:
@@ -146,7 +151,8 @@ class OdometryRunner:
         if self.imu is None:
             return self._identity
         window, count = self.imu.window(t0, t1, self.cfg.shapes.imu_window)
-        return torch.from_numpy(imu_mod.integrate_window_host(window, count)).to(self.device)
+        return trace.upload(torch.from_numpy(imu_mod.integrate_window_host(window, count)),
+                            self.device)
 
     def process_scan(
         self, points: np.ndarray, stamp: float, sync: bool = False
@@ -157,40 +163,28 @@ class OdometryRunner:
 
         The step itself reads a few flags on the host, so it returns once
         those reads are done; ``sync=True`` also waits for the rest of the
-        frame's device work, so ``FrameStats.wall_ms`` is the frame's
-        latency.
+        frame's device work, so ``FrameStats.wall_ms`` (the span
+        ``runner.scan``) is the frame's latency.
         """
         cfg = self.cfg
-        t0 = time.perf_counter()
         if points.shape[0] < cfg.gicp.min_num_points:  # odom.cc:638-641
             return None
         if self.imu is not None and not self.imu.calibrated:
             return None
-        raw = self._encode_scan(points)
-
-        if self.state is None:
-            state = pipeline.fresh_state(cfg, self._initial_pose(), self.device)
-            self.state = pipeline.init_frame(cfg, state, raw.points, raw.mask)
-            if self._carry_intensity(points):
-                # the init frame always writes ring slot 0 (odom.cc:483-505)
-                self._ikf[0] = self._reduce_xyzi(points)
-            self._enqueue_hull_fetch(
-                torch.tensor(cfg.keyframe.thresh_dist, dtype=torch.float32, device=self.device)
-            )
+        with trace.span("runner.scan") as span:
+            raw = self._encode_scan(points)
+            if self.state is None:
+                self._init_frame(raw, points)
+                result = None
+                self.poses.append(self.state.pose.clone())
+            else:
+                result = self._step(raw, self._imu_prior(self.prev_stamp, stamp), points)
+                self.poses.append(result.pose)
             self.prev_stamp = stamp
-            self.poses.append(self.state.pose.clone())
             self.stamps.append(stamp)
             self._finish(sync)
-            self.stats.append(FrameStats(stamp, (time.perf_counter() - t0) * 1e3, None))
-            return None
-
-        result = self._step(raw, self._imu_prior(self.prev_stamp, stamp), points)
-        self.prev_stamp = stamp
-        self.poses.append(result.pose)
-        self.stamps.append(stamp)
-        self._finish(sync)
-        self.stats.append(FrameStats(stamp, (time.perf_counter() - t0) * 1e3, result))
-        if cfg.posegraph.use:
+        self.stats.append(FrameStats(stamp, span.ms, result))
+        if result is not None and cfg.posegraph.use:
             # the trigger reads the keyframe count on the host, so it runs
             # only every check_every frames
             self._frames_since_refine_check += 1
@@ -199,6 +193,16 @@ class OdometryRunner:
                 self.maybe_refine()
         return result
 
+    def _init_frame(self, raw: cl.PointCloud, points: np.ndarray) -> None:
+        cfg = self.cfg
+        state = pipeline.fresh_state(cfg, self._initial_pose(), self.device)
+        self.state = pipeline.init_frame(cfg, state, raw.points, raw.mask)
+        if self._carry_intensity(points):
+            # the init frame always writes ring slot 0 (odom.cc:483-505)
+            self._ikf[0] = self._reduce_xyzi(points)
+        self._enqueue_hull_fetch(
+            trace.upload(cfg.keyframe.thresh_dist, self.device, torch.float32))
+
     def _step(self, raw: cl.PointCloud, prior: torch.Tensor, points: np.ndarray,
               wait_hulls: bool = False) -> FrameResult:
         self._refresh_hull_masks(wait=wait_hulls)
@@ -206,6 +210,7 @@ class OdometryRunner:
             self.cfg, self.directions, self.state, raw.points, raw.mask, prior,
             self._hull_args(),
         )
+        trace.count("frames")
         self._enqueue_hull_fetch(result.keyframe_thresh_dist)
         if result.new_keyframe and self._carry_intensity(points):
             self._enqueue_intensity(result.kf_slot, points)
@@ -213,14 +218,16 @@ class OdometryRunner:
 
     def _finish(self, sync: bool) -> None:
         if sync and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            trace.wait_event(self.device)
 
     # -- chunked dispatch ---------------------------------------------------
     def prepare_chunk(self, scans) -> list[cl.PointCloud]:
         """Encode a chunk of scans and copy them to the device (separate
         from :meth:`process_chunk`, so a caller can prepare the next chunk
         while the current one runs)."""
-        return [self._encode_scan(s) for s in scans]
+        with trace.span("runner.prepare"):
+            trace.count("frames_prepared", len(scans))
+            return [self._encode_scan(s) for s in scans]
 
     def process_chunk(self, scans, stamps, prepared: list[cl.PointCloud] | None = None) -> FrameResult:
         """K frames after an initialized state (feed the first frame through
@@ -238,19 +245,20 @@ class OdometryRunner:
         k = len(scans)
         if k == 0 or k != len(stamps):
             raise ValueError(f"process_chunk: {k} scans and {len(stamps)} stamps")
-        t0 = time.perf_counter()
-        prev = [self.prev_stamp, *stamps[:-1]]
-        priors = [self._imu_prior(a, b) for a, b in zip(prev, stamps)]
-        raws = prepared if prepared is not None else self.prepare_chunk(scans)
-        results = [self._step(raw, prior, scan, wait_hulls=True)
-                   for raw, prior, scan in zip(raws, priors, scans)]
-        self.prev_stamp = stamps[-1]
-        wall = (time.perf_counter() - t0) * 1e3 / k
+        with trace.span("runner.chunk") as span:
+            prev = [self.prev_stamp, *stamps[:-1]]
+            priors = [self._imu_prior(a, b) for a, b in zip(prev, stamps)]
+            raws = prepared if prepared is not None else self.prepare_chunk(scans)
+            results = [self._step(raw, prior, scan, wait_hulls=True)
+                       for raw, prior, scan in zip(raws, priors, scans)]
+            self.prev_stamp = stamps[-1]
+            stacked = stack_results(results)
+        wall = span.ms / k
         for stamp, res in zip(stamps, results):
             self.poses.append(res.pose)
             self.stamps.append(stamp)
             self.stats.append(FrameStats(stamp, wall, res))
-        return stack_results(results)
+        return stacked
 
     def _wire_capacity(self) -> int:
         """Points a scan carries on the wire: the voxel capacity when the
@@ -278,9 +286,9 @@ class OdometryRunner:
             return cl.from_numpy(pts, cap, self.device)
         qs = cl.quantize_for_transfer(pts, cap)
         # uint16 words travel as int16 bits (dequantize widens them back)
-        q = torch.from_numpy(qs.q.view(np.int16)).to(self.device)
-        lo = torch.from_numpy(qs.lo).to(self.device)
-        scale = torch.from_numpy(qs.scale).to(self.device)
+        q = trace.upload(torch.from_numpy(qs.q.view(np.int16)), self.device)
+        lo = trace.upload(torch.from_numpy(qs.lo), self.device)
+        scale = trace.upload(torch.from_numpy(qs.scale), self.device)
         return cl.dequantize(q, lo, scale, int(qs.count))
 
     # -- exact host hulls (one frame behind) --------------------------------
@@ -295,7 +303,7 @@ class OdometryRunner:
         bufs, event = self._hull_pending
         if event is not None:
             if wait:
-                event.synchronize()
+                trace.wait_event(event)
             elif not event.query():
                 return
         self._hull_pending = None
@@ -330,8 +338,8 @@ class OdometryRunner:
     def _hull_args(self):
         if self._hull_dev is None:
             self._hull_dev = (
-                torch.from_numpy(self._hull_cvx).to(self.device),
-                torch.from_numpy(self._hull_ccv).to(self.device),
+                trace.upload(torch.from_numpy(self._hull_cvx), self.device),
+                trace.upload(torch.from_numpy(self._hull_ccv), self.device),
                 self._hull_fresh,
             )
         return self._hull_dev
@@ -372,7 +380,7 @@ class OdometryRunner:
         for n, (slot, event, scan) in enumerate(self._ipending):
             if event is not None:
                 if force or n < overflow:
-                    event.synchronize()
+                    trace.wait_event(event)
                 elif not event.query():
                     break
             self._ikf[int(slot)] = self._reduce_xyzi(scan)
@@ -406,12 +414,14 @@ class OdometryRunner:
         cfg = self.cfg
         if self.state is None:
             return None
-        n_kf = sync.read(self.state.keyframes.count)
+        n_kf = trace.read(self.state.keyframes.count)
         if not self._refine_due(n_kf, force):
             return None
-        t0 = time.perf_counter()
-        self.state, info = loopclosure.refine_and_reanchor(self.state, cfg, resolve_backend(cfg))
-        graph_error, max_corr = sync.read(torch.stack([info.graph_error, info.max_correction]))
+        with trace.span("runner.refine") as span:
+            self.state, info = loopclosure.refine_and_reanchor(self.state, cfg,
+                                                               resolve_backend(cfg))
+            graph_error, max_corr = trace.read(
+                torch.stack([info.graph_error, info.max_correction]))
         self._kf_at_refine = n_kf
         entry = {
             "frame": len(self.poses),
@@ -420,7 +430,7 @@ class OdometryRunner:
             "n_accepted": info.n_accepted,
             "graph_error": graph_error,
             "max_correction_m": max_corr,
-            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "wall_ms": span.ms,
         }
         self.refine_log.append(entry)
         return entry

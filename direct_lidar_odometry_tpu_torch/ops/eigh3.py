@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from direct_lidar_odometry_tpu_torch.utils import sync
+
 _EPS = 1e-12
 
 
@@ -53,7 +55,7 @@ def _eigvec_for(a: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     cands = torch.stack([c01, c02, c12], dim=-2)  # [..., 3cand, 3]
     v = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
     nrm = torch.linalg.norm(v, dim=-1, keepdim=True)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
+    z = sync.upload([0.0, 0.0, 1.0], a.device, a.dtype)
     return torch.where(nrm > 1e-12, v / torch.clamp(nrm, min=_EPS), z)
 
 

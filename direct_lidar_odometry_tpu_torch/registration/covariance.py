@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from direct_lidar_odometry_tpu_torch.ops import bruteforce, cuda_cov, eigh3, hashgrid
+from direct_lidar_odometry_tpu_torch.utils import sync
 from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 PLANE_EPS = 1e-3  # reference nano_gicp_impl.hpp:339: values = (1, 1, 1e-3)
@@ -43,7 +44,7 @@ class Normals(NamedTuple):
 
 
 def _masked_normals(normal: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal.dtype, device=normal.device)
+    z = sync.upload([0.0, 0.0, 1.0], normal.device, normal.dtype)
     return torch.where(valid[..., None], normal, z)
 
 

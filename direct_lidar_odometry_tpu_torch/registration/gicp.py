@@ -319,7 +319,9 @@ def align(
     read per inner iteration (LM) or per outer iteration (GN). ``backend``:
     "pallas" (or its alias "pallas_unfused"), "pallas_mxu", "pallas_fused",
     "brute" or "hashgrid" (see config.resolve_backend); ``cap``: the hash
-    grid's candidates a cell (``shapes.cell_cap_1nn``).
+    grid's candidates a cell (``shapes.cell_cap_1nn``). Counts its outer
+    iterations and its LM (or GN) steps under the caller's innermost span
+    (``align_iters.<span>``, ``lm_steps.<span>``, ``utils/sync.py``).
     """
     dev = guess.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -330,7 +332,7 @@ def align(
     h_fin = eye6
     err_fin = torch.zeros((), dtype=torch.float32, device=dev)
     nc_fin = torch.zeros((), dtype=torch.int32, device=dev)
-    iters, converged, failed = 0, False, False
+    iters, steps, converged, failed = 0, 0, False, False
     while iters < cfg.max_iterations and not converged and not failed:
         lin = _linearize(x, src, target, cfg, backend, cap=cap)
         if use_lm:
@@ -340,6 +342,7 @@ def align(
             nu = 2.0
             ok, conv, x_new = False, False, x
             for _ in range(cfg.lm_max_iterations):
+                steps += 1
                 d = _solve6(lin.h + lam * eye6, lin.b)
                 delta = se3.se3_exp(d)
                 xi = _reorthonormalize(delta @ x)
@@ -361,6 +364,7 @@ def align(
                     break
         else:
             # step_gn (lsq_registration_impl.hpp:142-158)
+            steps += 1
             d = _solve6(lin.h, lin.b)
             delta = se3.se3_exp(d)
             x_new = _reorthonormalize(delta @ x)
@@ -371,6 +375,9 @@ def align(
             x = x_new
         iters += 1
         h_fin, err_fin, nc_fin = lin.h, lin.error, lin.n_corr
+    stage = sync.site()
+    sync.count(f"align_iters.{stage}", iters)
+    sync.count(f"lm_steps.{stage}", steps)
     return GicpResult(
         transform=x,
         hessian=h_fin,

@@ -650,3 +650,60 @@ def test_knn_normals_lanes_on_card_equal_single_calls(dev, kind):
     for b in range(p.shape[0]):
         one = est(p[b], m[b])
         assert torch.equal(got.normals[b], one.normals) and torch.equal(got.valid[b], one.valid)
+
+
+def test_every_sync_of_a_chunk_is_a_counted_wait(dev):
+    """Over one chunk of ``process_chunk`` (its scans prepared inside it,
+    host preprocessing, the wire encoding, the IMU prior), every call that
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags is made inside one of
+    the tracer's ``read``, ``copy`` or ``index`` waits, and each such wait
+    is one flagged call."""
+    import dataclasses
+    import warnings
+
+    from direct_lidar_odometry_tpu_torch.config import DloConfig, ImuConfig, ShapeConfig
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    cfg = DloConfig(host_preprocess=True, quantize_transfer=True, s2s_prior="imu",
+                    imu=ImuConfig(use=True, calib_time=0.2), shapes=ShapeConfig(
+                        n_raw=16384, n_scan=4096, n_keyframe=2048, max_keyframes=16,
+                        max_submap_kf=4, n_submap_flat=8192, hull_directions=16))
+    cfg = cfg.replace(keyframe=dataclasses.replace(cfg.keyframe, thresh_dist=1.0))
+    n = 17
+    rng = np.random.default_rng(0)
+    world = synthetic.make_urban_world(rng, n_frames=n, speed=1.0, n_dynamic=0)
+    beams = synthetic.BeamModel(n_beams=32, n_azimuth=512)
+    scans = [synthetic.render_raycast(world, t, rng, max_points=16384, beams=beams)
+             for t in range(n)]
+    stamps = [float(s) for s in world.stamps[:n]]
+    runner = OdometryRunner(cfg, device="cuda")
+    for t in np.arange(stamps[0] - 0.3, stamps[-1], 0.01):
+        runner.push_imu(float(t), [0.0, 0.0, 0.01], [0.0, 0.0, 9.81])
+    runner.process_scan(scans[0], stamps[0])
+    runner.process_chunk(scans[1:9], stamps[1:9])  # warm
+    torch.cuda.synchronize()
+    flagged = []
+
+    def hook(message, *args, **kwargs):
+        if "synchronizing CUDA operation" in str(message):
+            flagged.append(sync.site())
+
+    sync.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner.process_chunk(scans[9:], stamps[9:])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    t = sync.totals()
+    counted = {kind: sum(c for (k, *_), (c, _) in t.waits.items() if k == kind)
+               for kind in ("read", "copy", "index", "event")}
+    outside = [s for s in flagged if s not in ("wait.read", "wait.copy", "wait.index")]
+    assert outside == [], (outside, counted)
+    assert len(flagged) == counted["read"] + counted["copy"] + counted["index"], counted
+    assert counted["read"] == sync.counts["host_reads"] > 0 and counted["copy"] > 0
+    assert counted["event"] == 8  # the hull positions' copy, waited for each frame

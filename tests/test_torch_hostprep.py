@@ -16,6 +16,7 @@ from direct_lidar_odometry_tpu_torch.core import cloud as tcloud
 from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud
 from direct_lidar_odometry_tpu_torch.io import hostprep as thp, native
 from direct_lidar_odometry_tpu_torch.ops import preprocess as tprep, voxel as tvoxel
+from direct_lidar_odometry_tpu_torch.utils import sync
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not installed")
 
@@ -118,14 +119,14 @@ def test_read_velodyne_and_feeder_stream_in_order(tmp_path):
     np.testing.assert_array_equal(native.read_velodyne(files[2]), scans[2][:, :3])
     with pytest.raises(IOError):
         native.read_velodyne(str(tmp_path / "missing.bin"))
-    before = native.counts["feeder_scans"]
+    before = sync.counts["feeder_scans"]
     feeder = native.ScanFeeder(files, crop_size=0.0, res=0.0, depth=2)
     got = list(feeder)
     feeder.close()
     assert [i for i, _ in got] == list(range(5))
     for (_, s), want in zip(got, scans):
         np.testing.assert_array_equal(s, want[:, :3])
-    assert native.counts["feeder_scans"] - before == 5
+    assert sync.counts["feeder_scans"] - before == 5
     feeder = native.ScanFeeder([files[0], str(tmp_path / "missing.bin")], crop_size=0.0, res=0.0)
     it = iter(feeder)
     assert next(it)[0] == 0

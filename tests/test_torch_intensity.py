@@ -16,7 +16,7 @@ import pytest
 
 from direct_lidar_odometry_tpu.odometry.runner import OdometryRunner as JaxRunner
 from direct_lidar_odometry_tpu_torch import cli, config as tcfg
-from direct_lidar_odometry_tpu_torch.io import native, ply as tply, synthetic as tsyn
+from direct_lidar_odometry_tpu_torch.io import ply as tply, synthetic as tsyn
 from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
 from direct_lidar_odometry_tpu_torch.utils import sync
 from tests.test_intensity import _world_intensity
@@ -156,11 +156,11 @@ def test_cli_kitti_xyzi_roundtrip(sparse_world, tmp_path, capsys):  # noqa: F811
         if intensity:
             argv += ["--set", "map.carry_intensity=true"]
         sync.reset()
-        fed = native.counts["feeder_scans"]
+        fed = sync.counts["feeder_scans"]
         assert cli.main(argv) == 0
         summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         runs[intensity] = dict(summary=summary, reads=sync.counts["host_reads"],
-                               fed=native.counts["feeder_scans"] - fed,
+                               fed=sync.counts["feeder_scans"] - fed,
                                map=tply.read_ply(str(out / "map.ply")))
     inputs = np.concatenate([np.fromfile(f, np.float32).reshape(-1, 4)[:, 3]
                              for f in sorted((tmp_path / "kitti").rglob("*.bin"))])
