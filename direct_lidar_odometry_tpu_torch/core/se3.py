@@ -84,7 +84,7 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return sync.upload([1.0, 0.0, 0.0, 0.0], device, dtype)
+    return sync.constant((1.0, 0.0, 0.0, 0.0), device, dtype).clone()
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -107,7 +107,7 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * sync.upload([1.0, -1.0, -1.0, -1.0], q.device, q.dtype)
+    return q * sync.constant((1.0, -1.0, -1.0, -1.0), q.device, q.dtype)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
@@ -178,8 +178,8 @@ def quat_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     w = 1.0 + torch.sum(a * b, dim=-1)
     q = torch.cat([w[..., None], c], dim=-1)
     # antiparallel fallback: rotate pi about any axis orthogonal to a
-    ex = sync.upload([1.0, 0.0, 0.0], a.device, a.dtype).expand(a.shape)
-    ey = sync.upload([0.0, 1.0, 0.0], a.device, a.dtype).expand(a.shape)
+    ex = sync.constant((1.0, 0.0, 0.0), a.device, a.dtype).expand(a.shape)
+    ey = sync.constant((0.0, 1.0, 0.0), a.device, a.dtype).expand(a.shape)
     ortho = torch.linalg.cross(a, ex)
     ortho = torch.where(
         torch.linalg.norm(ortho, dim=-1, keepdim=True) < 1e-6, torch.linalg.cross(a, ey), ortho
@@ -199,7 +199,7 @@ def make_se3(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     r = r.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([r, t[..., :, None]], dim=-1)
-    bottom = sync.upload([0.0, 0.0, 0.0, 1.0], r.device, r.dtype)
+    bottom = sync.constant((0.0, 0.0, 0.0, 1.0), r.device, r.dtype)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

@@ -146,5 +146,5 @@ def integrate_window_host(window: np.ndarray, count: int) -> np.ndarray:
 def gravity_align_quat(accel_mean: torch.Tensor) -> torch.Tensor:
     """Quaternion rotating the measured gravity direction onto +z
     (reference ``odom.cc:556-560``, FromTwoVectors onto (0, 0, 1))."""
-    grav = sync.upload([0.0, 0.0, 1.0], accel_mean.device, torch.float32)
+    grav = sync.constant((0.0, 0.0, 1.0), accel_mean.device, torch.float32)
     return se3.quat_from_two_vectors(accel_mean.to(torch.float32), grav)

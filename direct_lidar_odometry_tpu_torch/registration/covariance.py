@@ -44,7 +44,7 @@ class Normals(NamedTuple):
 
 
 def _masked_normals(normal: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    z = sync.upload([0.0, 0.0, 1.0], normal.device, normal.dtype)
+    z = sync.constant((0.0, 0.0, 1.0), normal.device, normal.dtype)
     return torch.where(valid[..., None], normal, z)
 
 

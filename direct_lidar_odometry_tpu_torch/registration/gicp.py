@@ -26,7 +26,12 @@ Counterpart of the JAX package's ``registration/gicp.py`` (the reference's
 The JAX package runs both loops as ``lax.while_loop`` on the device. Here
 they are Python loops; each inner iteration reads its two flags (accept,
 converged) in ONE host read (``utils/sync.py``), and nothing else in the
-loop waits for the device.
+loop waits for the device: x, lambda and nu stay in device tensors, updated
+with ``torch.where``. On a CUDA device the pruned-kernel backends replay
+the work between two reads (an outer iteration up to its first LM trial's
+flags, or one more trial) as a captured CUDA graph, one pair of graphs per
+shape and stage; the CPU, ``"brute"`` and ``"hashgrid"`` issue the same
+operations one by one.
 
 :func:`align_batched` registers B independent lanes at once on every
 backend (the JAX package's ``align`` under ``jax.vmap``): sources,
@@ -43,6 +48,7 @@ for bit.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -304,6 +310,193 @@ def _solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(h, -b)[0]
 
 
+class _LmState(NamedTuple):
+    """:func:`align`'s optimizer state, on the device for the whole call and
+    updated in place: the estimate, LM's lambda and nu, and whether lambda
+    still waits for its first linearization."""
+
+    x: torch.Tensor      # [4, 4]
+    lam: torch.Tensor    # f32
+    nu: torch.Tensor     # f32
+    fresh: torch.Tensor  # bool
+
+
+def _lm_state(x: torch.Tensor) -> _LmState:
+    dev = x.device
+    return _LmState(x=x, lam=torch.zeros((), dtype=torch.float32, device=dev),
+                    nu=torch.full((), 2.0, dtype=torch.float32, device=dev),
+                    fresh=torch.ones((), dtype=torch.bool, device=dev))
+
+
+def _lm_trial(st: _LmState, src: GicpSource, lin: _Linearization,
+              cfg: GicpStageConfig) -> torch.Tensor:
+    """One trial of step_lm (lsq_registration_impl.hpp:169-206) on ``lin``:
+    the damped step, the gain ratio rho, then lambda, nu and x updated in
+    place as an accepted (rho >= 0) or a rejected step updates them.
+    Returns the [accept, converged] flags."""
+    eye6 = torch.eye(6, dtype=torch.float32, device=st.x.device)
+    d = _solve6(lin.h + st.lam * eye6, lin.b)
+    delta = se3.se3_exp(d)
+    xi = _reorthonormalize(delta @ st.x)
+    yi = _compute_error(xi, src, lin)
+    denom = torch.dot(d, st.lam * d - lin.b)
+    denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+    rho = (lin.error - yi) / denom
+    accept = rho >= 0.0
+    flags = torch.stack([accept, _is_converged(delta, cfg)])
+    st.lam.copy_(torch.where(accept, st.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                                          min=1.0 / 3.0), st.nu * st.lam))
+    st.nu.copy_(torch.where(accept, st.nu, 2.0 * st.nu))
+    st.x.copy_(torch.where(accept, xi, st.x))
+    return flags
+
+
+def _iteration(st: _LmState, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
+               backend: str, cap: int) -> tuple[_Linearization, torch.Tensor]:
+    """One outer iteration up to its first host read: linearize at x, then
+    LM's first trial (lambda initialised on the call's first linearization,
+    nu reset to 2), or the whole GN step (step_gn,
+    lsq_registration_impl.hpp:142-158, which always moves x). Returns the
+    linearization and the flags the host reads: [accept, converged] (LM) or
+    converged (GN)."""
+    lin = _linearize(st.x, src, target, cfg, backend, cap=cap)
+    if cfg.optimizer == "lm":
+        lam0 = cfg.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(lin.h)))
+        st.lam.copy_(torch.where(st.fresh, lam0, st.lam))
+        st.fresh.fill_(False)
+        st.nu.fill_(2.0)
+        return lin, _lm_trial(st, src, lin, cfg)
+    d = _solve6(lin.h, lin.b)
+    delta = se3.se3_exp(d)
+    st.x.copy_(_reorthonormalize(delta @ st.x))
+    return lin, _is_converged(delta, cfg)
+
+
+class _EagerIterations:
+    """:func:`align`'s iterations issued operation by operation."""
+
+    def __init__(self, src, target, x0, cfg, backend, cap):
+        self.args = (src, target, cfg, backend, cap)
+        self.st = _lm_state(x0)
+        self.lin = None
+
+    def iteration(self) -> tuple[_Linearization, torch.Tensor]:
+        self.lin, flags = _iteration(self.st, *self.args)
+        return self.lin, flags
+
+    def retry(self) -> torch.Tensor:
+        src, _, cfg, _, _ = self.args
+        return _lm_trial(self.st, src, self.lin, cfg)
+
+    def result(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+def _clone(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else t.clone()
+
+
+class _GraphedIterations:
+    """One key's captured iterations (:func:`_graphed`): static copies of
+    the source, the target and the state, the ``iteration`` graph
+    (:func:`_iteration`) and under LM the ``retry`` graph (one more
+    :func:`_lm_trial` on the iteration's linearization), each captured in a
+    private memory pool on a side stream and replayed on the caller's
+    stream. A replay adds the K2/K4/K3 launches that its capture recorded
+    to those kernels' counters."""
+
+    _KERNEL_COUNTERS = ((cuda_nn.launches, "cuda"), (cuda_nn.mxu_launches, "cuda"),
+                        (cuda_gicp.launches, "cuda"))
+
+    def __init__(self, src, target, x0, cfg, backend):
+        self.src = GicpSource(*map(_clone, src))
+        self.target = GicpTarget(*map(_clone, target))
+        self.st = _lm_state(x0.clone())
+        side = torch.cuda.Stream(x0.device)
+        side.wait_stream(torch.cuda.current_stream(x0.device))
+        with torch.cuda.stream(side):
+            # the first run builds what a capture cannot (the kernel
+            # library, cuBLAS and cuSOLVER handles, the constants)
+            self.lin, _ = _iteration(self.st, self.src, self.target, cfg, backend, 16)
+            if cfg.optimizer == "lm":
+                _lm_trial(self.st, self.src, self.lin, cfg)
+        self.graph, (self.lin, self.flags), self.launched = self._capture(
+            side, lambda: _iteration(self.st, self.src, self.target, cfg, backend, 16))
+        self.retry_graph = None
+        if cfg.optimizer == "lm":
+            self.retry_graph, self.retry_flags, self.retry_launched = self._capture(
+                side, lambda: _lm_trial(self.st, self.src, self.lin, cfg))
+        torch.cuda.current_stream(x0.device).wait_stream(side)
+
+    def _capture(self, side, body):
+        """(the graph, what ``body`` returned, the kernel launches it
+        recorded): ``torch.cuda.graph``'s capture without its device-wide
+        synchronize and cache flush, which would stall the caller's stream
+        and the chunk worker's copies; capture errors of this thread only."""
+        before = [c[k] for c, k in self._KERNEL_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = body()
+            finally:
+                graph.capture_end()
+        launched = []
+        for (c, k), n in zip(self._KERNEL_COUNTERS, before):
+            launched.append(c[k] - n)
+            c[k] = n  # a capture records the launches; a replay makes them
+        sync.count("gicp_graph.captures")
+        return graph, out, launched
+
+    def load(self, src: GicpSource, target: GicpTarget, x0: torch.Tensor) -> _GraphedIterations:
+        for mine, theirs in zip((*self.src, *self.target), (*src, *target)):
+            if mine is not None:
+                mine.copy_(theirs)
+        self.st.x.copy_(x0)
+        self.st.fresh.fill_(True)
+        return self
+
+    def _replay(self, graph, launched) -> None:
+        graph.replay()
+        sync.count("gicp_graph.replays")
+        for (c, k), n in zip(self._KERNEL_COUNTERS, launched):
+            c[k] += n
+
+    def iteration(self) -> tuple[_Linearization, torch.Tensor]:
+        self._replay(self.graph, self.launched)
+        return self.lin, self.flags
+
+    def retry(self) -> torch.Tensor:
+        self._replay(self.retry_graph, self.retry_launched)
+        return self.retry_flags
+
+    def result(self, t: torch.Tensor) -> torch.Tensor:
+        return t.clone()  # the next load or replay overwrites graph memory
+
+
+_GRAPHS: dict[tuple, _GraphedIterations] = {}
+
+
+def _graphed(src: GicpSource, target: GicpTarget, x0: torch.Tensor, cfg: GicpStageConfig,
+             backend: str) -> _GraphedIterations | None:
+    """The captured iterations of this call's key, captured on its first
+    use, or None off the graphed path, which is a pruned-kernel backend on
+    a CUDA device (the tensor-op backends ``"brute"`` and ``"hashgrid"``
+    stay the plain route, as on the CPU). The key holds everything the captured work depends on: the backend,
+    the shapes, dtype and device of the clouds, and the stage's gate,
+    convergence epsilons, initial lambda factor and optimizer."""
+    if x0.device.type != "cuda" or not is_pallas(backend):
+        return None
+    key = (backend, x0.device, src.points.dtype, tuple(src.points.shape),
+           tuple(target.points.shape), tuple(target.chunk_lo.shape),
+           cfg.max_correspondence_distance, cfg.rotation_epsilon, cfg.transformation_epsilon,
+           cfg.lm_init_lambda_factor, cfg.optimizer)
+    graphs = _GRAPHS.get(key)
+    if graphs is None:
+        graphs = _GRAPHS[key] = _GraphedIterations(src, target, x0, cfg, backend)
+    return graphs.load(src, target, x0)
+
+
 def align(
     src: GicpSource,
     target: GicpTarget,
@@ -316,76 +509,67 @@ def align(
 
     ``LsqRegistration::computeTransformation`` with the reference-default
     LM inner step, or plain GN when ``cfg.optimizer == "gn"``. One host
-    read per inner iteration (LM) or per outer iteration (GN). ``backend``:
-    "pallas" (or its alias "pallas_unfused"), "pallas_mxu", "pallas_fused",
-    "brute" or "hashgrid" (see config.resolve_backend); ``cap``: the hash
-    grid's candidates a cell (``shapes.cell_cap_1nn``). Counts its outer
-    iterations and its LM (or GN) steps under the caller's innermost span
-    (``align_iters.<span>``, ``lm_steps.<span>``, ``utils/sync.py``).
+    read per inner iteration (LM) or per outer iteration (GN); x, lambda
+    and nu stay on the device. ``backend``: "pallas" (or its alias
+    "pallas_unfused"), "pallas_mxu", "pallas_fused", "brute" or "hashgrid"
+    (see config.resolve_backend); ``cap``: the hash grid's candidates a
+    cell (``shapes.cell_cap_1nn``). On a CUDA device a pruned-kernel
+    backend replays each iteration and each LM retry as one captured CUDA
+    graph (:func:`_graphed`); elsewhere the same operations run one by one.
+    Counts its outer iterations and its LM (or GN) steps under the caller's
+    innermost span (``align_iters.<span>``, ``lm_steps.<span>``), and on a
+    CUDA device its graph replays and its eagerly run iterations
+    (``gicp_graph.replays``, ``gicp_graph.eager_iters``; ``utils/sync.py``).
     """
-    dev = guess.device
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    use_lm = cfg.optimizer == "lm"
-
-    x = _reorthonormalize(guess.to(torch.float32))
-    lam = None
-    h_fin = eye6
-    err_fin = torch.zeros((), dtype=torch.float32, device=dev)
-    nc_fin = torch.zeros((), dtype=torch.int32, device=dev)
-    iters, steps, converged, failed = 0, 0, False, False
-    while iters < cfg.max_iterations and not converged and not failed:
-        lin = _linearize(x, src, target, cfg, backend, cap=cap)
-        if use_lm:
-            # step_lm (lsq_registration_impl.hpp:161-208)
-            if lam is None:
-                lam = cfg.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(lin.h)))
-            nu = 2.0
-            ok, conv, x_new = False, False, x
-            for _ in range(cfg.lm_max_iterations):
+    x0 = _reorthonormalize(guess.to(torch.float32))
+    on_card = x0.device.type == "cuda"
+    with torch.cuda.device(x0.device) if on_card else contextlib.nullcontext():
+        run = _graphed(src, target, x0, cfg, backend)
+        graphed = run is not None
+        if not graphed:
+            run = _EagerIterations(src, target, x0, cfg, backend, cap)
+        lin = None
+        iters, steps, converged, failed = 0, 0, False, False
+        while iters < cfg.max_iterations and not converged and not failed:
+            lin, flags = run.iteration()
+            if cfg.optimizer == "lm":
+                # step_lm (lsq_registration_impl.hpp:161-208): retry on the same
+                # linearization until a step is accepted or already converged
+                steps, trials = steps + 1, 1
+                accept, conv = sync.read(flags)
+                while not (accept or conv) and trials < cfg.lm_max_iterations:
+                    steps, trials = steps + 1, trials + 1
+                    accept, conv = sync.read(run.retry())
+                # the reference returns true on acceptance and on a rejected
+                # step that is already below the convergence test
+                ok = accept or conv
+            else:
                 steps += 1
-                d = _solve6(lin.h + lam * eye6, lin.b)
-                delta = se3.se3_exp(d)
-                xi = _reorthonormalize(delta @ x)
-                yi = _compute_error(xi, src, lin)
-                denom = torch.dot(d, lam * d - lin.b)
-                denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
-                rho = (lin.error - yi) / denom
-                accept, conv = sync.read(torch.stack([rho >= 0.0, _is_converged(delta, cfg)]))
-                if accept:
-                    lam = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-                    x_new = xi
-                else:
-                    lam = nu * lam
-                    nu = 2.0 * nu
-                # the reference returns true on acceptance and on a
-                # rejected step that is already below the convergence test
-                if accept or conv:
-                    ok = True
-                    break
+                ok, conv = True, sync.read(flags)
+            converged = ok and conv
+            failed = not ok
+            iters += 1
+        if lin is None:
+            dev = x0.device
+            hessian = torch.eye(6, dtype=torch.float32, device=dev)
+            err = torch.zeros((), dtype=torch.float32, device=dev)
+            n_corr = torch.zeros((), dtype=torch.int32, device=dev)
         else:
-            # step_gn (lsq_registration_impl.hpp:142-158)
-            steps += 1
-            d = _solve6(lin.h, lin.b)
-            delta = se3.se3_exp(d)
-            x_new = _reorthonormalize(delta @ x)
-            ok, conv = True, sync.read(_is_converged(delta, cfg))
-        converged = ok and conv
-        failed = not ok
-        if ok:
-            x = x_new
-        iters += 1
-        h_fin, err_fin, nc_fin = lin.h, lin.error, lin.n_corr
+            hessian, err, n_corr = map(run.result, (lin.h, lin.error, lin.n_corr))
+        transform = run.result(run.st.x)
     stage = sync.site()
     sync.count(f"align_iters.{stage}", iters)
     sync.count(f"lm_steps.{stage}", steps)
+    if on_card:  # counted at 0 too: its presence tells a graph-capable program
+        sync.count("gicp_graph.eager_iters", 0 if graphed else iters)
     return GicpResult(
-        transform=x,
-        hessian=h_fin,
+        transform=transform,
+        hessian=hessian,
         iterations=iters,
         converged=converged,
         lm_failed=failed,
-        final_error=err_fin,
-        num_correspondences=nc_fin,
+        final_error=err,
+        num_correspondences=n_corr,
     )
 
 

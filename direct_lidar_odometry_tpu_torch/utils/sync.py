@@ -40,7 +40,11 @@ Spans and counters in the program, and what reads them (the benchmark's
 - waits: ``host_waits_per_frame``, ``host_wait_ms_per_frame``;
 - ``frames`` (steps run), ``frames_prepared``, ``align_iters.<stage>`` and
   ``lm_steps.<stage>`` (``registration/gicp.align``, under the innermost
-  span), ``feeder_scans`` (``io/native.ScanFeeder``), ``host_reads``.
+  span), ``feeder_scans`` (``io/native.ScanFeeder``), ``host_reads``;
+- ``gicp_graph.captures``, ``gicp_graph.replays`` (iteration and LM retry
+  graphs replayed) and ``gicp_graph.eager_iters`` (GICP iterations on a
+  CUDA device issued operation by operation; ``registration/gicp.align``):
+  ``gicp_graph_share``.
 """
 
 from __future__ import annotations
@@ -209,6 +213,30 @@ def upload(data, device, dtype=None) -> torch.Tensor:
         return _copy(data, device, dtype)
     with Span("wait.copy", "copy"):
         return _copy(data, device, dtype)
+
+
+_constants: dict[tuple, torch.Tensor] = {}
+
+
+def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """The vector ``values`` on ``device``, built there by fills (no copy
+    from the host, so no wait) once per (values, device, dtype) and shared:
+    callers must not modify it in place. On a CUDA device it has to be
+    built outside a graph capture, whose fills would only be recorded."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (values, device, dtype)
+    t = _constants.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"constant {values} first built inside a CUDA graph capture")
+        t = torch.zeros(len(values), dtype=dtype, device=device)
+        for i, v in enumerate(values):
+            if v:
+                t[i].fill_(v)
+        _constants[key] = t
+    return t
 
 
 def index(x: torch.Tensor, rows):

@@ -652,6 +652,187 @@ def test_knn_normals_lanes_on_card_equal_single_calls(dev, kind):
         assert torch.equal(got.normals[b], one.normals) and torch.equal(got.valid[b], one.valid)
 
 
+def _recorded_aligns(backend):
+    """The first ``gicp.align`` call of each GICP stage (coarse S2S, S2S,
+    S2M) of a short drive on the card, its inputs cloned, and the S2M call
+    again with the rescue's wide gate: (stage, source, target, guess,
+    stage config) each."""
+    import dataclasses
+
+    from direct_lidar_odometry_tpu_torch.config import DloConfig, ShapeConfig
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    cfg = DloConfig(nn_backend=backend, shapes=ShapeConfig(
+        n_raw=16384, n_scan=4096, n_keyframe=2048, max_keyframes=16, max_submap_kf=4,
+        n_submap_flat=8192, hull_directions=16))
+    rng = np.random.default_rng(0)
+    world = synthetic.make_urban_world(rng, n_frames=4, speed=1.0, n_dynamic=0)
+    beams = synthetic.BeamModel(n_beams=32, n_azimuth=512)
+    calls = {}
+    align = gicp.align
+
+    def record(src, target, guess, stage_cfg, backend, cap=16):
+        stage = sync.site()
+        if stage not in calls:
+            calls[stage] = (gicp.GicpSource(*map(gicp._clone, src)),
+                            gicp.GicpTarget(*map(gicp._clone, target)), guess.clone(), stage_cfg)
+        return align(src, target, guess, stage_cfg, backend, cap)
+
+    gicp.align = record
+    try:
+        runner = OdometryRunner(cfg, device="cuda")
+        for t in range(4):
+            scan = synthetic.render_raycast(world, t, rng, max_points=16384, beams=beams)
+            runner.process_scan(scan, float(world.stamps[t]), sync=True)
+    finally:
+        gicp.align = align
+    assert set(calls) >= {"step.s2s_coarse", "step.s2s", "step.s2m"}, set(calls)
+    src, target, guess, s2m = calls["step.s2m"]
+    wide = dataclasses.replace(s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance)
+    calls["step.rescue"] = (src, target, guess, wide)
+    return calls
+
+
+def _launch_counts():
+    return (cuda_nn.launches["cuda"], cuda_nn.mxu_launches["cuda"], cuda_gicp.launches["cuda"])
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_mxu", "pallas_fused"])
+def test_gicp_graph_equals_eager_on_recorded_frames(dev, backend):
+    """Each GICP stage's align, replayed from its captured graphs, gives
+    the eager path's result bit for bit (a first call, which captures, and
+    a second, which only replays); a replay counts the kernel launches the
+    eager path makes, and one replay per LM step. The capture's one eager
+    run before it launches the stage's kernel once more."""
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    fields = ("transform", "hessian", "final_error", "num_correspondences")
+    for stage, (src, target, guess, cfg) in _recorded_aligns(backend).items():
+        graphed = gicp._graphed
+        gicp._graphed = lambda *args: None
+        try:
+            before = _launch_counts()
+            want = gicp.align(src, target, guess, cfg, backend)
+            torch.cuda.synchronize()
+            eager_launches = [b - a for a, b in zip(before, _launch_counts())]
+        finally:
+            gicp._graphed = graphed
+        assert sum(eager_launches) == want.iterations > 0, stage
+        warm = [int(n > 0) for n in eager_launches]
+        gicp._GRAPHS.clear()
+        for call in ("capture", "replay"):
+            sync.reset()
+            before = _launch_counts()
+            with sync.span(stage):
+                got = gicp.align(src, target, guess, cfg, backend)
+            torch.cuda.synchronize()
+            for name in fields:
+                assert torch.equal(getattr(got, name), getattr(want, name)), (stage, call, name)
+            assert (got.iterations, got.converged, got.lm_failed) == (
+                want.iterations, want.converged, want.lm_failed), (stage, call)
+            launched = [b - a for a, b in zip(before, _launch_counts())]
+            if call == "capture":
+                launched = [n - w for n, w in zip(launched, warm)]
+            assert launched == eager_launches, (stage, call)
+            assert sync.counts["gicp_graph.replays"] == sync.counts[f"lm_steps.{stage}"], stage
+            assert sync.counts["gicp_graph.eager_iters"] == 0
+            assert sync.counts["gicp_graph.captures"] == (2 if call == "capture" else 0), stage
+
+
+def test_gicp_graph_capture_beside_a_copying_thread(dev):
+    """Captures made while another thread copies scans from pageable host
+    memory to the card and waits for them (the offline benchmark's chunk
+    worker, when a stage's key is first met inside the window): the
+    captures succeed and replay the eager bits."""
+    import threading
+
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    calls = _recorded_aligns("pallas")
+    stop = threading.Event()
+    copied = []
+
+    def worker():
+        host = torch.randn(16384, 3)
+        while not stop.is_set():
+            copied.append(sync.upload(host, dev).sum())
+            torch.cuda.current_stream(dev).synchronize()
+
+    want = {}
+    graphed = gicp._graphed
+    gicp._graphed = lambda *args: None
+    try:
+        for stage, (src, target, guess, cfg) in calls.items():
+            want[stage] = gicp.align(src, target, guess, cfg, "pallas")
+    finally:
+        gicp._graphed = graphed
+    gicp._GRAPHS.clear()
+    sync.reset()
+    thread = threading.Thread(target=worker)
+    thread.start()
+    try:
+        got = {stage: gicp.align(src, target, guess, cfg, "pallas")
+               for stage, (src, target, guess, cfg) in calls.items()}
+    finally:
+        stop.set()
+        thread.join()
+    torch.cuda.synchronize()
+    assert sync.counts["gicp_graph.captures"] == 2 * len(calls) and len(copied) > 0
+    for stage, res in got.items():
+        for name in ("transform", "hessian", "final_error", "num_correspondences"):
+            assert torch.equal(getattr(res, name), getattr(want[stage], name)), (stage, name)
+
+
+def test_gicp_graph_results_do_not_alias(dev):
+    """Two aligns of one key: the second leaves the first's result intact,
+    and none of the results shares memory with the graphs."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+
+    src, target, guess, cfg = _recorded_aligns("pallas")["step.s2m"]
+    first = gicp.align(src, target, guess, cfg, "pallas")
+    kept = [t.clone() for t in (first.transform, first.hessian, first.final_error,
+                                first.num_correspondences)]
+    nudge = se3.se3_exp(torch.tensor([0.0, 0.0, 0.05, 0.2, 0.0, 0.0], device=dev))
+    second = gicp.align(src, target, nudge @ guess, cfg, "pallas")
+    torch.cuda.synchronize()
+    assert not torch.equal(second.transform, first.transform)
+    for a, b in zip(kept, (first.transform, first.hessian, first.final_error,
+                           first.num_correspondences)):
+        assert torch.equal(a, b)
+    graphs = [g for k, g in gicp._GRAPHS.items() if k[0] == "pallas"]
+    owned = {t.data_ptr() for g in graphs for t in (*g.lin, g.flags, *g.st)}
+    for res in (first, second):
+        for t in (res.transform, res.hessian, res.final_error, res.num_correspondences):
+            assert t.data_ptr() not in owned
+
+
+def test_device_constants_on_card_need_no_copy(dev):
+    """The helpers' constants on the card: the values of the host copies
+    they replace, built without a synchronizing call."""
+    import warnings
+
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    values = (0.0, -1.0, 0.5, 1.0)
+    for dtype in (torch.float32, torch.float64):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the debug mode's own notice
+            torch.cuda.set_sync_debug_mode("error")  # a synchronizing call raises
+            try:
+                got = sync.constant(values, dev, dtype)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        assert torch.equal(got.cpu(), torch.tensor(values, dtype=dtype))
+        assert sync.constant(values, got.device, dtype) is got
+
+
 def test_every_sync_of_a_chunk_is_a_counted_wait(dev):
     """Over one chunk of ``process_chunk`` (its scans prepared inside it,
     host preprocessing, the wire encoding, the IMU prior), every call that
@@ -707,3 +888,5 @@ def test_every_sync_of_a_chunk_is_a_counted_wait(dev):
     assert len(flagged) == counted["read"] + counted["copy"] + counted["index"], counted
     assert counted["read"] == sync.counts["host_reads"] > 0 and counted["copy"] > 0
     assert counted["event"] == 8  # the hull positions' copy, waited for each frame
+    # the GICP iterations replayed from their graphs, none issued eagerly
+    assert sync.counts["gicp_graph.replays"] > 0 and sync.counts["gicp_graph.eager_iters"] == 0
