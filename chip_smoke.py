@@ -51,7 +51,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    steady frames of a fresh runner: device operations (kernels, copies,
    sets) per frame, their summed and their merged (overlap counted once)
    device time, by kind and by name, against the wall time of the same
-   profiled window;
+   profiled window, and the launches of K1-K4 by their ``__global__``
+   names: the backend's search kernel (K2, K3, K4) at least once per GICP
+   outer iteration of the window (``align_iters.*``), which replays it
+   from a CUDA graph;
 5. call the port's CLI (``cli.main``) in-process on the same 30 frames at
    full widths, once on backend "pallas_fused" (K3) and once on
    "pallas_mxu" (K4), with ``--eval --map-ply --checkpoint``, counters reset
@@ -201,6 +204,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``--set nn_backend=pallas_fused --no-loop --frames 45`` (K3 launched,
    no plain version).
 
+A launch counter counts the launches its wrapper makes. On the card the
+GICP iterations of the pruned backends replay captured CUDA graphs, whose
+launches no wrapper counts: a phase that resets the counters also drops
+the captured graphs, so each of its keys launches its kernel once eagerly
+before it captures, and phase 4 counts the replayed launches by name in
+a device trace.
+
 It imports torch, the port, ``tools_torch``, ``graft_entry_torch`` and
 ``bench_torch``, nothing of JAX. Each phase's seconds are printed.
 """
@@ -284,7 +294,18 @@ def _load_devprof():
 _devprof = _load_devprof()
 device_events = _devprof.device_events
 profile_summary = _devprof.profile_summary
-reset_counters = _devprof.reset_launches
+
+# the search kernel of each pruned backend, as tools_torch/devprof.py names it
+SEARCH_KERNEL = {"pallas": "K2", "pallas_fused": "K3", "pallas_mxu": "K4"}
+
+
+def reset_counters() -> None:
+    """Zero every launch counter and drop the captured GICP graphs (see the
+    module docstring)."""
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+
+    _devprof.reset_launches()
+    gicp.release_graphs()
 
 
 def require(ok: bool, what: str) -> None:
@@ -823,7 +844,6 @@ def drive(cfg, world, scans, device="cuda", label="main path"):
         s2s_iterations=[s.result.s2s_iterations for s in runner.stats[1:]],
         s2m_iterations=[s.result.s2m_iterations for s in runner.stats[1:]],
         launches=launches,
-        k2_launches_per_frame=launches["nn1_pruned"]["cuda"] / (len(est) - 1),
         k1_launches_per_frame=launches["cov_pruned"]["cuda"] / (len(est) - 1),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
@@ -847,11 +867,17 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
     operations that take the most time, and the wall time of the same
     profiled window, so the idle share compares two times taken under one
     protocol (the profiler slows the host, so the share is higher than
-    without it). Reports null where the profiler sees no device activity;
-    it does not gate the run."""
+    without it), and the launches of K1-K4 by name beside the window's GICP
+    outer iterations a frame. Reports null where the profiler sees no
+    device activity; on a pruned backend the search kernel must run at
+    least once per outer iteration, replays included."""
     from torch.profiler import ProfilerActivity, profile
 
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
+    def outer_iterations():
+        return sum(n for name, n in sync.counts.items() if name.startswith("align_iters."))
 
     runner = OdometryRunner(cfg, device=device)
     first = 1 + WARMUP
@@ -859,15 +885,23 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
         runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
     torch.cuda.synchronize()
     frames = range(first, first + PROFILED_FRAMES)
+    iters = outer_iterations()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in frames:
             runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = dict(backend=cfg.nn_backend, frames=len(frames))
+    out = dict(backend=cfg.nn_backend, frames=len(frames),
+               align_iters_per_frame=(outer_iterations() - iters) / len(frames))
     out.update(profile_summary(prof, len(frames), wall_ms))
     print(f"# device ops {cfg.nn_backend} {json.dumps(out)}")
+    kernel = SEARCH_KERNEL.get(cfg.nn_backend)
+    if kernel is not None and out["device_ops_per_frame"] is not None:
+        traced = out["kernel_launches_per_frame"][kernel]
+        require(traced >= out["align_iters_per_frame"] > 0,
+                f"{cfg.nn_backend}: {traced} {kernel} launches a frame in the trace, "
+                f"{out['align_iters_per_frame']} GICP outer iterations")
     return out
 
 
@@ -2175,8 +2209,9 @@ def stage_tools_phase(card, phase4_profile):
     linearizations, and the full prefix equal to ``odom_frame`` bit for
     bit (pose, keyframe decision, count). Printed without a gate: the
     ablation's deltas against its ``odom_frame`` row, and each stage's
-    device operations beside phase 4's frame. Returns the K1-K3 launches
-    of the rows' counted calls."""
+    device operations beside phase 4's frame. The kernels' launches are
+    those of each row's traced call, by name. Returns the K1-K3 launches
+    of the rows' traced calls."""
     from tools_torch import ablate_step, micro_align, micro_linearize, profile_stages
 
     t0 = time.perf_counter()
@@ -2193,8 +2228,8 @@ def stage_tools_phase(card, phase4_profile):
     def by_name(rows, key="stage"):
         return {r[key]: r for r in rows}
 
-    def launched(row, kernel):
-        return row["launches"][kernel]["cuda"]
+    def launched(row, kernel):  # in the call's device trace: replayed graphs included
+        return row["traced_launches"][kernel]
 
     for tool, rows in tools.items():
         for row in rows:
@@ -2423,10 +2458,21 @@ def main() -> int:
     lane_key = {"nn1_pruned": "K2", "cov_pruned": "K1", "fused_linearize": "K3",
                 "nn1_pruned_mxu": "K4"}
 
+    traced_key = {"nn1_pruned": ("pallas", "K2"), "cov_pruned": ("pallas", "K1"),
+                  "fused_linearize": ("pallas_fused", "K3"), "nn1_pruned_mxu": ("pallas_mxu", "K4")}
+
+    def traced_per_frame(name):
+        """Phase 4's launches a frame by name, replayed graphs included."""
+        if name not in traced_key:
+            return None
+        backend, kernel = traced_key[name]
+        return (profiles[backend].get("kernel_launches_per_frame") or {}).get(kernel)
+
     def entry(name, src, replaces, path, launches, cases):
         out = dict(name=name, route="cuda", source=f"direct_lidar_odometry_tpu_torch/csrc/{src}",
                    replaces=f"direct_lidar_odometry_tpu/ops/{replaces}", path=path,
                    launches=launches[name]["cuda"],
+                   traced_launches_per_frame=traced_per_frame(name),
                    max_abs_err=max(c["max_abs_err"] for c in cases),
                    ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
                    bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],

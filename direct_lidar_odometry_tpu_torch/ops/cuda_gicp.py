@@ -40,7 +40,10 @@ Q, 3] sources against [B, T, 3] targets in one launch, ``hb`` [B, Q // 32,
 entry's own ``torch.sum`` (``utils/lanes.per_lane``), so a lane's H and b
 equal those of its inputs launched alone, bit for bit.
 
-``launches`` counts the wrapper's calls per route (``"cuda"``/``"plain"``).
+``launches`` counts the wrapper's launches per route (``"cuda"``: the
+kernel, ``"plain"``: its plain version). A call made while its stream
+captures a CUDA graph launches nothing and is not counted: the graph
+launches the kernel at each replay, which a device trace sees.
 """
 
 from __future__ import annotations
@@ -246,7 +249,8 @@ def fused_linearize_pruned(
             torch.cuda.current_stream(p_t.device).cuda_stream,
         )
     cuda_build.check(err, "fused_linearize")
-    launches["cuda"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches["cuda"] += 1
     return hb, pay, idx
 
 

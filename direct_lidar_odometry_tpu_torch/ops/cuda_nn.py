@@ -38,7 +38,9 @@ lane.
 Each kernel has its own launch counter, counted per route: ``"cuda"``
 where the wrapper launched the kernel, ``"plain"`` where it ran the plain
 version: ``launches`` (K2), ``mxu_launches`` (K4), ``exhaustive_launches``
-(K5). A launch counts once whatever its number of lanes.
+(K5). A launch counts once whatever its number of lanes. A call made while
+its stream captures a CUDA graph launches nothing and is not counted: the
+graph launches the kernel at each replay, which a device trace sees.
 """
 
 from __future__ import annotations
@@ -354,7 +356,8 @@ def _pruned_search(
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
     cuda_build.check(err, name)
-    counter["cuda"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        counter["cuda"] += 1
     return idx, d2
 
 

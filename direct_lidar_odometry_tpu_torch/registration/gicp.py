@@ -372,83 +372,63 @@ def _iteration(st: _LmState, src: GicpSource, target: GicpTarget, cfg: GicpStage
     return lin, _is_converged(delta, cfg)
 
 
-class _EagerIterations:
-    """:func:`align`'s iterations issued operation by operation."""
-
-    def __init__(self, src, target, x0, cfg, backend, cap):
-        self.args = (src, target, cfg, backend, cap)
-        self.st = _lm_state(x0)
-        self.lin = None
-
-    def iteration(self) -> tuple[_Linearization, torch.Tensor]:
-        self.lin, flags = _iteration(self.st, *self.args)
-        return self.lin, flags
-
-    def retry(self) -> torch.Tensor:
-        src, _, cfg, _, _ = self.args
-        return _lm_trial(self.st, src, self.lin, cfg)
-
-    def result(self, t: torch.Tensor) -> torch.Tensor:
-        return t
-
-
 def _clone(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.clone()
 
 
-class _GraphedIterations:
-    """One key's captured iterations (:func:`_graphed`): static copies of
-    the source, the target and the state, the ``iteration`` graph
-    (:func:`_iteration`) and under LM the ``retry`` graph (one more
-    :func:`_lm_trial` on the iteration's linearization), each captured in a
-    private memory pool on a side stream and replayed on the caller's
-    stream. A replay adds the K2/K4/K3 launches that its capture recorded
-    to those kernels' counters."""
+class _Iterations:
+    """:func:`align`'s iterations on one optimizer state: issued operation by
+    operation, or, once :meth:`captured` has captured them, replayed from
+    two CUDA graphs: ``graph`` (:func:`_iteration`) and under LM
+    ``retry_graph`` (one more :func:`_lm_trial` on the iteration's
+    linearization). A replay reads the instance's static copies of the
+    source, the target and the state (:meth:`load`) and leaves its
+    linearization and flags in the tensors the capture returned."""
 
-    _KERNEL_COUNTERS = ((cuda_nn.launches, "cuda"), (cuda_nn.mxu_launches, "cuda"),
-                        (cuda_gicp.launches, "cuda"))
+    def __init__(self, src, target, x0, cfg, backend, cap):
+        self.src, self.target, self.cfg, self.backend, self.cap = src, target, cfg, backend, cap
+        self.st = _lm_state(x0)
+        self.lin = self.flags = self.retry_flags = None
+        self.graph = self.retry_graph = None
 
-    def __init__(self, src, target, x0, cfg, backend):
-        self.src = GicpSource(*map(_clone, src))
-        self.target = GicpTarget(*map(_clone, target))
-        self.st = _lm_state(x0.clone())
-        side = torch.cuda.Stream(x0.device)
+    def iteration(self) -> tuple[_Linearization, torch.Tensor]:
+        if self.graph is None:
+            self.lin, self.flags = _iteration(self.st, self.src, self.target, self.cfg,
+                                              self.backend, self.cap)
+        else:
+            self.graph.replay()
+            sync.count("gicp_graph.replays")
+        return self.lin, self.flags
+
+    def retry(self) -> torch.Tensor:
+        if self.retry_graph is None:
+            return _lm_trial(self.st, self.src, self.lin, self.cfg)
+        self.retry_graph.replay()
+        sync.count("gicp_graph.replays")
+        return self.retry_flags
+
+    @classmethod
+    def captured(cls, src, target, x0, cfg, backend, cap) -> _Iterations:
+        """Static copies of the inputs, and both graphs captured on the
+        device's side stream (:func:`_side_stream`), each in a private
+        memory pool, after one eager run there that builds what a capture
+        cannot (the kernel library, the cuBLAS and cuSOLVER handles and
+        workspaces, the constants)."""
+        run = cls(GicpSource(*map(_clone, src)), GicpTarget(*map(_clone, target)), x0.clone(),
+                  cfg, backend, cap)
+        side = _side_stream(x0.device)
         side.wait_stream(torch.cuda.current_stream(x0.device))
         with torch.cuda.stream(side):
-            # the first run builds what a capture cannot (the kernel
-            # library, cuBLAS and cuSOLVER handles, the constants)
-            self.lin, _ = _iteration(self.st, self.src, self.target, cfg, backend, 16)
+            run.iteration()
             if cfg.optimizer == "lm":
-                _lm_trial(self.st, self.src, self.lin, cfg)
-        self.graph, (self.lin, self.flags), self.launched = self._capture(
-            side, lambda: _iteration(self.st, self.src, self.target, cfg, backend, 16))
-        self.retry_graph = None
+                run.retry()
+        run.graph, (run.lin, run.flags) = _capture(side, run.iteration)
         if cfg.optimizer == "lm":
-            self.retry_graph, self.retry_flags, self.retry_launched = self._capture(
-                side, lambda: _lm_trial(self.st, self.src, self.lin, cfg))
+            run.retry_graph, run.retry_flags = _capture(side, run.retry)
         torch.cuda.current_stream(x0.device).wait_stream(side)
+        return run
 
-    def _capture(self, side, body):
-        """(the graph, what ``body`` returned, the kernel launches it
-        recorded): ``torch.cuda.graph``'s capture without its device-wide
-        synchronize and cache flush, which would stall the caller's stream
-        and the chunk worker's copies; capture errors of this thread only."""
-        before = [c[k] for c, k in self._KERNEL_COUNTERS]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = body()
-            finally:
-                graph.capture_end()
-        launched = []
-        for (c, k), n in zip(self._KERNEL_COUNTERS, before):
-            launched.append(c[k] - n)
-            c[k] = n  # a capture records the launches; a replay makes them
-        sync.count("gicp_graph.captures")
-        return graph, out, launched
-
-    def load(self, src: GicpSource, target: GicpTarget, x0: torch.Tensor) -> _GraphedIterations:
+    def load(self, src: GicpSource, target: GicpTarget, x0: torch.Tensor) -> _Iterations:
         for mine, theirs in zip((*self.src, *self.target), (*src, *target)):
             if mine is not None:
                 mine.copy_(theirs)
@@ -456,45 +436,62 @@ class _GraphedIterations:
         self.st.fresh.fill_(True)
         return self
 
-    def _replay(self, graph, launched) -> None:
-        graph.replay()
-        sync.count("gicp_graph.replays")
-        for (c, k), n in zip(self._KERNEL_COUNTERS, launched):
-            c[k] += n
 
-    def iteration(self) -> tuple[_Linearization, torch.Tensor]:
-        self._replay(self.graph, self.launched)
-        return self.lin, self.flags
-
-    def retry(self) -> torch.Tensor:
-        self._replay(self.retry_graph, self.retry_launched)
-        return self.retry_flags
-
-    def result(self, t: torch.Tensor) -> torch.Tensor:
-        return t.clone()  # the next load or replay overwrites graph memory
-
-
-_GRAPHS: dict[tuple, _GraphedIterations] = {}
+def _capture(side, body):
+    """(the graph, what ``body`` returned): ``torch.cuda.graph``'s capture
+    without its device-wide synchronize and cache flush, which would stall
+    the caller's stream and the chunk worker's copies; capture errors of
+    this thread only."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = body()
+        finally:
+            graph.capture_end()
+    sync.count("gicp_graph.captures")
+    return graph, out
 
 
-def _graphed(src: GicpSource, target: GicpTarget, x0: torch.Tensor, cfg: GicpStageConfig,
-             backend: str) -> _GraphedIterations | None:
-    """The captured iterations of this call's key, captured on its first
-    use, or None off the graphed path, which is a pruned-kernel backend on
-    a CUDA device (the tensor-op backends ``"brute"`` and ``"hashgrid"``
-    stay the plain route, as on the CPU). The key holds everything the captured work depends on: the backend,
-    the shapes, dtype and device of the clouds, and the stage's gate,
-    convergence epsilons, initial lambda factor and optimizer."""
+_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_GRAPHS: dict[tuple, _Iterations] = {}
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The one stream a device's captures run on: cuBLAS keeps a workspace
+    per stream, which a new stream for each key would add to the memory
+    held for the process's life."""
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+def release_graphs() -> None:
+    """Drop every captured graph with its static buffers and memory pool;
+    the next :func:`align` of each key captures again."""
+    _GRAPHS.clear()
+
+
+def _iterations(src: GicpSource, target: GicpTarget, x0: torch.Tensor, cfg: GicpStageConfig,
+                backend: str, cap: int) -> tuple[_Iterations, bool]:
+    """The iterations of this call and whether they replay graphs: on a
+    CUDA device with a pruned-kernel backend the captured iterations of
+    the call's key, captured on its first use (the tensor-op backends
+    ``"brute"`` and ``"hashgrid"`` stay the plain route, as on the CPU).
+    The key holds everything the captured work depends on: the backend,
+    the shapes, dtype and device of the clouds, the stage's gate,
+    convergence epsilons, initial lambda factor and optimizer, and
+    ``cap``."""
     if x0.device.type != "cuda" or not is_pallas(backend):
-        return None
+        return _Iterations(src, target, x0, cfg, backend, cap), False
     key = (backend, x0.device, src.points.dtype, tuple(src.points.shape),
            tuple(target.points.shape), tuple(target.chunk_lo.shape),
            cfg.max_correspondence_distance, cfg.rotation_epsilon, cfg.transformation_epsilon,
-           cfg.lm_init_lambda_factor, cfg.optimizer)
-    graphs = _GRAPHS.get(key)
-    if graphs is None:
-        graphs = _GRAPHS[key] = _GraphedIterations(src, target, x0, cfg, backend)
-    return graphs.load(src, target, x0)
+           cfg.lm_init_lambda_factor, cfg.optimizer, cap)
+    run = _GRAPHS.get(key)
+    if run is None:
+        run = _GRAPHS[key] = _Iterations.captured(src, target, x0, cfg, backend, cap)
+    return run.load(src, target, x0), True
 
 
 def align(
@@ -515,7 +512,8 @@ def align(
     (see config.resolve_backend); ``cap``: the hash grid's candidates a
     cell (``shapes.cell_cap_1nn``). On a CUDA device a pruned-kernel
     backend replays each iteration and each LM retry as one captured CUDA
-    graph (:func:`_graphed`); elsewhere the same operations run one by one.
+    graph (:func:`_iterations`); elsewhere the same operations run one by
+    one. The result shares no memory with the graphs.
     Counts its outer iterations and its LM (or GN) steps under the caller's
     innermost span (``align_iters.<span>``, ``lm_steps.<span>``), and on a
     CUDA device its graph replays and its eagerly run iterations
@@ -524,10 +522,7 @@ def align(
     x0 = _reorthonormalize(guess.to(torch.float32))
     on_card = x0.device.type == "cuda"
     with torch.cuda.device(x0.device) if on_card else contextlib.nullcontext():
-        run = _graphed(src, target, x0, cfg, backend)
-        graphed = run is not None
-        if not graphed:
-            run = _EagerIterations(src, target, x0, cfg, backend, cap)
+        run, graphed = _iterations(src, target, x0, cfg, backend, cap)
         lin = None
         iters, steps, converged, failed = 0, 0, False, False
         while iters < cfg.max_iterations and not converged and not failed:
@@ -555,8 +550,9 @@ def align(
             err = torch.zeros((), dtype=torch.float32, device=dev)
             n_corr = torch.zeros((), dtype=torch.int32, device=dev)
         else:
-            hessian, err, n_corr = map(run.result, (lin.h, lin.error, lin.n_corr))
-        transform = run.result(run.st.x)
+            # clones: the next load or replay overwrites graph memory
+            hessian, err, n_corr = lin.h.clone(), lin.error.clone(), lin.n_corr.clone()
+        transform = run.st.x.clone()
     stage = sync.site()
     sync.count(f"align_iters.{stage}", iters)
     sync.count(f"lm_steps.{stage}", steps)

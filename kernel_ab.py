@@ -62,20 +62,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tools_torch.devprof import KERNEL_NAMES
+
 HERE = Path(__file__).resolve().parent
 RUNS = 20
 MODES = ("kernels", "drive")
-# each kernel's launches by name in either tree (K2 and K4 are one template
-# since K4's redesign, separate kernels before it; K5 and K6 are a pre-pass,
-# a scan and a merge since theirs, one kernel before it)
-KERNEL_NAMES = {
-    "K1": r"cov_pruned_kernel",
-    "K2": r"nn1_pruned_kernel(<false>)?(\(|$)",
-    "K3": r"fused_linearize_kernel",
-    "K4": r"nn1_pruned_mxu_kernel|nn1_pruned_kernel<true>",
-    "K5": r"nn1_exhaustive_kernel|nn1_merge_kernel|compact_targets_kernel",
-    "K6": r"cov_exhaustive_kernel|cov_merge_kernel|compact_targets_kernel",
-}
 
 
 def load_module(name: str, path: Path):
@@ -202,14 +193,14 @@ def run_drive(harness, tree_smoke, tree: str, outputs: dict) -> None:
     cfg = tree_smoke.slice_config()
     world, scans = tree_smoke.make_world()
     main_path, _ = tree_smoke.drive(cfg, world, scans)
-    steps = main_path["frames"] - 1
-    launches = main_path["launches"]
     prof = {b: harness.device_ops_per_frame(harness.slice_config(b), world, scans)
             for b in harness.BACKENDS}
+    # launches by name in the profiled frames: a replayed graph's are not
+    # counted by the wrappers
+    traced = prof["pallas"].get("kernel_launches_per_frame") or {}
     line = dict(tree=tree, case="drive", ate_m=main_path["ate_m"],
                 median_ms_per_frame=main_path["median_ms_per_frame"],
-                k2_per_frame=launches["nn1_pruned"]["cuda"] / steps,
-                k1_per_frame=launches["cov_pruned"]["cuda"] / steps, profiled=prof)
+                k2_per_frame=traced.get("K2"), k1_per_frame=traced.get("K1"), profiled=prof)
     print(json.dumps(line), flush=True)
     outputs["drive"] = line
 

@@ -11,6 +11,8 @@ that runs only the port need not have.)
 ``chip_smoke.py`` runs the same comparisons at the full per-frame shapes.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -697,50 +699,108 @@ def _recorded_aligns(backend):
 
 
 def _launch_counts():
+    """K2, K4 and K3 launches as their wrappers count them."""
     return (cuda_nn.launches["cuda"], cuda_nn.mxu_launches["cuda"], cuda_gicp.launches["cuda"])
+
+
+def _traced(fn):
+    """``fn()`` and the K2, K4 and K3 launches of its device trace, by their
+    ``__global__`` names (a replayed graph's included)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools_torch import devprof
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [name for name, _, _ in devprof.device_events(prof)]
+    return out, [sum(1 for n in names if re.search(devprof.KERNEL_NAMES[k], n))
+                 for k in ("K2", "K4", "K3")]
+
+
+@contextlib.contextmanager
+def _eager_aligns():
+    """``gicp.align`` issuing its operations one by one on the card."""
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+
+    iterations = gicp._iterations
+    gicp._iterations = lambda *args: (gicp._Iterations(*args), False)
+    try:
+        yield
+    finally:
+        gicp._iterations = iterations
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_mxu", "pallas_fused"])
 def test_gicp_graph_equals_eager_on_recorded_frames(dev, backend):
     """Each GICP stage's align, replayed from its captured graphs, gives
     the eager path's result bit for bit (a first call, which captures, and
-    a second, which only replays); a replay counts the kernel launches the
-    eager path makes, and one replay per LM step. The capture's one eager
-    run before it launches the stage's kernel once more."""
+    a second, which only replays), with one replay per LM step. The
+    device trace of the replaying call holds the eager path's K2/K4/K3
+    launches, which the trace of the eager call shows the wrappers count;
+    the wrappers count only the capture's one eager run, which launches
+    the stage's kernel once."""
     from direct_lidar_odometry_tpu_torch.registration import gicp
     from direct_lidar_odometry_tpu_torch.utils import sync
 
     fields = ("transform", "hessian", "final_error", "num_correspondences")
     for stage, (src, target, guess, cfg) in _recorded_aligns(backend).items():
-        graphed = gicp._graphed
-        gicp._graphed = lambda *args: None
-        try:
+        with _eager_aligns():
             before = _launch_counts()
-            want = gicp.align(src, target, guess, cfg, backend)
-            torch.cuda.synchronize()
+            want, traced = _traced(lambda: gicp.align(src, target, guess, cfg, backend))
             eager_launches = [b - a for a, b in zip(before, _launch_counts())]
-        finally:
-            gicp._graphed = graphed
+        assert traced == eager_launches, stage
         assert sum(eager_launches) == want.iterations > 0, stage
         warm = [int(n > 0) for n in eager_launches]
-        gicp._GRAPHS.clear()
+        gicp.release_graphs()
         for call in ("capture", "replay"):
             sync.reset()
             before = _launch_counts()
             with sync.span(stage):
-                got = gicp.align(src, target, guess, cfg, backend)
-            torch.cuda.synchronize()
+                if call == "capture":
+                    got = gicp.align(src, target, guess, cfg, backend)
+                    torch.cuda.synchronize()
+                else:
+                    got, traced = _traced(lambda: gicp.align(src, target, guess, cfg, backend))
+                    assert traced == eager_launches, stage
             for name in fields:
                 assert torch.equal(getattr(got, name), getattr(want, name)), (stage, call, name)
             assert (got.iterations, got.converged, got.lm_failed) == (
                 want.iterations, want.converged, want.lm_failed), (stage, call)
-            launched = [b - a for a, b in zip(before, _launch_counts())]
-            if call == "capture":
-                launched = [n - w for n, w in zip(launched, warm)]
-            assert launched == eager_launches, (stage, call)
+            counted = [b - a for a, b in zip(before, _launch_counts())]
+            assert counted == (warm if call == "capture" else [0, 0, 0]), (stage, call)
             assert sync.counts["gicp_graph.replays"] == sync.counts[f"lm_steps.{stage}"], stage
             assert sync.counts["gicp_graph.eager_iters"] == 0
             assert sync.counts["gicp_graph.captures"] == (2 if call == "capture" else 0), stage
+
+
+def test_gicp_graph_keys_share_one_side_stream(dev):
+    """A key captured after others holds no more device memory than its
+    own static buffers and outputs: every capture runs on one side stream,
+    so no key adds a cuBLAS workspace of its own (32 MiB on an H100)."""
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+
+    calls = _recorded_aligns("pallas")
+    gicp.release_graphs()
+    for stage in ("step.s2s_coarse", "step.s2s", "step.s2m"):
+        src, target, guess, cfg = calls[stage]
+        gicp.align(src, target, guess, cfg, "pallas")
+    torch.cuda.synchronize()
+    keys = set(gicp._GRAPHS)
+    before = torch.cuda.memory_allocated(dev)
+    src, target, guess, cfg = calls["step.rescue"]
+    gicp.align(src, target, guess, cfg, "pallas")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - before
+    (new,) = set(gicp._GRAPHS) - keys
+    run = gicp._GRAPHS[new]
+    owned = [t for t in (*run.src, *run.target, *run.st, *run.lin, run.flags, run.retry_flags)
+             if t is not None]
+    own_bytes = sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in owned)
+    assert len(gicp._SIDE_STREAMS) == 1
+    assert grown <= own_bytes + 2**20, (grown, own_bytes)
 
 
 def test_gicp_graph_capture_beside_a_copying_thread(dev):
@@ -763,15 +823,10 @@ def test_gicp_graph_capture_beside_a_copying_thread(dev):
             copied.append(sync.upload(host, dev).sum())
             torch.cuda.current_stream(dev).synchronize()
 
-    want = {}
-    graphed = gicp._graphed
-    gicp._graphed = lambda *args: None
-    try:
-        for stage, (src, target, guess, cfg) in calls.items():
-            want[stage] = gicp.align(src, target, guess, cfg, "pallas")
-    finally:
-        gicp._graphed = graphed
-    gicp._GRAPHS.clear()
+    with _eager_aligns():
+        want = {stage: gicp.align(src, target, guess, cfg, "pallas")
+                for stage, (src, target, guess, cfg) in calls.items()}
+    gicp.release_graphs()
     sync.reset()
     thread = threading.Thread(target=worker)
     thread.start()

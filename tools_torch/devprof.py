@@ -1,12 +1,14 @@
 """Device profiling helpers shared by ``chip_smoke.py`` and the stage tools.
 
 - :func:`device_events` and :func:`profile_summary` read a finished
-  ``torch.profiler`` window: the device operations (kernels, copies, sets)
-  and their merged busy time, per frame or per step.
+  ``torch.profiler`` window: the device operations (kernels, copies, sets),
+  their merged busy time and the launches of kernels K1-K4 by their
+  ``__global__`` names, per frame or per step.
 - :func:`stage_profile` measures one call of a stage of the per-frame step:
   its synced host ms, its device operations and busy ms, its host reads
-  (``utils/sync.py``) and the launches of kernels K1-K6, each per route
-  (``"cuda"``: the kernel; ``"plain"``: its plain PyTorch version).
+  (``utils/sync.py``), the launches of kernels K1-K6 that the wrappers
+  counted, each per route (``"cuda"``: the kernel; ``"plain"``: its plain
+  PyTorch version), and those of K1-K4 in its device trace.
 
 Torch, numpy and the port only; the port's modules are imported where they
 are used.
@@ -14,6 +16,7 @@ are used.
 
 from __future__ import annotations
 
+import re
 import time
 
 import numpy as np
@@ -38,6 +41,22 @@ KERNEL_COUNTERS = {
     "K5": ("cuda_nn", "exhaustive_launches"),
     "K6": ("cuda_cov", "exhaustive_launches"),
 }
+
+
+# each kernel's __global__ functions by name (K2 and K4 are one template
+# since K4's redesign, separate kernels before it; K5 and K6 are a pre-pass,
+# a scan and a merge since theirs, one kernel before it)
+KERNEL_NAMES = {
+    "K1": r"cov_pruned_kernel",
+    "K2": r"nn1_pruned_kernel(<false>)?(\(|$)",
+    "K3": r"fused_linearize_kernel",
+    "K4": r"nn1_pruned_mxu_kernel|nn1_pruned_kernel<true>",
+    "K5": r"nn1_exhaustive_kernel|nn1_merge_kernel|compact_targets_kernel",
+    "K6": r"cov_exhaustive_kernel|cov_merge_kernel|compact_targets_kernel",
+}
+# the kernels whose launches a window counts: one function each, which a
+# replayed CUDA graph launches too (the wrappers count only their own)
+TRACED_KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def device_events(prof) -> list:
@@ -69,8 +88,9 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
     ``n`` units and ``wall_ms``: the device operations (kernels, copies,
     sets), their summed device time, the time the device was busy (their
     intervals merged, overlaps counted once), each by kind, the eight
-    operations that take the most time, and the idle share of the window;
-    null where the profiler saw no device activity."""
+    operations that take the most time, the idle share of the window, and
+    the launches of K1-K4 by name (``kernel_launches_per_<unit>``); null
+    where the profiler saw no device activity."""
     ops = device_events(prof)
     out = {f"device_ops_per_{unit}": None, f"profiled_wall_ms_per_{unit}": wall_ms / n}
     if ops:
@@ -93,6 +113,9 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
             f"device_busy_ms_per_{unit}": busy["all"],
             f"event_ms_per_{unit}_by_kind": summed, f"busy_ms_per_{unit}_by_kind": busy,
             "idle_share_profiled": 1.0 - busy["all"] / (wall_ms / n),
+            f"kernel_launches_per_{unit}": {
+                k: sum(1 for name, _, _ in ops if re.search(KERNEL_NAMES[k], name)) / n
+                for k in TRACED_KERNELS},
             f"top_ms_per_{unit}": [[name[:80], ms] for name, ms in top],
             # the float64 prefix scan of the voxel filter (ops/voxel.py)
             f"prefix_scan_ms_per_{unit}": sum(ms for name, ms in by_name.items()
@@ -140,7 +163,10 @@ def stage_profile(fn, n: int = 8, device="cuda") -> dict:
       device synchronized after it), median of ``n`` calls;
     - ``host_reads``: device-to-host reads of one call (``utils/sync.py``,
       reset before it);
-    - ``launches``: K1-K6 launches of that call, per route;
+    - ``launches``: K1-K6 launches of that call, per route, as the wrappers
+      count them (a replayed CUDA graph's are not);
+    - ``traced_launches``: K1-K4 launches of one call in its device trace,
+      by name (replayed graphs included); null on the CPU;
     - ``device_ops``, ``busy_ms``: the device operations of one call under
       torch.profiler and the time they kept the device busy (intervals
       merged), the call bracketed by device spins (a window that lost the
@@ -160,19 +186,22 @@ def stage_profile(fn, n: int = 8, device="cuda") -> dict:
     reset_launches()
     synced_ms(fn, device)
     out = dict(ms=None, device_ops=None, busy_ms=None, host_reads=sync.counts["host_reads"],
-               launches=read_launches(), pad_records_lost=None)
+               launches=read_launches(), traced_launches=None, pad_records_lost=None)
     out["ms"] = float(np.median([synced_ms(fn, device) for _ in range(n)]))
     if device.type == "cuda":
         ops, out["pad_records_lost"] = _bracketed_ops(fn, device)
         out["device_ops"] = len(ops)
-        out["busy_ms"] = merged_ns(ops) / 1e6
+        out["busy_ms"] = merged_ns([(a, b) for _, a, b in ops]) / 1e6
+        out["traced_launches"] = {k: sum(1 for name, _, _ in ops
+                                         if re.search(KERNEL_NAMES[k], name))
+                                  for k in TRACED_KERNELS}
     return out
 
 
 def _bracketed_ops(fn, device) -> tuple[list, int]:
-    """(start, end) of the device operations of one call of ``fn``, traced
-    between two runs of spins, and the spin records the trace lost; a
-    trace that lost the spins at either end is taken again."""
+    """(name, start, end) of the device operations of one call of ``fn``,
+    traced between two runs of spins, and the spin records the trace lost;
+    a trace that lost the spins at either end is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     def pad():
@@ -187,20 +216,23 @@ def _bracketed_ops(fn, device) -> tuple[list, int]:
             synchronize(device)
         events = sorted(device_events(prof), key=lambda e: e[1])
         if events and SPIN_KERNEL in events[0][0] and SPIN_KERNEL in events[-1][0]:
-            ops = [(a, b) for name, a, b in events if SPIN_KERNEL not in name]
+            ops = [e for e in events if SPIN_KERNEL not in e[0]]
             return ops, 2 * PAD_KERNELS - (len(events) - len(ops))
     raise RuntimeError(f"stage_profile: {PROFILE_ATTEMPTS} profiler traces lost the spins "
                        "around the call, so they may have lost its device records")
 
 
-PROFILE_HEADER = f"{'ms':>9s} {'dev ops':>7s} {'busy ms':>8s} {'reads':>5s}  K1-K6 launches (+plain)"
+PROFILE_HEADER = (f"{'ms':>9s} {'dev ops':>7s} {'busy ms':>8s} {'reads':>5s}  "
+                  "K1-K6 launches (+plain; K1-K4 traced on a card)")
 
 
 def format_profile(p: dict) -> str:
     """One line of :func:`stage_profile`'s columns; a plain-version launch
-    shows as "+n" after the kernel's count."""
+    shows as "+n" after the kernel's count, which on a card is the traced
+    one for K1-K4."""
     ops = "-" if p["device_ops"] is None else str(p["device_ops"])
     busy = "-" if p["busy_ms"] is None else f"{p['busy_ms']:.3f}"
-    kernels = " ".join(f"{k}:{c['cuda']}" + (f"+{c['plain']}" if c["plain"] else "")
+    traced = p.get("traced_launches") or {}
+    kernels = " ".join(f"{k}:{traced.get(k, c['cuda'])}" + (f"+{c['plain']}" if c["plain"] else "")
                        for k, c in p["launches"].items())
     return f"{p['ms']:9.3f} {ops:>7s} {busy:>8s} {p['host_reads']:5d}  {kernels}"
