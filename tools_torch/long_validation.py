@@ -46,7 +46,6 @@ from direct_lidar_odometry_tpu_torch.io import evaluation, synthetic  # noqa: E4
 from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.state import clone_state, state_to_numpy  # noqa: E402
 from direct_lidar_odometry_tpu_torch.parallel.sharded import require_device  # noqa: E402
-from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
 from direct_lidar_odometry_tpu_torch.utils import sync  # noqa: E402
 
 MEM_FRAME = 50  # frame index at which the peak device memory is first read
@@ -151,28 +150,20 @@ def reads_by_module(counter: collections.Counter):
         sync.read = read
 
 
-@contextlib.contextmanager
-def gicp_steps(counter: collections.Counter):
-    """Count GICP's outer iterations ("linearizations", one ``_linearize``
-    each) and its LM (or GN) steps ("lm_steps", one ``_solve6`` each)
-    while the block runs: ``align`` reads the host once a step, so the
-    step count is what its reads must equal."""
-    wrapped = {"linearizations": "_linearize", "lm_steps": "_solve6"}
-    originals = {key: getattr(gicp, name) for key, name in wrapped.items()}
-
-    def counting(key, fn):
-        def counted(*args, **kwargs):
-            counter[key] += 1
-            return fn(*args, **kwargs)
-        return counted
-
-    for key, name in wrapped.items():
-        setattr(gicp, name, counting(key, originals[key]))
-    try:
-        yield counter
-    finally:
-        for key, name in wrapped.items():
-            setattr(gicp, name, originals[key])
+def gicp_steps() -> collections.Counter:
+    """GICP's outer iterations ("linearizations") and LM (or GN) steps
+    ("lm_steps") so far, from ``gicp.align``'s own counters
+    (``align_iters.<stage>``, ``lm_steps.<stage>``; ``utils/sync.py``),
+    counted by its host loop, where a replayed CUDA graph makes no call
+    to count: ``align`` reads the host once a step, so the step count is
+    what its reads must equal."""
+    steps = collections.Counter()
+    for name, n in sync.counts.items():
+        if name.startswith("align_iters."):
+            steps["linearizations"] += n
+        elif name.startswith("lm_steps."):
+            steps["lm_steps"] += n
+    return steps
 
 
 def drive(cfg: DloConfig, world, scans, device="cuda", t0: float | None = None):
@@ -231,16 +222,15 @@ def drive(cfg: DloConfig, world, scans, device="cuda", t0: float | None = None):
         torch.cuda.reset_peak_memory_stats(dev)
     frame_ms, reads, by_module, steps, results = [], [], [], [], []
     mem = {}
-    with reads_by_module(collections.Counter()) as sites, \
-            gicp_steps(collections.Counter()) as lm:
+    with reads_by_module(collections.Counter()) as sites:
         for t, scan in enumerate(scans):
-            before, sites_before, lm_before = sync.counts["host_reads"], sites.copy(), lm.copy()
+            before, sites_before, lm_before = sync.counts["host_reads"], sites.copy(), gicp_steps()
             tf = time.perf_counter()
             results.append(runner.process_scan(scan, float(world.stamps[t]), sync=True))
             frame_ms.append((time.perf_counter() - tf) * 1e3)
             reads.append(sync.counts["host_reads"] - before)
             by_module.append(dict(sites - sites_before))
-            steps.append(lm - lm_before)
+            steps.append(gicp_steps() - lm_before)
             if t == MEM_FRAME and cuda:
                 mem["frame"] = (torch.cuda.max_memory_allocated(dev),
                                 torch.cuda.memory_allocated(dev))
