@@ -226,19 +226,36 @@ def refine_and_reanchor(
 ) -> tuple[OdomState, RefineInfo]:
     """One loop-closure round: detect -> register -> refine -> re-anchor.
     When no loop edge passes the GICP gate the state is returned as it was
-    (chain edges alone have zero residual at the current estimates)."""
+    (chain edges alone have zero residual at the current estimates).
+
+    Each stage is a span of ``utils/sync.py``: ``refine.candidates``,
+    ``refine.register`` (the loop edges' aligns count their iterations as
+    ``align_iters.refine.register``; the read of the candidate and accepted
+    counts is its wait), ``refine.solve`` and ``refine.reanchor`` (host
+    time: the re-anchoring's device work drains in the caller's next
+    read). Counters: ``refine.rounds``, ``refine.edges_registered``,
+    ``refine.edges_accepted`` and ``refine.live_keyframes`` (the ring's
+    count at each solve)."""
     pg = cfg.posegraph
-    edges, cand_mask = loop_candidates(
-        state.keyframes, pg.loop_radius, pg.min_index_gap, pg.max_loops,
-        min_seq_gap=pg.min_seq_gap,
-    )
-    loops = register_loop_edges(state.keyframes, edges, cand_mask, cfg, backend)
-    n_candidates, n_accepted = sync.read(
-        torch.stack([cand_mask.sum(), (loops.weight > 0).sum()]))
+    store = state.keyframes
+    sync.count("refine.rounds")
+    with sync.span("refine.candidates"):
+        edges, cand_mask = loop_candidates(
+            store, pg.loop_radius, pg.min_index_gap, pg.max_loops, min_seq_gap=pg.min_seq_gap,
+        )
+    with sync.span("refine.register"):
+        loops = register_loop_edges(store, edges, cand_mask, cfg, backend)
+        n_candidates, n_accepted, n_live = sync.read(torch.stack(
+            [cand_mask.sum(), (loops.weight > 0).sum(), store.count.long()]))
+    sync.count("refine.edges_registered", n_candidates)
+    sync.count("refine.edges_accepted", n_accepted)
     err = max_corr = torch.zeros((), dtype=torch.float32, device=edges.device)
     if n_accepted > 0:
-        graph = build_refinement_graph(state.keyframes, loops, pg.chain_weight)
-        new_poses, err = posegraph.refine(graph, iterations=pg.iterations)
-        state, max_corr = reanchor(state, new_poses)
+        sync.count("refine.live_keyframes", n_live)
+        with sync.span("refine.solve"):
+            graph = build_refinement_graph(store, loops, pg.chain_weight)
+            new_poses, err = posegraph.refine(graph, iterations=pg.iterations)
+        with sync.span("refine.reanchor"):
+            state, max_corr = reanchor(state, new_poses)
     return state, RefineInfo(n_candidates=n_candidates, n_accepted=n_accepted,
                              graph_error=err, max_correction=max_corr)

@@ -184,14 +184,23 @@ class OdometryRunner:
             self.stamps.append(stamp)
             self._finish(sync)
         self.stats.append(FrameStats(stamp, span.ms, result))
-        if result is not None and cfg.posegraph.use:
-            # the trigger reads the keyframe count on the host, so it runs
-            # only every check_every frames
-            self._frames_since_refine_check += 1
-            if self._frames_since_refine_check >= cfg.posegraph.check_every:
-                self._frames_since_refine_check = 0
-                self.maybe_refine()
+        if result is not None:
+            self._check_refine(1)
         return result
+
+    def _check_refine(self, frames: int) -> None:
+        """Count ``frames`` stepped toward the loop-closure trigger and run
+        :meth:`maybe_refine` once ``posegraph.check_every`` have passed
+        since the last check (the trigger reads the keyframe count on the
+        host, so it runs only that often); what is left over counts
+        toward the next check."""
+        pg = self.cfg.posegraph
+        if not pg.use:
+            return
+        self._frames_since_refine_check += frames
+        if self._frames_since_refine_check >= pg.check_every:
+            self._frames_since_refine_check %= pg.check_every
+            self.maybe_refine()
 
     def _init_frame(self, raw: cl.PointCloud, points: np.ndarray) -> None:
         cfg = self.cfg
@@ -238,8 +247,9 @@ class OdometryRunner:
         copy), so the poses equal those of ``process_scan(..., sync=True)``
         frame for frame. Returns the results stacked (:func:`stack_results`).
         ``prepared``: the same scans through :meth:`prepare_chunk`. No
-        loop-closure round is triggered inside a chunk, as in the JAX
-        package."""
+        loop-closure round runs inside a chunk, as in the JAX package: the
+        chunk's frames count toward the trigger together, and a round that
+        is due runs after the chunk's last frame."""
         if self.state is None:
             raise RuntimeError("process_chunk needs an initialized state: call process_scan first")
         k = len(scans)
@@ -258,6 +268,7 @@ class OdometryRunner:
             self.poses.append(res.pose)
             self.stamps.append(stamp)
             self.stats.append(FrameStats(stamp, wall, res))
+        self._check_refine(k)
         return stacked
 
     def _wire_capacity(self) -> int:

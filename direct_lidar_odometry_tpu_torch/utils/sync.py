@@ -32,7 +32,15 @@ Spans and counters in the program, and what reads them (the benchmark's
 
 - ``runner.scan``, ``runner.chunk``, ``runner.prepare``, ``runner.refine``
   (``odometry/runner.py``): ``FrameStats.wall_ms``, the refine log's
-  ``wall_ms``, ``runner_ms_per_frame``, ``prep_cpu_ms_per_frame``;
+  ``wall_ms``, ``runner_ms_per_frame``, ``prep_cpu_ms_per_frame``,
+  ``refine_ms_per_frame``;
+- ``refine.candidates``, ``refine.register``, ``refine.solve``,
+  ``refine.reanchor`` and the counters ``refine.rounds``,
+  ``refine.edges_registered``, ``refine.edges_accepted``,
+  ``refine.live_keyframes`` (``odometry/loopclosure.refine_and_reanchor``):
+  ``refine_rounds_per_frame``, ``loop_edges_per_round``,
+  ``loop_register_ms_per_round``, ``posegraph_ms_per_round``,
+  ``reanchor_ms_per_round``;
 - ``step`` and ``step.preprocess``, ``step.normals``, ``step.s2s_coarse``,
   ``step.s2s``, ``step.submap``, ``step.s2m``, ``step.rescue``,
   ``step.keyframe`` (``odometry/pipeline.py``): ``dispatch_ms_per_frame``,

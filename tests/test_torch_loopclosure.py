@@ -27,6 +27,8 @@ from direct_lidar_odometry_tpu_torch.odometry import loopclosure as tlc, state a
 from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
 from direct_lidar_odometry_tpu_torch.ops import cuda_nn, morton
 from direct_lidar_odometry_tpu_torch.parallel import posegraph as tpg
+from direct_lidar_odometry_tpu_torch.registration import gicp as tgicp
+from direct_lidar_odometry_tpu_torch.utils import sync
 from tests.test_loopclosure import _loop_world, _rand_pose, _residual_np, _retract, _rodrigues
 from tests.test_pipeline import SCAN_RANGE, tiny_cfg
 
@@ -305,9 +307,24 @@ def loop_round():
         f: jnp.asarray(before[f]) for f in jstate.OdomState._fields
         if f not in ("keyframes", "submap_grid")})
     jnew, jinfo = jlc.refine_and_reanchor(jst, cfg, "pallas")
-    info = runner.maybe_refine(force=True)
+    # the round's tracing: the aggregates before and after it, and the
+    # outer iterations of every align it ran
+    align, iters = tgicp.align, []
+
+    def counted(*args, **kw):
+        res = align(*args, **kw)
+        iters.append(int(res.iterations))
+        return res
+
+    before_totals = sync.totals()
+    tgicp.align = counted
+    try:
+        info = runner.maybe_refine(force=True)
+    finally:
+        tgicp.align = align
     return dict(runner=runner, world=world, rng=rng, before=before, info=info,
-                after=tstate.state_to_numpy(runner.state), jnew=jnew, jinfo=jinfo)
+                after=tstate.state_to_numpy(runner.state), jnew=jnew, jinfo=jinfo,
+                totals=(before_totals, sync.totals()), align_iters=iters)
 
 
 def test_refine_round_from_carried_state_matches_reference(loop_round):
@@ -334,6 +351,45 @@ def test_refine_round_from_carried_state_matches_reference(loop_round):
     kc = int(after["keyframes.count"])
     moved = np.abs(after["keyframes.positions"] - loop_round["before"]["keyframes.positions"])
     assert moved[:kc].max() > 0 and moved[kc:].max() == 0
+
+
+def test_refine_round_records_its_spans_and_counters(loop_round):
+    """A forced round records the four stage spans inside ``runner.refine``,
+    one round, its registered and accepted edges and the ring's count at
+    the solve, and its aligns' outer iterations as
+    ``align_iters.refine.register``."""
+    (t0, t1), info = loop_round["totals"], loop_round["info"]
+
+    def spans(name):
+        return t1.spans.get(name, (0, 0, 0))[0] - t0.spans.get(name, (0, 0, 0))[0]
+
+    def counted(name):
+        return t1.counts.get(name, 0) - t0.counts.get(name, 0)
+
+    assert spans("runner.refine") == 1
+    for stage in ("refine.candidates", "refine.register", "refine.solve", "refine.reanchor"):
+        assert spans(stage) == 1, stage
+    assert counted("refine.rounds") == 1
+    assert counted("refine.edges_registered") == info["n_candidates"] == len(loop_round["align_iters"])
+    assert counted("refine.edges_accepted") == info["n_accepted"] >= 1
+    assert counted("refine.live_keyframes") == info["n_keyframes"]
+    assert counted("align_iters.refine.register") == sum(loop_round["align_iters"]) > 0
+
+
+def test_chunks_count_toward_the_trigger_together():
+    """``process_chunk``'s frames count toward ``check_every`` as a block
+    and the remainder carries over: chunks of 8 against a check every 10
+    frames check after the 2nd, 3rd, 4th and 5th chunk (one round per 10
+    frames on average); without ``posegraph.use`` nothing is checked."""
+    cfg = tcfg.config_from_dict({"posegraph": {"use": True, "check_every": 10}})
+    for use, want in ((True, [2, 3, 4, 5, 7]), (False, [])):
+        runner = OdometryRunner(cfg.replace(posegraph=dataclasses.replace(cfg.posegraph, use=use)),
+                                device="cpu")
+        checked = []
+        runner.maybe_refine = lambda force=False: checked.append(chunk)
+        for chunk in range(1, 8):
+            runner._check_refine(8)
+        assert checked == want
 
 
 def test_tracking_continues_after_refine(loop_round):
