@@ -18,6 +18,12 @@ that the reference works out the round again:
    = X_i Z_ij X_j^-1``; ``pose_gap_m`` is the RMS gap along the target
    normals, ``submap_off_share`` the share of the program's cloud i (its
    ring slot, re-anchored by every earlier round) off the reference's;
+   each candidate the program rejected is measured again by the loop
+   stage as the program runs it (:meth:`RoundJudge.loop_fit`: float64
+   GICP of cloud j onto cloud i from identity, the loop gate and
+   iteration cap); where the reference clearly accepts it (converged, at
+   least :data:`CORR_MARGIN` x ``min_loop_corr`` correspondences), the
+   program dropped a good edge;
 3. :func:`refine_ring`: the chain of consecutive keyframes (trajectory
    order, zero residual at the pre-round poses, weighted by spawn health)
    plus the program's accepted loop edges, solved by dense float64
@@ -26,8 +32,9 @@ that the reference works out the round again:
    (:class:`RoundDrive`) is judged against the keyframe clouds at the
    reference's refined ring, not at the program's.
 
-What a fault reads: a candidate set that is not the reference's makes the
-round's judged frame lost (no finite pose); an accepted edge whose gap
+What a fault reads: a candidate set that is not the reference's, or a
+candidate the program rejected that the reference clearly accepts, makes
+the round's judged frame lost (no finite pose); an accepted edge whose gap
 exceeds :data:`EDGE_GAP_M` is a wrong constraint and counts as lost, as a
 frame that tracked nothing does (its gap alone would move the median of
 the judged gaps only if most edges were wrong); a skipped or wrong solve,
@@ -44,7 +51,12 @@ Departures from the program's arithmetic, all deliberate:
   program scales the float32 system by its diagonal); after the
   configuration's iterations both stand at the same minimum;
 - the candidate sets are compared as sets, and a pair within 1e-4 m of the
-  radius or of the ``max_loops``-th distance may fall either way.
+  radius or of the ``max_loops``-th distance may fall either way;
+- a rejected candidate is measured by Gauss-Newton (the program: LM, as
+  configured) and called converged when one more step moves less than
+  :data:`CONVERGED_STEP` (the program: its stage's epsilons); one within
+  :data:`CORR_MARGIN` of ``min_loop_corr``, or not converged, may fall
+  either way.
 
 The graph takes the program's ``Z_ij``, not the reference's own GICP
 result: the program stops an align once a step is under its epsilons, a
@@ -67,6 +79,8 @@ DAMPING = 1e-4      # the program's Levenberg floor on H's diagonal (posegraph.r
 PIN_WEIGHT = 1e6    # its gauge prior on slot 0's step
 TIE_M = 1e-4        # a candidate this close to a cut may fall either way
 EDGE_GAP_M = 0.01   # an accepted loop edge judged this far off is a wrong constraint
+CORR_MARGIN = 1.25  # a rejected candidate this many times min_loop_corr is clearly good
+CONVERGED_STEP = 1e-3  # rad and m: a fit whose next step is below this converged
 
 
 @dataclass
@@ -284,10 +298,12 @@ class RoundJudge:
         self.x = ring_poses(rnd.positions, rnd.quats)
         self.seq = rnd.seq.cpu().tolist()
         self.agree = candidates_agree(rnd, pg)
-        on = (rnd.mask.cpu() & (rnd.weight.cpu() > 0)).tolist()
-        self.accepted = [e for e, m in enumerate(on) if m]
+        mask, good = rnd.mask.cpu(), rnd.weight.cpu() > 0
+        self.accepted = torch.nonzero(mask & good).flatten().tolist()
+        self.rejected = torch.nonzero(mask & ~good).flatten().tolist()
         self._refined: dict[bool, torch.Tensor] = {}
         self._gap: dict[int, float] = {}
+        self._fit: dict[int, tuple[int, float]] = {}
 
     def slot_cloud(self, slot: int, arith: geo.Arith) -> geo.Cloud:
         return ring_cloud(self.base, self.seq[slot], self.x[slot], arith)
@@ -313,6 +329,33 @@ class RoundJudge:
             self._gap[e] = judge.judge_frame(EdgeDrive(self, e, probe=True),
                                              self.edge_capture(e))["pose_gap_m"]
         return self._gap[e]
+
+    def loop_fit(self, e: int) -> tuple[int, float]:
+        """The loop stage on candidate ``e`` in float64: the reference's
+        cloud j registered onto its cloud i from identity, with the loop
+        gate and at most ``loop_max_iterations`` Gauss-Newton steps.
+        Returns (correspondences at the result, the largest entry of one
+        more step's rotation vector and translation)."""
+        if e not in self._fit:
+            i, j = self.pair(e)
+            src, tgt = self.slot_cloud(j, geo.FLOAT32), self.slot_cloud(i, geo.FLOAT32)
+            gate = self.pg["loop_corr_distance"]
+            eye = torch.eye(4, dtype=torch.float64, device=self.base.device)
+            x, _, _ = geo.gicp_solve(src, tgt, eye, gate, geo.JUDGE,
+                                     max_iter=self.pg["loop_max_iterations"])
+            nxt, ok, _ = geo.gicp_solve(src, tgt, x, gate, geo.JUDGE, max_iter=1)
+            step = (nxt @ _inv(x)).cpu()
+            move = torch.cat([so3_log(step[:3, :3]), step[:3, 3]]).abs().max()
+            self._fit[e] = int(ok.sum()), float(move)
+        return self._fit[e]
+
+    def missed(self) -> list[int]:
+        """The candidates the program rejected that the reference's loop
+        stage clearly accepts: converged, and at least :data:`CORR_MARGIN`
+        x ``min_loop_corr`` correspondences."""
+        least = CORR_MARGIN * self.pg["min_loop_corr"]
+        return [e for e in self.rejected
+                if self.loop_fit(e)[0] >= least and self.loop_fit(e)[1] < CONVERGED_STEP]
 
     def refined(self, control: bool) -> torch.Tensor:
         """[count, 4, 4] the refined ring from the program's measured edges."""
@@ -360,8 +403,9 @@ class EdgeDrive(judge.Drive):
 class RoundDrive(judge.Drive):
     """The frame after a round, judged against the keyframe clouds at the
     reference's refined ring (slots spawned since keep the program's ring
-    pose). A round whose candidates differ from the reference's gives the
-    frame no finite pose: it counts as lost."""
+    pose). A round whose candidates differ from the reference's, or that
+    rejected a candidate the reference clearly accepts, gives the frame no
+    finite pose: it counts as lost."""
 
     def __init__(self, rj: RoundJudge):
         b = rj.base
@@ -369,7 +413,8 @@ class RoundDrive(judge.Drive):
         self._scans, self.rj = b._scans, rj
 
     def _pose(self, frame: int) -> torch.Tensor:
-        return self.rj.base.poses(frame) if self.rj.agree else _NAN
+        sound = self.rj.agree and not self.rj.missed()
+        return self.rj.base.poses(frame) if sound else _NAN
 
     def submap(self, cap: judge.Capture, arith: geo.Arith) -> geo.Cloud:
         rj = self.rj

@@ -1,7 +1,8 @@
 """The loop-closure cell on the CPU: a dry run of ``os1_loop_offline`` at
 tiny sizes (two short petals, rounds with candidates from the second
 petal on), faults planted in the program's round that the check must
-catch, the port's round against ``reference/loop.py`` on a seeded small
+catch (a skipped solve, a moved edge, a skipped re-anchoring, every edge
+rejected), the port's round against ``reference/loop.py`` on a seeded small
 ring, and the route's roads clear of boxes."""
 
 import numpy as np
@@ -87,13 +88,26 @@ def _move_edge(monkeypatch):
     monkeypatch.setattr(loopclosure, "register_loop_edges", moved)
 
 
+def _reject_edges(monkeypatch):
+    """Every loop edge rejected: the round skips its solve and leaves the
+    ring as it was."""
+    real = loopclosure.register_loop_edges
+
+    def rejected(*args):
+        loops = real(*args)
+        return loops._replace(weight=torch.zeros_like(loops.weight))
+
+    monkeypatch.setattr(loopclosure, "register_loop_edges", rejected)
+
+
 def _skip_reanchor(monkeypatch):
     monkeypatch.setattr(loopclosure, "reanchor",
                         lambda state, new_poses: (state, torch.zeros((), dtype=torch.float32)))
 
 
-@pytest.mark.parametrize("fault", [_skip_solve, _move_edge, _skip_reanchor],
-                         ids=["solve_skipped", "edge_moved_5cm", "reanchor_skipped"])
+@pytest.mark.parametrize("fault", [_skip_solve, _move_edge, _skip_reanchor, _reject_edges],
+                         ids=["solve_skipped", "edge_moved_5cm", "reanchor_skipped",
+                              "edges_rejected"])
 def test_fault_in_the_round_is_not_correct(fault, monkeypatch):
     fault(monkeypatch)
     res, rounds = dry_run(monkeypatch)
