@@ -28,8 +28,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    over the 32768-point scan at r = 0.75, each also with every target
    valid (32768 points of a raw scan) and with the valid targets at random
    slots, with the pairs evaluated (the kernels' device counts) beside the
-   pairs the valid targets need. Every kernel runs twice and must repeat
-   bit for bit. Prints agreement, median times
+   pairs the valid targets need; K7 (one GICP LM trial; flags equal, the
+   estimate, lambda, nu and the trial's error within K7_X_TOL / K7_REL of
+   the plain version's) on the first trial of an align at the S2M, S2S and
+   coarse S2S shapes (32768, 32768 and 32768 / ``s2s_coarse_stride``
+   source points), with its re-orthonormalization entry beside it. Every
+   kernel runs twice and must repeat bit for bit. Prints agreement, median times
    (CUDA events, 20 runs), the pairs each kernel evaluates on these inputs
    (its own candidate counts, or every valid target) and its bound (FLOP
    over the H100's fp32 peak or bytes over its memory rate, the larger),
@@ -51,10 +55,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    steady frames of a fresh runner: device operations (kernels, copies,
    sets) per frame, their summed and their merged (overlap counted once)
    device time, by kind and by name, against the wall time of the same
-   profiled window, and the launches of K1-K4 by their ``__global__``
-   names: the backend's search kernel (K2, K3, K4) at least once per GICP
-   outer iteration of the window (``align_iters.*``), which replays it
-   from a CUDA graph;
+   profiled window, and the launches of K1-K4 and K7 by their
+   ``__global__`` names: the backend's search kernel (K2, K3, K4) at least
+   once per GICP outer iteration of the window (``align_iters.*``) and K7
+   at least once per LM step (``lm_steps.*``), which replay them from
+   CUDA graphs;
 5. call the port's CLI (``cli.main``) in-process on the same 30 frames at
    full widths, once on backend "pallas_fused" (K3) and once on
    "pallas_mxu" (K4), with ``--eval --map-ply --checkpoint``, counters reset
@@ -102,8 +107,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    a frame in both, K1 and K2 launched, no plain version;
 12. the ``brute`` and ``hashgrid`` backends on the card: 10 of the phase-4
    frames through ``OdometryRunner(device="cuda")`` on each, with the ATE
-   gate, S2M correspondences > 100 and every hand kernel and every plain
-   version launched 0 times; prints the wall ms a frame (synced), the host
+   gate, S2M correspondences > 100, K7's two entries launched (align's LM
+   trials and guesses on a card) and every other hand kernel and every
+   plain version launched 0 times; prints the wall ms a frame (synced), the host
    reads a frame and the peak device memory, with the card's name and
    power limit; then six steady frames of a fresh runner on each under
    torch.profiler (device operations, busy ms, idle share a frame);
@@ -111,7 +117,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    lanes over 30 frames through ``make_batched_fns`` on "pallas" at B = 4
    (counters reset just before): each lane's ATE gate, lane 0 within 1e-4 m
    of its own single-sequence ``odom_frame(hull_masks=None)`` drive on the
-   card with the same keyframe count, K1 and K2 launched and no plain
+   card (its LM trials in the batched step's tensor operations, not K7)
+   with the same keyframe count, K1 and K2 launched and no plain
    version, host reads a step, synced ms a step, peak memory; six steady
    steps profiled (device operations, busy ms, the float64 prefix scan's
    ms, idle share); B = 1 (lane 0) and B = 8 (the lanes twice) over 10
@@ -131,7 +138,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    lanes through ``make_batched_fns`` at B = 4, 10 frames on "hashgrid"
    and 5 on "brute" (counters reset just before): each lane's ATE gate and
    S2M correspondences > 100, lane 0 within 1e-4 m of its own
-   single-sequence drive on the same backend (bitwise reported), no hand
+   single-sequence drive on the same backend (LM trials as in phase 13;
+   bitwise reported), no hand
    kernel and no plain version launched, host reads a step (median and
    max) at most the single drive's + 2, synced ms a step, frames/s and peak
    memory; profiled steps (device operations, busy ms, idle share a step)
@@ -248,10 +256,15 @@ K1_ATOL, K1_RTOL = 1e-3, 1e-5
 K4_SLACK = 2e-3          # m^2: the expansion's cancellation error at map-scale coordinates
 BACKENDS = ("pallas", "pallas_fused", "pallas_mxu")
 K3_REL = 2e-4            # max|dH| <= K3_REL * max|H|, the same form for b and the error
+# K7 against its plain version: another order of the error's sum and
+# another fp32 LU of the damped system (see check_k7)
+K7_X_TOL = 1e-5          # max|dx| <= K7_X_TOL * (1 + max|d|) over the pose's entries
+K7_REL = 1e-5            # |d lambda|, |d nu| and |d error| relative to the plain version's
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PROFILED_FRAMES = 6
+K7_COUNTERS = ("lm_trial", "reorthonormalize")  # read_counters' names of K7's two entries
 BACKEND_FRAMES = 10     # phases 12 and 14: frames on "brute" and "hashgrid" (14: "brute" 5)
 BRUTE_BATCH_FRAMES = 5  # phase 14: "brute" at B = 4 is ~B times one lane's exhaustive search
 HOST_PREP_TOL = 1e-4    # m: host- vs device-prepared scan (JAX tests/test_native.py:76-100)
@@ -321,13 +334,14 @@ def slice_config(backend: str = "pallas"):
 
 def read_counters() -> dict:
     """Every kernel's launch counter, per route, by wrapper name."""
-    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_lm, cuda_nn
 
     return {
         "nn1_pruned": dict(cuda_nn.launches), "nn1_pruned_mxu": dict(cuda_nn.mxu_launches),
         "nn1_exhaustive": dict(cuda_nn.exhaustive_launches),
         "cov_pruned": dict(cuda_cov.launches), "cov_exhaustive": dict(cuda_cov.exhaustive_launches),
-        "fused_linearize": dict(cuda_gicp.launches),
+        "fused_linearize": dict(cuda_gicp.launches), "lm_trial": dict(cuda_lm.launches),
+        "reorthonormalize": dict(cuda_lm.reorth_launches),
     }
 
 
@@ -815,6 +829,89 @@ def check_k3(src, target, radius, label):
     return case
 
 
+def check_k7(src, target, stage, label):
+    """K7 (one LM trial) against its plain version at one GICP shape, on
+    the linearization at a pose 5 cm / 0.1 degree off (the first trial of
+    an align, lambda set as align sets it): the same flags, the estimate
+    within K7_X_TOL of the step's size, lambda, nu and the trial's error
+    within K7_REL, two launches equal bit for bit; the re-orthonormalized
+    estimate is the plain version's within K7_X_TOL."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+    from direct_lidar_odometry_tpu_torch.ops import cuda_lm
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+    from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
+
+    dev = src.points.device
+    x0 = se3.se3_exp(torch.tensor([0.002, -0.001, 0.002, 0.05, -0.04, 0.03], device=dev))
+    lin = gicp._linearize(x0, src, target, stage, "pallas")
+    lam0 = stage.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(lin.h)))
+    args = (lin.h, lin.b, lin.error, lin.mu_b, lin.n_b, lin.m0, lin.weight, src.points,
+            stage.rotation_epsilon, stage.transformation_epsilon, PLANE_EPS)
+    work = cuda_lm.workspace(dev)
+
+    def state():
+        return x0.clone(), lam0.clone(), torch.full((), 2.0, device=dev)
+
+    def kernel(st):
+        return cuda_lm.lm_trial(*st, *args, work)
+
+    sk, sk2, sp = state(), state(), state()
+    fk = kernel(sk)
+    yk = work[cuda_lm.ERROR_SLOT].clone()
+    fk2 = kernel(sk2)
+    fp = cuda_lm.lm_trial_plain(*sp, *args)
+    d = cuda_lm.solve6(lin.h + lam0 * torch.eye(6, device=dev), lin.b)
+    xi = cuda_lm.reorthonormalize_plain(se3.se3_exp(d) @ x0)
+    yp = cuda_lm.compute_error_plain(xi, src.points, lin.mu_b, lin.n_b, lin.m0, lin.weight,
+                                     PLANE_EPS)
+    moved = x0 @ se3.se3_exp(torch.tensor([0.3, -0.2, 0.1, 0.0, 0.0, 0.0], device=dev))
+    rk, rp = cuda_lm.reorthonormalize(moved), cuda_lm.reorthonormalize_plain(moved)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float(torch.abs(a - b) / torch.clamp(torch.abs(b), min=1e-30))
+
+    step = float(d.abs().max())
+    case = dict(
+        shape=label, points=int(src.points.shape[0]), weighted=int(lin.weight.sum()),
+        flags_kernel=fk.tolist(), flags_plain=fp.tolist(), step_max_abs=step,
+        max_x_err=float((sk[0] - sp[0]).abs().max()), lam_rel=rel(sk[1], sp[1]),
+        nu_rel=rel(sk[2], sp[2]), error_rel=rel(yk, yp),
+        reorth_err=float((rk - rp).abs().max()),
+        repeatable=all(bool(torch.equal(a, b)) for a, b in zip((*sk, fk), (*sk2, fk2))),
+    )
+    case["max_abs_err"] = case["max_x_err"]
+    # timed on one state that each call moves on: the work is the same
+    timed, timed_plain = state(), state()
+    case["ms"] = cuda_median_ms(lambda: kernel(timed))
+    case["plain_ms"] = cuda_median_ms(lambda: cuda_lm.lm_trial_plain(*timed_plain, *args))
+    case["reorth_ms"] = cuda_median_ms(lambda: cuda_lm.reorthonormalize(moved))
+    case["reorth_plain_ms"] = cuda_median_ms(lambda: cuda_lm.reorthonormalize_plain(moved))
+    case["library_ms"] = None
+    # each point's mu_b, n_b, m0 and source point (12 B each) and its weight
+    # read once; ~110 FLOP a point (the pose, the adjugate, e^T M e)
+    n = src.points.shape[0]
+    with_bound(case, 110.0 * n, 52 * n)
+    print(f"# K7 lm_trial {case}")
+    tol = K7_X_TOL * (1.0 + step)
+    require(case["flags_kernel"] == case["flags_plain"], f"K7 {label}: flags differ")
+    require(case["flags_plain"][0], f"K7 {label}: the plain version rejected the first step")
+    require(case["max_x_err"] <= tol, f"K7 {label}: x differs by {case['max_x_err']:.3e}")
+    for name in ("lam_rel", "nu_rel", "error_rel"):
+        require(case[name] <= K7_REL, f"K7 {label}: {name} {case[name]:.3e}")
+    require(case["reorth_err"] <= K7_X_TOL, f"K7 {label}: reorthonormalize differs")
+    require(case["repeatable"], f"K7 {label}: two launches differ")
+    return case
+
+
+def gicp_source_stride(src, stride: int):
+    """Every ``stride``-th point of a GICP source, as the coarse S2S stage
+    takes them."""
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+
+    return gicp.GicpSource(*(t[::stride].contiguous() for t in src))
+
+
 def drive(cfg, world, scans, device="cuda", label="main path"):
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
     from direct_lidar_odometry_tpu_torch.utils import sync
@@ -867,8 +964,8 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
     operations that take the most time, and the wall time of the same
     profiled window, so the idle share compares two times taken under one
     protocol (the profiler slows the host, so the share is higher than
-    without it), and the launches of K1-K4 by name beside the window's GICP
-    outer iterations a frame. Reports null where the profiler sees no
+    without it), and the launches of K1-K4 and K7 by name beside the
+    window's GICP outer iterations and LM steps a frame. Reports null where the profiler sees no
     device activity; on a pruned backend the search kernel must run at
     least once per outer iteration, replays included."""
     from torch.profiler import ProfilerActivity, profile
@@ -879,13 +976,16 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
     def outer_iterations():
         return sum(n for name, n in sync.counts.items() if name.startswith("align_iters."))
 
+    def lm_steps():
+        return sum(n for name, n in sync.counts.items() if name.startswith("lm_steps."))
+
     runner = OdometryRunner(cfg, device=device)
     first = 1 + WARMUP
     for t in range(first):
         runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
     torch.cuda.synchronize()
     frames = range(first, first + PROFILED_FRAMES)
-    iters = outer_iterations()
+    iters, steps = outer_iterations(), lm_steps()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in frames:
@@ -893,7 +993,8 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out = dict(backend=cfg.nn_backend, frames=len(frames),
-               align_iters_per_frame=(outer_iterations() - iters) / len(frames))
+               align_iters_per_frame=(outer_iterations() - iters) / len(frames),
+               lm_steps_per_frame=(lm_steps() - steps) / len(frames))
     out.update(profile_summary(prof, len(frames), wall_ms))
     print(f"# device ops {cfg.nn_backend} {json.dumps(out)}")
     kernel = SEARCH_KERNEL.get(cfg.nn_backend)
@@ -902,6 +1003,10 @@ def device_ops_per_frame(cfg, world, scans, device="cuda"):
         require(traced >= out["align_iters_per_frame"] > 0,
                 f"{cfg.nn_backend}: {traced} {kernel} launches a frame in the trace, "
                 f"{out['align_iters_per_frame']} GICP outer iterations")
+        trials = out["kernel_launches_per_frame"]["K7"]
+        require(trials >= out["lm_steps_per_frame"] > 0,
+                f"{cfg.nn_backend}: {trials} K7 launches a frame in the trace, "
+                f"{out['lm_steps_per_frame']} LM steps")
     return out
 
 
@@ -1388,7 +1493,8 @@ def intensity_cli_check(world, device="cuda", max_range=40.0, max_points=131072,
 
 def backend_check(backend, world, scans, card, device="cuda"):
     """Phase 12: the first BACKEND_FRAMES phase-4 frames on a tensor-op
-    backend; no hand kernel and no plain version may launch."""
+    backend; no hand kernel but align's K7 (every backend's LM trials and
+    guesses on a card) and no plain version may launch."""
     from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
     from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -1422,7 +1528,8 @@ def backend_check(backend, world, scans, card, device="cuda"):
     require(rmse < gate, f"{backend}: ATE {rmse:.4f} m >= {gate:.4f} m")
     require(min(corr) > 100, f"{backend}: a frame has s2m_num_corr {min(corr)} <= 100")
     for name, cnt in launches.items():
-        require(cnt["cuda"] == 0 and cnt["plain"] == 0,
+        want = (cnt["cuda"] > 0) if name in K7_COUNTERS else (cnt["cuda"] == 0)
+        require(want and cnt["plain"] == 0,
                 f"{backend}: {name} launched {cnt['cuda']} times, its plain version {cnt['plain']}")
     return out
 
@@ -1673,10 +1780,36 @@ def batched_drive(cfg, world, frames, label, snapshot_at=None):
     return out, results, snapshot
 
 
+@contextlib.contextmanager
+def plain_lm_trials():
+    """Every ``gicp.align`` in the block runs its LM trials and its guess's
+    re-orthonormalization in the plain versions' tensor operations
+    (``ops/cuda_lm.py``), as ``gicp.align_batched`` runs them, not in K7;
+    the captured graphs are dropped on entry and on exit, since their keys
+    do not name the route."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_lm
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+
+    def plain_trial(*args):
+        return cuda_lm.lm_trial_plain(*args[:14])  # the workspace left out
+
+    trial, reorth = cuda_lm.lm_trial, cuda_lm.reorthonormalize
+    gicp.release_graphs()
+    cuda_lm.lm_trial, cuda_lm.reorthonormalize = plain_trial, cuda_lm.reorthonormalize_plain
+    try:
+        yield
+    finally:
+        cuda_lm.lm_trial, cuda_lm.reorthonormalize = trial, reorth
+        gicp.release_graphs()
+
+
 def single_lane_drive(cfg, frames, lane: int = 0):
     """Phases 13 and 14: lane ``lane`` of ``frames`` through the
     single-sequence step on the card, ``odom_frame(hull_masks=None)``
-    driven directly: (poses [T-1, 4, 4], keyframe count, host reads a
+    driven directly, its LM trials in the tensor operations the batched
+    step runs (:func:`plain_lm_trials`; K7 and those agree to rounding,
+    phase 3, which 30 frames of correspondences can grow past
+    LANE_POSE_TOL): (poses [T-1, 4, 4], keyframe count, host reads a
     frame)."""
     from direct_lidar_odometry_tpu_torch.odometry import hulls, pipeline
     from direct_lidar_odometry_tpu_torch.utils import sync
@@ -1686,12 +1819,13 @@ def single_lane_drive(cfg, frames, lane: int = 0):
     st = pipeline.init_frame(cfg, pipeline.fresh_state(cfg, device=dev), frames[0][0][lane],
                              frames[0][1][lane])
     poses, reads = [], []
-    for pts, mask in frames[1:]:
-        before = sync.counts["host_reads"]
-        st, res = pipeline.odom_frame(cfg, directions, st, pts[lane], mask[lane],
-                                      torch.eye(4, device=dev), hull_masks=None)
-        reads.append(sync.counts["host_reads"] - before)
-        poses.append(res.pose)
+    with plain_lm_trials():
+        for pts, mask in frames[1:]:
+            before = sync.counts["host_reads"]
+            st, res = pipeline.odom_frame(cfg, directions, st, pts[lane], mask[lane],
+                                          torch.eye(4, device=dev), hull_masks=None)
+            reads.append(sync.counts["host_reads"] - before)
+            poses.append(res.pose)
     return torch.stack(poses), int(st.keyframes.count), reads
 
 
@@ -2390,6 +2524,10 @@ def main() -> int:
     k4 = [check_k4(inp.queries, inp.submap, r, library=r == 0.5) for r in (0.5, 1.0, 1.5)]
     k1 = [check_k1(inp.scan0, 0.75, "scan"), check_k1(inp.kf0, 1.5, "keyframe")]
     k3 = [check_k3(inp.queries, inp.submap, 0.5, "S2M"), check_k3(inp.queries, inp.s2s, 1.0, "S2S")]
+    coarse = gicp_source_stride(inp.queries, cfg.gicp.s2s_coarse_stride)
+    k7 = [check_k7(inp.queries, inp.submap, cfg.gicp.s2m, "S2M"),
+          check_k7(inp.queries, inp.s2s, cfg.gicp.s2s, "S2S"),
+          check_k7(coarse, inp.s2s, cfg.gicp.s2s, "coarse S2S")]
     k5, k6 = check_exhaustive(inp, scans, dev)
     t0 = time.perf_counter()
     lscans = lane_scans(world, N_FRAMES)
@@ -2459,7 +2597,8 @@ def main() -> int:
                 "nn1_pruned_mxu": "K4"}
 
     traced_key = {"nn1_pruned": ("pallas", "K2"), "cov_pruned": ("pallas", "K1"),
-                  "fused_linearize": ("pallas_fused", "K3"), "nn1_pruned_mxu": ("pallas_mxu", "K4")}
+                  "fused_linearize": ("pallas_fused", "K3"), "nn1_pruned_mxu": ("pallas_mxu", "K4"),
+                  "lm_trial": ("pallas", "K7")}
 
     def traced_per_frame(name):
         """Phase 4's launches a frame by name, replayed graphs included."""
@@ -2516,7 +2655,14 @@ def main() -> int:
               "oracle: query_1nn", oracle["launches"], k5),
         entry("cov_exhaustive", "cov_exhaustive.cu", "pallas_cov.py:40",
               "oracle: estimate_normals_radius", oracle["launches"], k6),
+        entry("lm_trial", "lm_trial.cu", "", "runner, every backend's align on a card (LM trials; "
+              "on the pruned backends replayed in the iteration graphs)", main_path["launches"], k7),
     ]
+    # K7 replaces no Pallas kernel: the JAX package's LM trial, which XLA fuses
+    kernels[-1].update(replaces="none (direct_lidar_odometry_tpu/registration/gicp.py's LM trial)",
+                       shapes={c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "reorth_ms", "reorth_plain_ms")}
+                               for c in k7})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,9 @@ _SIGNATURES = {
     "dlo_cov_exhaustive": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
     "dlo_fused_linearize": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                             _P, _P, _P, _P),
+    "dlo_lm_trial": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+                     _F, _F, _F, _P, _P, _P),
+    "dlo_reorthonormalize": (_P, _P, _P),
 }
 
 

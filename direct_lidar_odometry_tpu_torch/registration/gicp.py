@@ -21,7 +21,10 @@ Counterpart of the JAX package's ``registration/gicp.py`` (the reference's
 - :func:`align` (``lsq_registration_impl.hpp:89-208``): the outer loop and
   the LM inner retry loop, with the reference's lambda/nu schedule, the
   rho gain test and the convergence test
-  ``max(|R-I|/rot_eps, |t|/trans_eps) < 1``.
+  ``max(|R-I|/rot_eps, |t|/trans_eps) < 1``. Each LM trial (the damped
+  solve, the error of the trial estimate, rho and the updates) and the
+  re-orthonormalization of the guess are kernel K7 on a CUDA device and
+  its plain version on the CPU (``ops/cuda_lm.py``).
 
 The JAX package runs both loops as ``lax.while_loop`` on the device. Here
 they are Python loops; each inner iteration reads its two flags (accept,
@@ -56,7 +59,9 @@ import torch
 from direct_lidar_odometry_tpu_torch.config import GicpStageConfig
 from direct_lidar_odometry_tpu_torch.core import se3
 from direct_lidar_odometry_tpu_torch.core.cloud import gather_rows
-from direct_lidar_odometry_tpu_torch.ops import bruteforce, cuda_gicp, cuda_nn, hashgrid, morton
+from direct_lidar_odometry_tpu_torch.ops import (
+    bruteforce, cuda_gicp, cuda_lm, cuda_nn, hashgrid, morton,
+)
 from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS, cov_from_normal
 from direct_lidar_odometry_tpu_torch.utils import sync
 from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
@@ -254,101 +259,53 @@ def _normal_equations(p_t, mu_b, weight, mahal):
 
 
 def _compute_error(x0: torch.Tensor, src: GicpSource, lin: _Linearization) -> torch.Tensor:
-    """Reference nano_gicp_impl.hpp:272-296 — frozen correspondences, with
-    M = w * (2I - (1-eps)(n_b n_b^T + m0 m0^T))^{-1} rebuilt columnwise.
-    With B lanes (x0 [B, 4, 4]) the error of each lane, [B]."""
-    p_t = se3.transform_points(x0, src.points)
-    e = lin.mu_b - p_t
-    ex, ey, ez = e[..., 0], e[..., 1], e[..., 2]
-    nx, ny, nz = lin.n_b[..., 0], lin.n_b[..., 1], lin.n_b[..., 2]
-    mx, my, mz = lin.m0[..., 0], lin.m0[..., 1], lin.m0[..., 2]
-    a = 1.0 - PLANE_EPS
-    a00 = 2.0 - a * (nx * nx + mx * mx)
-    a01 = -a * (nx * ny + mx * my)
-    a02 = -a * (nx * nz + mx * mz)
-    a11 = 2.0 - a * (ny * ny + my * my)
-    a12 = -a * (ny * nz + my * mz)
-    a22 = 2.0 - a * (nz * nz + mz * mz)
-    co00 = a11 * a22 - a12 * a12
-    co01 = a02 * a12 - a01 * a22
-    co02 = a01 * a12 - a02 * a11
-    det = a00 * co00 + a01 * co01 + a02 * co02
-    inv_det = lin.weight / torch.where(torch.abs(det) > 1e-20, det, torch.ones_like(det))
-    m00 = co00 * inv_det
-    m01 = co01 * inv_det
-    m02 = co02 * inv_det
-    m11 = (a00 * a22 - a02 * a02) * inv_det
-    m12 = (a01 * a02 - a00 * a12) * inv_det
-    m22 = (a00 * a11 - a01 * a01) * inv_det
-    mex = m00 * ex + m01 * ey + m02 * ez
-    mey = m01 * ex + m11 * ey + m12 * ez
-    mez = m02 * ex + m12 * ey + m22 * ez
-    if x0.dim() == 3:
-        return per_lane(torch.sum, ex * mex + ey * mey + ez * mez)
-    return torch.sum(ex * mex + ey * mey + ez * mez)
+    """Reference nano_gicp_impl.hpp:272-296 with frozen correspondences
+    (``ops/cuda_lm.compute_error_plain``); with B lanes (x0 [B, 4, 4]) the
+    error of each lane, [B]."""
+    return cuda_lm.compute_error_plain(x0, src.points, lin.mu_b, lin.n_b, lin.m0, lin.weight,
+                                       PLANE_EPS)
 
 
 def _is_converged(delta: torch.Tensor, cfg: GicpStageConfig) -> torch.Tensor:
     """Reference lsq_registration_impl.hpp:118-127 (device bool)."""
-    r = delta[:3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
-    t = delta[:3, 3]
-    r_max = torch.max(torch.abs(r)) / cfg.rotation_epsilon
-    t_max = torch.max(torch.abs(t)) / cfg.transformation_epsilon
-    return torch.maximum(r_max, t_max) < 1.0
+    return cuda_lm.is_converged(delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
 
 
-def _reorthonormalize(x: torch.Tensor) -> torch.Tensor:
-    """Keep the rotation block orthonormal under f32 compounding (quat
-    roundtrip). [..., 4, 4]."""
-    q = se3.rotmat_to_quat(x[..., :3, :3])
-    return se3.make_se3(se3.quat_to_rotmat(q), x[..., :3, 3])
-
-
-def _solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    # solve_ex: no error check, hence no host sync (a singular H gives
-    # non-finite steps, which the gain test rejects, as in the reference)
-    return torch.linalg.solve_ex(h, -b)[0]
+_reorthonormalize = cuda_lm.reorthonormalize_plain
+_solve6 = cuda_lm.solve6
 
 
 class _LmState(NamedTuple):
     """:func:`align`'s optimizer state, on the device for the whole call and
-    updated in place: the estimate, LM's lambda and nu, and whether lambda
-    still waits for its first linearization."""
+    updated in place: the estimate, LM's lambda and nu, whether lambda
+    still waits for its first linearization, and on a CUDA device the LM
+    trial kernel's workspace (``ops/cuda_lm.workspace``)."""
 
     x: torch.Tensor      # [4, 4]
     lam: torch.Tensor    # f32
     nu: torch.Tensor     # f32
     fresh: torch.Tensor  # bool
+    work: torch.Tensor | None
 
 
 def _lm_state(x: torch.Tensor) -> _LmState:
     dev = x.device
     return _LmState(x=x, lam=torch.zeros((), dtype=torch.float32, device=dev),
                     nu=torch.full((), 2.0, dtype=torch.float32, device=dev),
-                    fresh=torch.ones((), dtype=torch.bool, device=dev))
+                    fresh=torch.ones((), dtype=torch.bool, device=dev),
+                    work=cuda_lm.workspace(dev))
 
 
 def _lm_trial(st: _LmState, src: GicpSource, lin: _Linearization,
               cfg: GicpStageConfig) -> torch.Tensor:
     """One trial of step_lm (lsq_registration_impl.hpp:169-206) on ``lin``:
     the damped step, the gain ratio rho, then lambda, nu and x updated in
-    place as an accepted (rho >= 0) or a rejected step updates them.
-    Returns the [accept, converged] flags."""
-    eye6 = torch.eye(6, dtype=torch.float32, device=st.x.device)
-    d = _solve6(lin.h + st.lam * eye6, lin.b)
-    delta = se3.se3_exp(d)
-    xi = _reorthonormalize(delta @ st.x)
-    yi = _compute_error(xi, src, lin)
-    denom = torch.dot(d, st.lam * d - lin.b)
-    denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
-    rho = (lin.error - yi) / denom
-    accept = rho >= 0.0
-    flags = torch.stack([accept, _is_converged(delta, cfg)])
-    st.lam.copy_(torch.where(accept, st.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                                          min=1.0 / 3.0), st.nu * st.lam))
-    st.nu.copy_(torch.where(accept, st.nu, 2.0 * st.nu))
-    st.x.copy_(torch.where(accept, xi, st.x))
-    return flags
+    place as an accepted (rho >= 0) or a rejected step updates them
+    (``ops/cuda_lm.lm_trial``: kernel K7 on a CUDA device). Returns the
+    [accept, converged] flags."""
+    return cuda_lm.lm_trial(st.x, st.lam, st.nu, lin.h, lin.b, lin.error, lin.mu_b, lin.n_b,
+                            lin.m0, lin.weight, src.points, cfg.rotation_epsilon,
+                            cfg.transformation_epsilon, PLANE_EPS, st.work)
 
 
 def _iteration(st: _LmState, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig,
@@ -383,28 +340,38 @@ class _Iterations:
     ``retry_graph`` (one more :func:`_lm_trial` on the iteration's
     linearization). A replay reads the instance's static copies of the
     source, the target and the state (:meth:`load`) and leaves its
-    linearization and flags in the tensors the capture returned."""
+    linearization and flags in the tensors the capture returned. Each
+    iteration and retry counts the LM trial kernels it launched or
+    replayed (``gicp_trial.kernel``)."""
 
     def __init__(self, src, target, x0, cfg, backend, cap):
         self.src, self.target, self.cfg, self.backend, self.cap = src, target, cfg, backend, cap
         self.st = _lm_state(x0)
         self.lin = self.flags = self.retry_flags = None
         self.graph = self.retry_graph = None
+        self.graph_trials = self.retry_trials = 0
 
     def iteration(self) -> tuple[_Linearization, torch.Tensor]:
         if self.graph is None:
+            launched = cuda_lm.launches["cuda"]
             self.lin, self.flags = _iteration(self.st, self.src, self.target, self.cfg,
                                               self.backend, self.cap)
+            _count_trials(cuda_lm.launches["cuda"] - launched)
         else:
             self.graph.replay()
             sync.count("gicp_graph.replays")
+            _count_trials(self.graph_trials)
         return self.lin, self.flags
 
     def retry(self) -> torch.Tensor:
         if self.retry_graph is None:
-            return _lm_trial(self.st, self.src, self.lin, self.cfg)
+            launched = cuda_lm.launches["cuda"]
+            flags = _lm_trial(self.st, self.src, self.lin, self.cfg)
+            _count_trials(cuda_lm.launches["cuda"] - launched)
+            return flags
         self.retry_graph.replay()
         sync.count("gicp_graph.replays")
+        _count_trials(self.retry_trials)
         return self.retry_flags
 
     @classmethod
@@ -418,13 +385,13 @@ class _Iterations:
                   cfg, backend, cap)
         side = _side_stream(x0.device)
         side.wait_stream(torch.cuda.current_stream(x0.device))
-        with torch.cuda.stream(side):
-            run.iteration()
+        with torch.cuda.stream(side):  # the warm run, counted nowhere
+            lin, _ = _iteration(run.st, run.src, run.target, cfg, backend, cap)
             if cfg.optimizer == "lm":
-                run.retry()
-        run.graph, (run.lin, run.flags) = _capture(side, run.iteration)
+                _lm_trial(run.st, run.src, lin, cfg)
+        run.graph, (run.lin, run.flags), run.graph_trials = _capture(side, run.iteration)
         if cfg.optimizer == "lm":
-            run.retry_graph, run.retry_flags = _capture(side, run.retry)
+            run.retry_graph, run.retry_flags, run.retry_trials = _capture(side, run.retry)
         torch.cuda.current_stream(x0.device).wait_stream(side)
         return run
 
@@ -438,11 +405,12 @@ class _Iterations:
 
 
 def _capture(side, body):
-    """(the graph, what ``body`` returned): ``torch.cuda.graph``'s capture
-    without its device-wide synchronize and cache flush, which would stall
-    the caller's stream and the chunk worker's copies; capture errors of
-    this thread only."""
+    """(the graph, what ``body`` returned, the LM trial kernels it holds):
+    ``torch.cuda.graph``'s capture without its device-wide synchronize and
+    cache flush, which would stall the caller's stream and the chunk
+    worker's copies; capture errors of this thread only."""
     graph = torch.cuda.CUDAGraph()
+    recorded = cuda_lm.launches["captured"]
     with torch.cuda.stream(side):
         graph.capture_begin(capture_error_mode="thread_local")
         try:
@@ -450,7 +418,13 @@ def _capture(side, body):
         finally:
             graph.capture_end()
     sync.count("gicp_graph.captures")
-    return graph, out
+    return graph, out, cuda_lm.launches["captured"] - recorded
+
+
+def _count_trials(n: int) -> None:
+    """Count ``n`` LM trials run by kernel K7 (none on the CPU)."""
+    if n:
+        sync.count("gicp_trial.kernel", n)
 
 
 _SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
@@ -516,10 +490,11 @@ def align(
     one. The result shares no memory with the graphs.
     Counts its outer iterations and its LM (or GN) steps under the caller's
     innermost span (``align_iters.<span>``, ``lm_steps.<span>``), and on a
-    CUDA device its graph replays and its eagerly run iterations
-    (``gicp_graph.replays``, ``gicp_graph.eager_iters``; ``utils/sync.py``).
+    CUDA device its graph replays, its eagerly run iterations and its LM
+    trials run by kernel K7 (``gicp_graph.replays``,
+    ``gicp_graph.eager_iters``, ``gicp_trial.kernel``; ``utils/sync.py``).
     """
-    x0 = _reorthonormalize(guess.to(torch.float32))
+    x0 = cuda_lm.reorthonormalize(guess.to(torch.float32))
     on_card = x0.device.type == "cuda"
     with torch.cuda.device(x0.device) if on_card else contextlib.nullcontext():
         run, graphed = _iterations(src, target, x0, cfg, backend, cap)

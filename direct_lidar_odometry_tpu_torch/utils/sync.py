@@ -52,7 +52,10 @@ Spans and counters in the program, and what reads them (the benchmark's
 - ``gicp_graph.captures``, ``gicp_graph.replays`` (iteration and LM retry
   graphs replayed) and ``gicp_graph.eager_iters`` (GICP iterations on a
   CUDA device issued operation by operation; ``registration/gicp.align``):
-  ``gicp_graph_share``.
+  ``gicp_graph_share``;
+- ``gicp_trial.kernel`` (LM trials run by kernel K7, launched eagerly or
+  replayed in a graph; ``registration/gicp.align``):
+  ``lm_trial_kernel_share``.
 """
 
 from __future__ import annotations

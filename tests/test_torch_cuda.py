@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn, morton
+from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_lm, cuda_nn, morton
 
 pytestmark = pytest.mark.cuda
 
@@ -699,13 +699,14 @@ def _recorded_aligns(backend):
 
 
 def _launch_counts():
-    """K2, K4 and K3 launches as their wrappers count them."""
-    return (cuda_nn.launches["cuda"], cuda_nn.mxu_launches["cuda"], cuda_gicp.launches["cuda"])
+    """K2, K4, K3 and K7 launches as their wrappers count them."""
+    return (cuda_nn.launches["cuda"], cuda_nn.mxu_launches["cuda"], cuda_gicp.launches["cuda"],
+            cuda_lm.launches["cuda"])
 
 
 def _traced(fn):
-    """``fn()`` and the K2, K4 and K3 launches of its device trace, by their
-    ``__global__`` names (a replayed graph's included)."""
+    """``fn()`` and the K2, K4, K3 and K7 launches of its device trace, by
+    their ``__global__`` names (a replayed graph's included)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -717,7 +718,7 @@ def _traced(fn):
         torch.cuda.synchronize()
     names = [name for name, _, _ in devprof.device_events(prof)]
     return out, [sum(1 for n in names if re.search(devprof.KERNEL_NAMES[k], n))
-                 for k in ("K2", "K4", "K3")]
+                 for k in ("K2", "K4", "K3", "K7")]
 
 
 @contextlib.contextmanager
@@ -739,9 +740,11 @@ def test_gicp_graph_equals_eager_on_recorded_frames(dev, backend):
     the eager path's result bit for bit (a first call, which captures, and
     a second, which only replays), with one replay per LM step. The
     device trace of the replaying call holds the eager path's K2/K4/K3
-    launches, which the trace of the eager call shows the wrappers count;
-    the wrappers count only the capture's one eager run, which launches
-    the stage's kernel once."""
+    launches and one K7 launch per LM step, which the trace of the eager
+    call shows the wrappers count; the wrappers count only the capture's
+    one eager run, which launches the stage's kernel once and K7 twice
+    (the iteration's trial and a retry). Every LM step counts one K7
+    trial (``gicp_trial.kernel``)."""
     from direct_lidar_odometry_tpu_torch.registration import gicp
     from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -752,8 +755,8 @@ def test_gicp_graph_equals_eager_on_recorded_frames(dev, backend):
             want, traced = _traced(lambda: gicp.align(src, target, guess, cfg, backend))
             eager_launches = [b - a for a, b in zip(before, _launch_counts())]
         assert traced == eager_launches, stage
-        assert sum(eager_launches) == want.iterations > 0, stage
-        warm = [int(n > 0) for n in eager_launches]
+        assert sum(eager_launches[:3]) == want.iterations > 0, stage
+        warm = [int(n > 0) for n in eager_launches[:3]] + [2]
         gicp.release_graphs()
         for call in ("capture", "replay"):
             sync.reset()
@@ -770,8 +773,12 @@ def test_gicp_graph_equals_eager_on_recorded_frames(dev, backend):
             assert (got.iterations, got.converged, got.lm_failed) == (
                 want.iterations, want.converged, want.lm_failed), (stage, call)
             counted = [b - a for a, b in zip(before, _launch_counts())]
-            assert counted == (warm if call == "capture" else [0, 0, 0]), (stage, call)
-            assert sync.counts["gicp_graph.replays"] == sync.counts[f"lm_steps.{stage}"], stage
+            assert counted == (warm if call == "capture" else [0, 0, 0, 0]), (stage, call)
+            steps = sync.counts[f"lm_steps.{stage}"]
+            assert sync.counts["gicp_graph.replays"] == steps, stage
+            assert sync.counts["gicp_trial.kernel"] == steps, stage
+            if call == "replay":
+                assert traced[3] == steps, stage
             assert sync.counts["gicp_graph.eager_iters"] == 0
             assert sync.counts["gicp_graph.captures"] == (2 if call == "capture" else 0), stage
 
@@ -865,6 +872,96 @@ def test_gicp_graph_results_do_not_alias(dev):
     for res in (first, second):
         for t in (res.transform, res.hessian, res.final_error, res.num_correspondences):
             assert t.data_ptr() not in owned
+
+
+def _first_trial(src, target, guess, cfg, backend, dtype=torch.float32):
+    """The state and the arguments of an align's first LM trial: the
+    guess re-orthonormalized, the linearization there, lambda as
+    ``gicp._iteration`` sets it; in ``dtype`` (float64: the yardstick)."""
+    from direct_lidar_odometry_tpu_torch.registration import gicp
+    from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS
+
+    x0 = cuda_lm.reorthonormalize_plain(guess.to(torch.float32))
+    lin = gicp._linearize(x0, src, target, cfg, backend)
+    lam0 = cfg.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(lin.h)))
+    state = [t.to(dtype) for t in (x0, lam0, torch.full((), 2.0, device=x0.device))]
+    args = [t.to(dtype) for t in (lin.h, lin.b, lin.error, lin.mu_b, lin.n_b, lin.m0, lin.weight,
+                                  src.points)]
+    return state, args, (cfg.rotation_epsilon, cfg.transformation_epsilon, PLANE_EPS)
+
+
+def _trial_error(state, args, eps):
+    """The plain version's error at the estimate a trial from ``state``
+    would try (its own dtype)."""
+    from direct_lidar_odometry_tpu_torch.core import se3
+
+    x, lam, _ = state
+    h, b = args[:2]
+    d = cuda_lm.solve6(h + lam * torch.eye(6, dtype=h.dtype, device=h.device), b)
+    xi = cuda_lm.reorthonormalize_plain(se3.se3_exp(d) @ x)
+    return cuda_lm.compute_error_plain(xi, args[7], *args[3:7], eps[2])
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_lm_trial_kernel_matches_plain_on_recorded_frames(dev, backend):
+    """K7 against its plain version on each GICP stage's first LM trial of
+    the recorded frames, once as it is and once rejected (the
+    linearization's error set to 0): the same flags, nu equal, and x,
+    lambda and the trial's error each as close to the float64 run of the
+    plain version as the float32 plain version is, within 4 times its
+    distance plus a floor of 1e-6 of the value's largest magnitude. The two differ by
+    the error's summation order (per block, then a tree over blocks,
+    against torch.sum's) and by their float32 LU of the damped 6x6
+    system, whose rounding the system's condition number amplifies into
+    the step; the float64 run bounds both. "pallas_fused" hands over K3's
+    strided payload rows. The guess's re-orthonormalization on K7's
+    one-thread entry is the plain version's within 1e-6."""
+    for stage, (src, target, guess, cfg) in _recorded_aligns(backend).items():
+        for case in ("first", "rejected"):
+            runs = {}
+            for route, dtype in (("kernel", torch.float32), ("plain", torch.float32),
+                                 ("f64", torch.float64)):
+                state, args, eps = _first_trial(src, target, guess, cfg, backend, dtype)
+                if case == "rejected":
+                    args[2] = torch.zeros_like(args[2])
+                if route == "kernel":
+                    work = cuda_lm.workspace(dev)
+                    flags = cuda_lm.lm_trial(*state, *args, *eps, work)
+                    error = work[cuda_lm.ERROR_SLOT]
+                else:
+                    error = _trial_error(state, args, eps)
+                    flags = cuda_lm.lm_trial_plain(*state, *args, *eps)
+                runs[route] = (flags.tolist(), *(t.double() for t in (*state, error)))
+            (fk, xk, lk, nk, ek), (fp, xp, lp, np_, ep), (_, x64, l64, _, e64) = (
+                runs["kernel"], runs["plain"], runs["f64"])
+            where = (stage, case)
+            assert fk == fp and not (case == "rejected" and fk[0]), (where, fk, fp)
+            assert torch.equal(nk, np_), where
+            for name, k, p, ref in (("x", xk, xp, x64), ("lambda", lk, lp, l64),
+                                    ("error", ek, ep, e64)):
+                floor = 1e-6 * float(ref.abs().max())
+                far, plain_far = float((k - ref).abs().max()), float((p - ref).abs().max())
+                assert far <= 4 * plain_far + floor, (where, name, far, plain_far, floor)
+        x0 = guess.to(torch.float32)
+        assert float((cuda_lm.reorthonormalize(x0) - cuda_lm.reorthonormalize_plain(x0))
+                     .abs().max()) <= 1e-6, stage
+
+
+def test_lm_trial_kernel_repeats_bit_for_bit(dev):
+    """20 launches of K7 from one state on each recorded stage give the same
+    x, lambda, nu, flags and trial error, bit for bit: no atomic decides a
+    sum (the blocks' partials are summed by one block, in block order)."""
+    for stage, (src, target, guess, cfg) in _recorded_aligns("pallas").items():
+        state, args, eps = _first_trial(src, target, guess, cfg, "pallas")
+        work = cuda_lm.workspace(dev)
+        outs = []
+        for _ in range(20):
+            st = [t.clone() for t in state]
+            flags = cuda_lm.lm_trial(*st, *args, *eps, work)
+            outs.append((*st, flags, work[cuda_lm.ERROR_SLOT].clone(),
+                         work[cuda_lm.RHO_SLOT].clone()))
+        for out in outs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(out, outs[0])), stage
 
 
 def test_device_constants_on_card_need_no_copy(dev):

@@ -229,3 +229,95 @@ def test_device_constants_equal_their_uploads(dtype):
                                      torch.tensor([-1.0, 0.0, 0.0], dtype=dtype))
     assert torch.allclose(se3.quat_rotate(flip, torch.tensor([1.0, 0.0, 0.0], dtype=dtype)),
                           torch.tensor([-1.0, 0.0, 0.0], dtype=dtype))
+
+
+def _pre_kernel_reorthonormalize(x):
+    """``gicp._reorthonormalize`` as it was before ``ops/cuda_lm.py``."""
+    q = se3.rotmat_to_quat(x[..., :3, :3])
+    return se3.make_se3(se3.quat_to_rotmat(q), x[..., :3, 3])
+
+
+def _pre_kernel_compute_error(x0, src, lin):
+    """``gicp._compute_error`` as it was before ``ops/cuda_lm.py``."""
+    p_t = se3.transform_points(x0, src.points)
+    e = lin.mu_b - p_t
+    ex, ey, ez = e[..., 0], e[..., 1], e[..., 2]
+    nx, ny, nz = lin.n_b[..., 0], lin.n_b[..., 1], lin.n_b[..., 2]
+    mx, my, mz = lin.m0[..., 0], lin.m0[..., 1], lin.m0[..., 2]
+    a = 1.0 - covariance.PLANE_EPS
+    a00 = 2.0 - a * (nx * nx + mx * mx)
+    a01 = -a * (nx * ny + mx * my)
+    a02 = -a * (nx * nz + mx * mz)
+    a11 = 2.0 - a * (ny * ny + my * my)
+    a12 = -a * (ny * nz + my * mz)
+    a22 = 2.0 - a * (nz * nz + mz * mz)
+    co00 = a11 * a22 - a12 * a12
+    co01 = a02 * a12 - a01 * a22
+    co02 = a01 * a12 - a02 * a11
+    det = a00 * co00 + a01 * co01 + a02 * co02
+    inv_det = lin.weight / torch.where(torch.abs(det) > 1e-20, det, torch.ones_like(det))
+    m00 = co00 * inv_det
+    m01 = co01 * inv_det
+    m02 = co02 * inv_det
+    m11 = (a00 * a22 - a02 * a02) * inv_det
+    m12 = (a01 * a02 - a00 * a12) * inv_det
+    m22 = (a00 * a11 - a01 * a01) * inv_det
+    mex = m00 * ex + m01 * ey + m02 * ez
+    mey = m01 * ex + m11 * ey + m12 * ez
+    mez = m02 * ex + m12 * ey + m22 * ez
+    return torch.sum(ex * mex + ey * mey + ez * mez)
+
+
+def _pre_kernel_lm_trial(st, src, lin, cfg):
+    """``gicp._lm_trial`` as it was before its trial became kernel K7 (the
+    oracle of the plain route)."""
+    eye6 = torch.eye(6, dtype=torch.float32, device=st.x.device)
+    d = torch.linalg.solve_ex(lin.h + st.lam * eye6, -lin.b)[0]
+    delta = se3.se3_exp(d)
+    xi = _pre_kernel_reorthonormalize(delta @ st.x)
+    yi = _pre_kernel_compute_error(xi, src, lin)
+    denom = torch.dot(d, st.lam * d - lin.b)
+    denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+    rho = (lin.error - yi) / denom
+    accept = rho >= 0.0
+    r = delta[:3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
+    conv = torch.maximum(torch.max(torch.abs(r)) / cfg.rotation_epsilon,
+                         torch.max(torch.abs(delta[:3, 3])) / cfg.transformation_epsilon) < 1.0
+    flags = torch.stack([accept, conv])
+    st.lam.copy_(torch.where(accept, st.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                                          min=1.0 / 3.0), st.nu * st.lam))
+    st.nu.copy_(torch.where(accept, st.nu, 2.0 * st.nu))
+    st.x.copy_(torch.where(accept, xi, st.x))
+    return flags
+
+
+@pytest.mark.parametrize("backend,case", [
+    ("pallas", "first"), ("pallas_fused", "first"), ("pallas", "rejected"),
+    ("pallas_fused", "converged"),
+])
+def test_lm_trial_on_cpu_equals_the_pre_kernel_trial(scans, backend, case):
+    """``ops/cuda_lm.lm_trial`` on CPU tensors (its plain route) gives the
+    pre-kernel trial's flags, x, lambda and nu bit for bit: a call's first
+    trial, one rejected (the linearization's error set to 0, so no step
+    lowers it; nu doubles) and one that converges at loose epsilons;
+    ``pallas_fused`` hands over K3's strided payload rows."""
+    from direct_lidar_odometry_tpu_torch.ops import cuda_lm
+
+    src, target = _problem(scans, backend, 1.0)
+    cfg = _stage("lm", 1.0, 0.5 if case == "converged" else None)
+    x0 = _pre_kernel_reorthonormalize(_guess(scans, "half"))
+    assert torch.equal(cuda_lm.reorthonormalize(_guess(scans, "half")), x0)
+    lin = gicp._linearize(x0, src, target, cfg, backend)
+    if case == "rejected":
+        lin = lin._replace(error=torch.zeros(()))
+    lam0 = cfg.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(lin.h)))
+    states = [gicp._LmState(x0.clone(), lam0.clone(), torch.full((), 2.0),
+                            torch.zeros((), dtype=torch.bool), None) for _ in range(2)]
+    cuda_lm.reset_launches()
+    got = gicp._lm_trial(states[0], src, lin, cfg)
+    want = _pre_kernel_lm_trial(states[1], src, lin, cfg)
+    assert cuda_lm.launches == {"cuda": 0, "plain": 1, "captured": 0}
+    assert torch.equal(got, want) and got.tolist() == {
+        "first": [True, False], "rejected": [False, False], "converged": [True, True]}[case]
+    for a, b in zip(states[0][:3], states[1][:3]):
+        assert torch.equal(a, b)

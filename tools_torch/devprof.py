@@ -2,13 +2,13 @@
 
 - :func:`device_events` and :func:`profile_summary` read a finished
   ``torch.profiler`` window: the device operations (kernels, copies, sets),
-  their merged busy time and the launches of kernels K1-K4 by their
-  ``__global__`` names, per frame or per step.
+  their merged busy time and the launches of kernels K1-K4 and K7 by
+  their ``__global__`` names, per frame or per step.
 - :func:`stage_profile` measures one call of a stage of the per-frame step:
   its synced host ms, its device operations and busy ms, its host reads
-  (``utils/sync.py``), the launches of kernels K1-K6 that the wrappers
+  (``utils/sync.py``), the launches of kernels K1-K7 that the wrappers
   counted, each per route (``"cuda"``: the kernel; ``"plain"``: its plain
-  PyTorch version), and those of K1-K4 in its device trace.
+  PyTorch version), and those of K1-K4 and K7 in its device trace.
 
 Torch, numpy and the port only; the port's modules are imported where they
 are used.
@@ -40,12 +40,14 @@ KERNEL_COUNTERS = {
     "K4": ("cuda_nn", "mxu_launches"),
     "K5": ("cuda_nn", "exhaustive_launches"),
     "K6": ("cuda_cov", "exhaustive_launches"),
+    "K7": ("cuda_lm", "launches"),
 }
 
 
 # each kernel's __global__ functions by name (K2 and K4 are one template
 # since K4's redesign, separate kernels before it; K5 and K6 are a pre-pass,
-# a scan and a merge since theirs, one kernel before it)
+# a scan and a merge since theirs, one kernel before it; K7 is the LM
+# trial, not its one-thread re-orthonormalization entry)
 KERNEL_NAMES = {
     "K1": r"cov_pruned_kernel",
     "K2": r"nn1_pruned_kernel(<false>)?(\(|$)",
@@ -53,10 +55,11 @@ KERNEL_NAMES = {
     "K4": r"nn1_pruned_mxu_kernel|nn1_pruned_kernel<true>",
     "K5": r"nn1_exhaustive_kernel|nn1_merge_kernel|compact_targets_kernel",
     "K6": r"cov_exhaustive_kernel|cov_merge_kernel|compact_targets_kernel",
+    "K7": r"lm_trial_kernel",
 }
 # the kernels whose launches a window counts: one function each, which a
 # replayed CUDA graph launches too (the wrappers count only their own)
-TRACED_KERNELS = ("K1", "K2", "K3", "K4")
+TRACED_KERNELS = ("K1", "K2", "K3", "K4", "K7")
 
 
 def device_events(prof) -> list:
@@ -89,7 +92,7 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
     sets), their summed device time, the time the device was busy (their
     intervals merged, overlaps counted once), each by kind, the eight
     operations that take the most time, the idle share of the window, and
-    the launches of K1-K4 by name (``kernel_launches_per_<unit>``); null
+    the launches of K1-K4 and K7 by name (``kernel_launches_per_<unit>``); null
     where the profiler saw no device activity."""
     ops = device_events(prof)
     out = {f"device_ops_per_{unit}": None, f"profiled_wall_ms_per_{unit}": wall_ms / n}
@@ -125,9 +128,9 @@ def profile_summary(prof, n: int, wall_ms: float, unit: str = "frame") -> dict:
 
 
 def _counter_modules():
-    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_nn
+    from direct_lidar_odometry_tpu_torch.ops import cuda_cov, cuda_gicp, cuda_lm, cuda_nn
 
-    return {"cuda_cov": cuda_cov, "cuda_gicp": cuda_gicp, "cuda_nn": cuda_nn}
+    return {"cuda_cov": cuda_cov, "cuda_gicp": cuda_gicp, "cuda_lm": cuda_lm, "cuda_nn": cuda_nn}
 
 
 def reset_launches() -> None:
@@ -136,7 +139,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """{"K1": {"cuda": n, "plain": n}, ... "K6": ...}: the launch counters."""
+    """{"K1": {"cuda": n, "plain": n}, ... "K7": ...}: the launch counters."""
     mods = _counter_modules()
     return {k: dict(getattr(mods[m], name)) for k, (m, name) in KERNEL_COUNTERS.items()}
 
@@ -163,9 +166,9 @@ def stage_profile(fn, n: int = 8, device="cuda") -> dict:
       device synchronized after it), median of ``n`` calls;
     - ``host_reads``: device-to-host reads of one call (``utils/sync.py``,
       reset before it);
-    - ``launches``: K1-K6 launches of that call, per route, as the wrappers
+    - ``launches``: K1-K7 launches of that call, per route, as the wrappers
       count them (a replayed CUDA graph's are not);
-    - ``traced_launches``: K1-K4 launches of one call in its device trace,
+    - ``traced_launches``: K1-K4 and K7 launches of one call in its device trace,
       by name (replayed graphs included); null on the CPU;
     - ``device_ops``, ``busy_ms``: the device operations of one call under
       torch.profiler and the time they kept the device busy (intervals
