@@ -7,6 +7,16 @@ Counterpart of the JAX package's ``odometry/pipeline.py`` (reference
     propagate -> submap select/assemble -> S2M GICP -> staged-gate rescue ->
     pose -> keyframe spawn -> carry scan as next target
 
+The stages are module functions, called in that order by
+:func:`odom_frame`, which opens a ``step.*`` span around each (they open
+none): :func:`front` (preprocess, spaciousness, keyframe threshold),
+:func:`_scan_normals`, the S2S plan :func:`s2s_passes` with
+:func:`s2s_align` each, :func:`submap_stage`, :func:`s2m_stage` and the
+rescue :func:`rescue_stage`, :func:`keyframe_stage`, and :func:`finish`
+(the next state and the :class:`FrameResult`). The stage tools
+(``tools_torch/ablate_step.py``, ``profile_stages.py``,
+``micro_align.py``) call them too.
+
 The first frame goes through :func:`init_frame` (``initializeInputTarget``,
 ``odom.cc:472-507``). Shapes are fixed by ``cfg.shapes``. PyTorch runs
 eagerly, so the JAX package's ``lax.cond`` branches become Python ``if`` on
@@ -32,7 +42,13 @@ over a leading lane dimension, each kernel launched (or each tensor-op
 search run) once for all lanes, the three branches
 (rescue, submap rebuild, keyframe spawn) one host read of a [B] flag each,
 run for the lanes that need them. Each lane equals the single-sequence
-:func:`odom_frame` with ``hull_masks=None``.
+:func:`odom_frame` with ``hull_masks=None``. The batched step shares the
+pieces that do not depend on the lanes (:func:`front`,
+:func:`s2s_passes` with :func:`s2s_target`, :func:`s2m_target`,
+:func:`rescue_due`, :func:`wide_gate`, :func:`guarded_pose`,
+:func:`finish`; those that must differ by lanes branch on a tensor's
+rank) and runs its lanes through the batched forms (``gicp.align_batched``,
+``submap.assemble_submap_batched``, ``keyframes.maybe_spawn_batched``).
 """
 
 from __future__ import annotations
@@ -41,7 +57,7 @@ import dataclasses
 
 import torch
 
-from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend
+from direct_lidar_odometry_tpu_torch.config import DloConfig, GicpStageConfig, resolve_backend
 from direct_lidar_odometry_tpu_torch.core import se3
 from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud, gather_rows
 from direct_lidar_odometry_tpu_torch.ops import hashgrid, morton, preprocess as prep, voxel
@@ -144,6 +160,222 @@ def _guess(cfg: DloConfig, state: OdomState, imu_prior: torch.Tensor) -> torch.T
     return imu_prior  # reference behavior (odom.cc:801-806)
 
 
+def front(cfg: DloConfig, state: OdomState, raw_points: torch.Tensor, raw_mask: torch.Tensor,
+          backend: str) -> tuple[PointCloud, torch.Tensor, torch.Tensor]:
+    """The frame's scan (:func:`preprocess_scan`), the low-passed
+    spaciousness and the keyframe distance threshold it sets
+    (``odom.cc:650-659, 1188-1199``); each lane's over raw clouds
+    [B, N, ...]."""
+    scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
+    spac = adaptive.update_spaciousness(
+        state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
+    )
+    if cfg.adaptive.use:
+        thresh_dist = adaptive.keyframe_thresh_from_spaciousness(spac)
+    else:
+        thresh_dist = torch.full_like(spac, cfg.keyframe.thresh_dist)
+    return scan, spac, thresh_dist
+
+
+def coarse_stride(cfg: DloConfig) -> int:
+    """The coarse S2S stride: ``gicp.s2s_coarse_stride``, lowered to the
+    nearest stride whose strided scan keeps whole Morton chunks."""
+    cs = max(1, int(cfg.gicp.s2s_coarse_stride))
+    while cs > 1 and (cfg.shapes.n_scan // cs) % morton.TARGET_CHUNK != 0:
+        cs -= 1
+    return cs
+
+
+def s2s_passes(cfg: DloConfig) -> list[tuple[int, GicpStageConfig]]:
+    """(stride, stage config) of each S2S align (``odom.cc:801-809``), in
+    order, each seeded by the one before; the last is the S2S result.
+    Coarse to fine: at a :func:`coarse_stride` > 1 an align over every
+    stride-th point of the Morton-sorted clouds, capped at
+    ``s2s_coarse_max_iterations``, then the full-resolution align with the
+    reference's own convergence criteria, only with ``s2s_full_polish``
+    (see GicpConfig.s2s_coarse_stride); at stride 1 the full align alone."""
+    cs = coarse_stride(cfg)
+    s2s = cfg.gicp.s2s
+    passes = []
+    if cs > 1:
+        passes.append((cs, dataclasses.replace(
+            s2s, max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, s2s.max_iterations))))
+    if cs == 1 or cfg.gicp.s2s_full_polish:
+        passes.append((1, s2s))
+    return passes
+
+
+def strided(tensors, stride: int) -> tuple:
+    """Every ``stride``-th row of each tensor, made contiguous (each lane's
+    rows when the first, the points, is [B, N, 3]); at stride 1 the
+    tensors themselves."""
+    if stride == 1:
+        return tuple(tensors)
+    rows = (slice(None),) * (tensors[0].dim() - 2) + (slice(None, None, stride),)
+    return tuple(t[rows].contiguous() for t in tensors)
+
+
+def s2s_target(cfg: DloConfig, state: OdomState, stride: int, backend: str) -> gicp.GicpTarget:
+    """The S2S target: every ``stride``-th point of the previous scan, with
+    its normals."""
+    prev = strided((state.prev_points, state.prev_mask, state.prev_normals,
+                    state.prev_normals_valid), stride)
+    return gicp.make_target(*prev, cfg.gicp.s2s.max_correspondence_distance,
+                            cfg.shapes.grid_table_size, backend)
+
+
+def s2s_align(cfg: DloConfig, state: OdomState, src: gicp.GicpSource, guess: torch.Tensor,
+              stride: int, stage: GicpStageConfig, backend: str) -> gicp.GicpResult:
+    """One align of :func:`s2s_passes`: every ``stride``-th point of the
+    scan onto :func:`s2s_target`, from ``guess``."""
+    src = gicp.GicpSource(*strided(src, stride))
+    return gicp.align(src, s2s_target(cfg, state, stride, backend), guess, stage, backend,
+                      cfg.shapes.cell_cap_1nn)
+
+
+def submap_stage(cfg: DloConfig, state: OdomState, t_s2s_global: torch.Tensor,
+                 thresh_dist: torch.Tensor, directions: torch.Tensor,
+                 hull_masks: tuple[torch.Tensor, torch.Tensor, bool] | None,
+                 backend: str) -> tuple[OdomState, torch.Tensor]:
+    """The submap's keyframes around the S2S-propagated position, and the
+    submap rebuilt if they changed (``odom.cc:825-834``): the state and
+    the changed flag."""
+    query_pos = se3.se3_translation(t_s2s_global)
+    sel = submap.select_submap_keyframes(
+        state.keyframes, state.submap_members, query_pos, thresh_dist, cfg, directions, hull_masks,
+    )
+    return submap.assemble_submap(state, sel, query_pos, cfg, backend)
+
+
+def s2m_target(state: OdomState, backend: str) -> gicp.GicpTarget:
+    """The S2M target over the state's submap (each lane's with lanes)."""
+    cloud = (state.submap_points, state.submap_mask, state.submap_normals,
+             state.submap_normals_valid)
+    if gicp.is_pallas(backend):
+        # the submap is Z-ordered at assembly; its AABBs are cheap per frame
+        return gicp.make_target(*cloud)
+    # "hashgrid": the grid built at assembly; "brute": no index
+    return gicp.GicpTarget(*cloud, grid=state.submap_grid)
+
+
+def rescue_due(cfg: DloConfig, src: gicp.GicpSource, s2s_res: gicp.GicpResult,
+               s2m_res: gicp.GicpResult) -> torch.Tensor:
+    """Whether the staged-gate rescue (GicpConfig.s2m_rescue) is due, on
+    the device: either stage's per-correspondence Mahalanobis error says
+    the solver stalled outside the tight S2M basin. [B] with lanes."""
+    s2s_per = _per_corr(s2s_res)
+    s2m_per = _per_corr(s2m_res)
+    n_valid_src = torch.clamp(torch.sum(src.mask.to(torch.int32), dim=-1), min=1).to(torch.float32)
+    corr_frac = s2m_res.num_correspondences.to(torch.float32) / n_valid_src
+    s2m_unhealthy = (
+        (s2m_per > cfg.gicp.rescue_s2m_error)
+        | (corr_frac < cfg.gicp.rescue_min_corr_frac)
+        | (s2m_res.num_correspondences == 0)
+    )
+    s2s_alarm = (s2s_per > cfg.gicp.rescue_s2s_error) & (
+        s2m_per > cfg.gicp.rescue_s2m_corroborate * cfg.gicp.rescue_s2m_error
+    )
+    return s2m_unhealthy | s2s_alarm
+
+
+def wide_gate(cfg: DloConfig) -> GicpStageConfig:
+    """The rescue's first align: the S2M stage at ``rescue_corr_distance``."""
+    return dataclasses.replace(cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance)
+
+
+def s2m_stage(cfg: DloConfig, state: OdomState, src: gicp.GicpSource, guess: torch.Tensor,
+              s2s_res: gicp.GicpResult, backend: str,
+              ) -> tuple[gicp.GicpTarget, gicp.GicpResult, bool]:
+    """S2M, the scan against the submap from the S2S-propagated ``guess``
+    (``odom.cc:837-847``): the target, the result, and whether the rescue
+    is due (one host read, with ``s2m_rescue``)."""
+    target = s2m_target(state, backend)
+    res = gicp.align(src, target, guess, cfg.gicp.s2m, backend, cfg.shapes.cell_cap_1nn)
+    return target, res, cfg.gicp.s2m_rescue and sync.read(rescue_due(cfg, src, s2s_res, res))
+
+
+def rescue_stage(cfg: DloConfig, src: gicp.GicpSource, target: gicp.GicpTarget,
+                 guess: torch.Tensor, backend: str) -> gicp.GicpResult:
+    """The staged-gate rescue: register with the wide gate from ``guess``,
+    then re-refine on the S2M ``target`` at the reference gate."""
+    wide_target = target
+    if backend == "hashgrid":
+        # the grid's cell is the build radius: the wide gate needs its own
+        # grid over the same submap
+        wide_target = gicp.make_target(*target[:4], cfg.gicp.rescue_corr_distance,
+                                       cfg.shapes.submap_table_size, backend)
+    cap = cfg.shapes.cell_cap_1nn
+    r1 = gicp.align(src, wide_target, guess, wide_gate(cfg), backend, cap)
+    return gicp.align(src, target, r1.transform, cfg.gicp.s2m, backend, cap)
+
+
+def guarded_pose(s2m_res: gicp.GicpResult, t_s2s_global: torch.Tensor) -> torch.Tensor:
+    """The frame's pose: the S2M estimate, or the S2S-propagated pose where
+    S2M found no correspondences (tracking lost) rather than garbage."""
+    return torch.where((s2m_res.num_correspondences > 0)[..., None, None], s2m_res.transform,
+                       t_s2s_global)
+
+
+def keyframe_stage(cfg: DloConfig, state: OdomState, scan: PointCloud, pose: torch.Tensor,
+                   thresh_dist: torch.Tensor, s2m_res: gicp.GicpResult, backend: str):
+    """The keyframe spawn (``odom.cc:678, 1097-1181``): (store, spawned,
+    evicted, slot)."""
+    return keyframes.maybe_spawn(state.keyframes, scan, pose, cfg, thresh_dist,
+                                 seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend)
+
+
+def _relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return se3.se3_inverse(a) @ b
+
+
+def finish(state: OdomState, scan: PointCloud, nrm: covariance.Normals, spac: torch.Tensor,
+           thresh_dist: torch.Tensor, pose: torch.Tensor, s2s_res: gicp.GicpResult,
+           s2m_res: gicp.GicpResult, submap_changed: torch.Tensor,
+           spawn: tuple) -> tuple[OdomState, FrameResult]:
+    """The next state, which carries the scan as the next S2S target, and
+    the frame's :class:`FrameResult`; ``spawn`` is the keyframe stage's
+    (store, spawned, evicted, slot). Each lane's with lanes."""
+    kf, spawned, kf_evicted, kf_slot = spawn
+    # eviction rewrote a slot under a possibly-unchanged membership mask:
+    # clearing the cached members forces a submap rebuild next frame
+    submap_members = torch.where(kf_evicted[..., None], False, state.submap_members)
+    new_state = state._replace(
+        submap_members=submap_members,
+        pose=pose,
+        t_s2s=pose,  # T_s2s_prev <- T (odom.cc:843)
+        last_delta=(per_lane(_relative, state.pose, pose) if pose.dim() == 3
+                    else _relative(state.pose, pose)),
+        prev_points=scan.points,
+        prev_mask=scan.mask,
+        prev_normals=nrm.normals,
+        prev_normals_valid=nrm.valid,
+        keyframes=kf,
+        spaciousness=spac,
+        frame_idx=state.frame_idx + 1,
+    )
+    result = FrameResult(
+        pose=pose,
+        position=se3.se3_translation(pose),
+        quat=se3.rotmat_to_quat(se3.se3_rotation(pose)),
+        new_keyframe=spawned,
+        kf_slot=kf_slot,
+        kf_evicted=kf_evicted,
+        num_keyframes=kf.count,
+        submap_changed=submap_changed,
+        spaciousness=spac,
+        keyframe_thresh_dist=thresh_dist,
+        s2s_iterations=s2s_res.iterations,
+        s2s_error=s2s_res.final_error,
+        s2s_num_corr=s2s_res.num_correspondences,
+        s2s_converged=s2s_res.converged,
+        s2m_iterations=s2m_res.iterations,
+        s2m_error=s2m_res.final_error,
+        s2m_num_corr=s2m_res.num_correspondences,
+        s2m_converged=s2m_res.converged,
+    )
+    return new_state, result
+
+
 def odom_frame(
     cfg: DloConfig,
     directions: torch.Tensor,
@@ -173,167 +405,34 @@ def _odom_frame(
     hull_masks: tuple[torch.Tensor, torch.Tensor, bool] | None,
 ) -> tuple[OdomState, FrameResult]:
     backend = resolve_backend(cfg)
-    shapes = cfg.shapes
-    cap = shapes.cell_cap_1nn
-    # --- preprocessing + metrics (odom.cc:650-659) ---
     with sync.span("step.preprocess"):
-        scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
-        spac = adaptive.update_spaciousness(
-            state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
-        )
-        if cfg.adaptive.use:
-            thresh_dist = adaptive.keyframe_thresh_from_spaciousness(spac)
-        else:
-            thresh_dist = torch.full_like(spac, cfg.keyframe.thresh_dist)
-
-    # --- per-scan normals, computed exactly once (odom.cc:815,818) ---
+        scan, spac, thresh_dist = front(cfg, state, raw_points, raw_mask, backend)
+    # per-scan normals, computed exactly once (odom.cc:815,818)
     with sync.span("step.normals"):
         nrm = _scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(
         points=scan.points, mask=scan.mask, normals=nrm.normals, normals_valid=nrm.valid,
     )
-
-    # --- S2S: current scan against previous scan (odom.cc:801-809) ---
     guess = _guess(cfg, state, imu_prior)
-
-    # Coarse-to-fine S2S: a coarse align over every cs-th point of the
-    # Morton-sorted clouds seeds the full-resolution align, which keeps the
-    # reference's own convergence criteria (see GicpConfig.s2s_coarse_stride).
-    # The strided views are made contiguous here, at the call site.
-    cs = max(1, int(cfg.gicp.s2s_coarse_stride))
-    while cs > 1 and (shapes.n_scan // cs) % morton.TARGET_CHUNK != 0:
-        cs -= 1  # degrade to the nearest stride that keeps chunk alignment
-    coarse_res = None
-    if cs > 1:
-        with sync.span("step.s2s_coarse"):
-            coarse_src = gicp.GicpSource(*(t[::cs].contiguous() for t in src))
-            coarse_target = gicp.make_target(
-                state.prev_points[::cs].contiguous(), state.prev_mask[::cs].contiguous(),
-                state.prev_normals[::cs].contiguous(),
-                state.prev_normals_valid[::cs].contiguous(),
-                cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
-            )
-            coarse_cfg = dataclasses.replace(
-                cfg.gicp.s2s,
-                max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations),
-            )
-            coarse_res = gicp.align(coarse_src, coarse_target, guess, coarse_cfg, backend, cap)
-        guess = coarse_res.transform
-    if coarse_res is not None and not cfg.gicp.s2s_full_polish:
-        s2s_res = coarse_res
-    else:
-        with sync.span("step.s2s"):
-            s2s_target = gicp.make_target(
-                state.prev_points, state.prev_mask, state.prev_normals, state.prev_normals_valid,
-                cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
-            )
-            s2s_res = gicp.align(src, s2s_target, guess, cfg.gicp.s2s, backend, cap)
-
-    # --- propagate S2S into the global frame (odom.cc:812, 926-943) ---
+    for stride, stage in s2s_passes(cfg):
+        with sync.span("step.s2s_coarse" if stride > 1 else "step.s2s"):
+            s2s_res = s2s_align(cfg, state, src, guess, stride, stage, backend)
+        guess = s2s_res.transform
+    # propagate S2S into the global frame (odom.cc:812, 926-943)
     t_s2s_global = state.t_s2s @ s2s_res.transform
-
-    # --- submap selection + assembly (odom.cc:825-834) ---
     with sync.span("step.submap"):
-        query_pos = se3.se3_translation(t_s2s_global)
-        sel = submap.select_submap_keyframes(
-            state.keyframes, state.submap_members, query_pos, thresh_dist, cfg,
-            directions, hull_masks,
-        )
-        state, submap_changed = submap.assemble_submap(state, sel, query_pos, cfg, backend)
-
-    # --- S2M: scan against submap, S2S-propagated guess (odom.cc:837-847) ---
+        state, submap_changed = submap_stage(cfg, state, t_s2s_global, thresh_dist, directions,
+                                             hull_masks, backend)
     with sync.span("step.s2m"):
-        submap_cloud = (state.submap_points, state.submap_mask, state.submap_normals,
-                        state.submap_normals_valid)
-        if gicp.is_pallas(backend):
-            # the submap is Z-ordered at assembly; its AABBs are cheap per frame
-            s2m_target = gicp.make_target(*submap_cloud)
-        else:
-            # "hashgrid": the grid built at assembly; "brute": no index
-            s2m_target = gicp.GicpTarget(*submap_cloud, grid=state.submap_grid)
-        s2m_res = gicp.align(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend, cap)
-        rescue = False
-        if cfg.gicp.s2m_rescue:
-            # Staged-gate rescue (GicpConfig.s2m_rescue): when either stage's
-            # per-correspondence Mahalanobis error says the solver stalled
-            # outside the tight S2M basin, re-register with the wide gate and
-            # re-refine at the reference gate (step.rescue).
-            s2s_per = _per_corr(s2s_res)
-            s2m_per = _per_corr(s2m_res)
-            n_valid_src = torch.clamp(torch.sum(src.mask.to(torch.int32)), min=1).to(torch.float32)
-            corr_frac = s2m_res.num_correspondences.to(torch.float32) / n_valid_src
-            s2m_unhealthy = (
-                (s2m_per > cfg.gicp.rescue_s2m_error)
-                | (corr_frac < cfg.gicp.rescue_min_corr_frac)
-                | (s2m_res.num_correspondences == 0)
-            )
-            s2s_alarm = (s2s_per > cfg.gicp.rescue_s2s_error) & (
-                s2m_per > cfg.gicp.rescue_s2m_corroborate * cfg.gicp.rescue_s2m_error
-            )
-            rescue = sync.read(s2m_unhealthy | s2s_alarm)
+        s2m_tgt, s2m_res, rescue = s2m_stage(cfg, state, src, t_s2s_global, s2s_res, backend)
     if rescue:
         with sync.span("step.rescue"):
-            wide_cfg = dataclasses.replace(
-                cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance,
-            )
-            wide_target = s2m_target
-            if backend == "hashgrid":
-                # the grid's cell is the build radius: the wide gate needs
-                # its own grid over the same submap
-                wide_target = gicp.make_target(*submap_cloud, cfg.gicp.rescue_corr_distance,
-                                               shapes.submap_table_size, backend)
-            r1 = gicp.align(src, wide_target, t_s2s_global, wide_cfg, backend, cap)
-            s2m_res = gicp.align(src, s2m_target, r1.transform, cfg.gicp.s2m, backend, cap)
-
-    # guard: no submap correspondences (tracking lost) -> keep the
-    # S2S-propagated pose rather than garbage
-    pose = torch.where(s2m_res.num_correspondences > 0, s2m_res.transform, t_s2s_global)
-
-    # --- keyframing (odom.cc:678, 1097-1181) ---
+            s2m_res = rescue_stage(cfg, src, s2m_tgt, t_s2s_global, backend)
+    pose = guarded_pose(s2m_res, t_s2s_global)
     with sync.span("step.keyframe"):
-        kf, spawned, kf_evicted, kf_slot = keyframes.maybe_spawn(
-            state.keyframes, scan, pose, cfg, thresh_dist,
-            seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend,
-        )
-
-    # eviction rewrote a slot under a possibly-unchanged membership mask:
-    # clearing the cached members forces a submap rebuild next frame
-    submap_members = torch.where(kf_evicted, False, state.submap_members)
-
-    new_state = state._replace(
-        submap_members=submap_members,
-        pose=pose,
-        t_s2s=pose,  # T_s2s_prev <- T (odom.cc:843)
-        last_delta=se3.se3_inverse(state.pose) @ pose,
-        prev_points=scan.points,
-        prev_mask=scan.mask,
-        prev_normals=nrm.normals,
-        prev_normals_valid=nrm.valid,
-        keyframes=kf,
-        spaciousness=spac,
-        frame_idx=state.frame_idx + 1,
-    )
-    result = FrameResult(
-        pose=pose,
-        position=se3.se3_translation(pose),
-        quat=se3.rotmat_to_quat(se3.se3_rotation(pose)),
-        new_keyframe=spawned,
-        kf_slot=kf_slot,
-        kf_evicted=kf_evicted,
-        num_keyframes=kf.count,
-        submap_changed=submap_changed,
-        spaciousness=spac,
-        keyframe_thresh_dist=thresh_dist,
-        s2s_iterations=s2s_res.iterations,
-        s2s_error=s2s_res.final_error,
-        s2s_num_corr=s2s_res.num_correspondences,
-        s2s_converged=s2s_res.converged,
-        s2m_iterations=s2m_res.iterations,
-        s2m_error=s2m_res.final_error,
-        s2m_num_corr=s2m_res.num_correspondences,
-        s2m_converged=s2m_res.converged,
-    )
-    return new_state, result
+        spawn = keyframe_stage(cfg, state, scan, pose, thresh_dist, s2m_res, backend)
+    return finish(state, scan, nrm, spac, thresh_dist, pose, s2s_res, s2m_res, submap_changed,
+                  spawn)
 
 
 def _select(flags: torch.Tensor, new: gicp.GicpResult, old: gicp.GicpResult) -> gicp.GicpResult:
@@ -363,148 +462,57 @@ def odom_frame_batched(
     :func:`odom_frame`.
     """
     backend = resolve_backend(cfg)
-    shapes = cfg.shapes
-    cap = shapes.cell_cap_1nn
-    scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
-    spac = adaptive.update_spaciousness(
-        state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
-    )
-    if cfg.adaptive.use:
-        thresh_dist = adaptive.keyframe_thresh_from_spaciousness(spac)
-    else:
-        thresh_dist = torch.full_like(spac, cfg.keyframe.thresh_dist)
-
+    cap = cfg.shapes.cell_cap_1nn
+    scan, spac, thresh_dist = front(cfg, state, raw_points, raw_mask, backend)
     nrm = _scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(
         points=scan.points, mask=scan.mask, normals=nrm.normals, normals_valid=nrm.valid,
     )
-
-    # --- S2S, coarse then full, as odom_frame ---
     guess = _guess(cfg, state, imu_prior)
-    cs = max(1, int(cfg.gicp.s2s_coarse_stride))
-    while cs > 1 and (shapes.n_scan // cs) % morton.TARGET_CHUNK != 0:
-        cs -= 1
-    coarse_res = None
-    if cs > 1:
-        coarse_src = gicp.GicpSource(*(t[:, ::cs].contiguous() for t in src))
-        coarse_target = gicp.make_target(
-            state.prev_points[:, ::cs].contiguous(), state.prev_mask[:, ::cs].contiguous(),
-            state.prev_normals[:, ::cs].contiguous(),
-            state.prev_normals_valid[:, ::cs].contiguous(),
-            cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
-        )
-        coarse_cfg = dataclasses.replace(
-            cfg.gicp.s2s,
-            max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations),
-        )
-        coarse_res = gicp.align_batched(coarse_src, coarse_target, guess, coarse_cfg, backend,
-                                        cap=cap)
-        guess = coarse_res.transform
-    if coarse_res is not None and not cfg.gicp.s2s_full_polish:
-        s2s_res = coarse_res
-    else:
-        s2s_target = gicp.make_target(
-            state.prev_points, state.prev_mask, state.prev_normals, state.prev_normals_valid,
-            cfg.gicp.s2s.max_correspondence_distance, shapes.grid_table_size, backend,
-        )
-        s2s_res = gicp.align_batched(src, s2s_target, guess, cfg.gicp.s2s, backend, cap=cap)
+    for stride, stage in s2s_passes(cfg):
+        s2s_res = gicp.align_batched(gicp.GicpSource(*strided(src, stride)),
+                                     s2s_target(cfg, state, stride, backend), guess, stage,
+                                     backend, cap=cap)
+        guess = s2s_res.transform
     t_s2s_global = per_lane(torch.matmul, state.t_s2s, s2s_res.transform)
 
-    # --- submap selection + assembly ---
     query_pos = se3.se3_translation(t_s2s_global)
     sel = submap.select_submap_keyframes(
         state.keyframes, state.submap_members, query_pos, thresh_dist, cfg, directions,
     )
     state, submap_changed = submap.assemble_submap_batched(state, sel, query_pos, cfg, backend)
 
-    # --- S2M, and the staged-gate rescue for the lanes that need it ---
-    submap_cloud = (state.submap_points, state.submap_mask, state.submap_normals,
-                    state.submap_normals_valid)
-    if gicp.is_pallas(backend):
-        s2m_target = gicp.make_target(*submap_cloud)
-    else:
-        s2m_target = gicp.GicpTarget(*submap_cloud, grid=state.submap_grid)
-    s2m_res = gicp.align_batched(src, s2m_target, t_s2s_global, cfg.gicp.s2m, backend, cap=cap)
+    # S2M, and the staged-gate rescue for the lanes that need it
+    s2m_tgt = s2m_target(state, backend)
+    s2m_res = gicp.align_batched(src, s2m_tgt, t_s2s_global, cfg.gicp.s2m, backend, cap=cap)
     if cfg.gicp.s2m_rescue:
-        s2s_per = _per_corr(s2s_res)
-        s2m_per = _per_corr(s2m_res)
-        n_valid_src = torch.clamp(torch.sum(src.mask.to(torch.int32), dim=-1), min=1)
-        corr_frac = s2m_res.num_correspondences.to(torch.float32) / n_valid_src.to(torch.float32)
-        s2m_unhealthy = (
-            (s2m_per > cfg.gicp.rescue_s2m_error)
-            | (corr_frac < cfg.gicp.rescue_min_corr_frac)
-            | (s2m_res.num_correspondences == 0)
-        )
-        s2s_alarm = (s2s_per > cfg.gicp.rescue_s2s_error) & (
-            s2m_per > cfg.gicp.rescue_s2m_corroborate * cfg.gicp.rescue_s2m_error
-        )
-        rescue = s2m_unhealthy | s2s_alarm
+        rescue = rescue_due(cfg, src, s2s_res, s2m_res)
         rescue_h = sync.read(rescue)
         if any(rescue_h):
-            wide_cfg = dataclasses.replace(
-                cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance,
-            )
             active = (rescue, rescue_h)
-            wide_target = s2m_target
+            wide_target = s2m_tgt
             if backend == "hashgrid":
                 # the wide gate's own grid, built for the rescued lanes
                 # alone; the other lanes keep their S2M grid (their results
                 # are not used)
                 lanes = lanes_where(rescue, sum(rescue_h))
                 wide = hashgrid.build(state.submap_points[lanes], state.submap_mask[lanes],
-                                      cfg.gicp.rescue_corr_distance, shapes.submap_table_size)
-                wide_target = s2m_target._replace(grid=hashgrid.HashGrid(
+                                      cfg.gicp.rescue_corr_distance, cfg.shapes.submap_table_size)
+                wide_target = s2m_tgt._replace(grid=hashgrid.HashGrid(
                     *(g.index_copy(0, lanes, w) for g, w in zip(state.submap_grid, wide))))
-            r1 = gicp.align_batched(src, wide_target, t_s2s_global, wide_cfg, backend, active,
-                                    cap=cap)
-            r2 = gicp.align_batched(src, s2m_target, r1.transform, cfg.gicp.s2m, backend, active,
+            r1 = gicp.align_batched(src, wide_target, t_s2s_global, wide_gate(cfg), backend,
+                                    active, cap=cap)
+            r2 = gicp.align_batched(src, s2m_tgt, r1.transform, cfg.gicp.s2m, backend, active,
                                     cap=cap)
             s2m_res = _select(rescue, r2, s2m_res)
+    pose = guarded_pose(s2m_res, t_s2s_global)
 
-    pose = torch.where((s2m_res.num_correspondences > 0)[:, None, None], s2m_res.transform,
-                       t_s2s_global)
-
-    # --- keyframing ---
-    kf, spawned, kf_evicted, kf_slot = keyframes.maybe_spawn_batched(
+    spawn = keyframes.maybe_spawn_batched(
         state.keyframes, scan, pose, cfg, thresh_dist,
         seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend,
     )
-    submap_members = torch.where(kf_evicted[:, None], False, state.submap_members)
-
-    new_state = state._replace(
-        submap_members=submap_members,
-        pose=pose,
-        t_s2s=pose,
-        last_delta=per_lane(lambda a, b: se3.se3_inverse(a) @ b, state.pose, pose),
-        prev_points=scan.points,
-        prev_mask=scan.mask,
-        prev_normals=nrm.normals,
-        prev_normals_valid=nrm.valid,
-        keyframes=kf,
-        spaciousness=spac,
-        frame_idx=state.frame_idx + 1,
-    )
-    result = FrameResult(
-        pose=pose,
-        position=se3.se3_translation(pose),
-        quat=se3.rotmat_to_quat(se3.se3_rotation(pose)),
-        new_keyframe=spawned,
-        kf_slot=kf_slot,
-        kf_evicted=kf_evicted,
-        num_keyframes=kf.count,
-        submap_changed=submap_changed,
-        spaciousness=spac,
-        keyframe_thresh_dist=thresh_dist,
-        s2s_iterations=s2s_res.iterations,
-        s2s_error=s2s_res.final_error,
-        s2s_num_corr=s2s_res.num_correspondences,
-        s2s_converged=s2s_res.converged,
-        s2m_iterations=s2m_res.iterations,
-        s2m_error=s2m_res.final_error,
-        s2m_num_corr=s2m_res.num_correspondences,
-        s2m_converged=s2m_res.converged,
-    )
-    return new_state, result
+    return finish(state, scan, nrm, spac, thresh_dist, pose, s2s_res, s2m_res, submap_changed,
+                  spawn)
 
 
 def fresh_state(cfg: DloConfig, initial_pose: torch.Tensor | None = None, device="cuda") -> OdomState:

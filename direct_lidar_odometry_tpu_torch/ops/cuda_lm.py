@@ -15,8 +15,9 @@ Counterpart of the LM inner step of the JAX package's
 - :func:`reorthonormalize` is the same for one [4, 4] pose: a one-thread
   launch on a CUDA tensor, :func:`reorthonormalize_plain` on a CPU tensor.
 - The plain helpers (:func:`solve6`, :func:`is_converged`,
-  :func:`compute_error_plain`) also serve ``registration/gicp.py``'s
-  Gauss-Newton step and its batched ``align_batched``.
+  :func:`compute_error_plain`, :func:`reorthonormalize_plain`) also serve
+  ``registration/gicp.py``'s Gauss-Newton step and ``align_batched``'s
+  host loop, each of one lane or of B.
 
 The kernel needs a workspace of its own (:func:`workspace`): the blocks'
 partial error sums, the trial's error and rho (:data:`ERROR_SLOT`,
@@ -71,11 +72,11 @@ def solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def is_converged(delta: torch.Tensor, rotation_epsilon: float,
                  transformation_epsilon: float) -> torch.Tensor:
-    """Reference lsq_registration_impl.hpp:118-127 (device bool)."""
-    r = delta[:3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
-    t = delta[:3, 3]
-    r_max = torch.max(torch.abs(r)) / rotation_epsilon
-    t_max = torch.max(torch.abs(t)) / transformation_epsilon
+    """Reference lsq_registration_impl.hpp:118-127 (device bool); of each
+    lane, [B], for [B, 4, 4] steps."""
+    r = delta[..., :3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
+    r_max = torch.amax(torch.abs(r), dim=(-2, -1)) / rotation_epsilon
+    t_max = torch.amax(torch.abs(delta[..., :3, 3]), dim=-1) / transformation_epsilon
     return torch.maximum(r_max, t_max) < 1.0
 
 

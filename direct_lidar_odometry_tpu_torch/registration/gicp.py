@@ -15,9 +15,9 @@ Counterpart of the JAX package's ``registration/gicp.py`` (the reference's
   cell); the last two are tensor ops, no hand kernel;
 - ``_linearize`` (``:213-270``): residuals, Jacobians and the H/b sums; on
   the ``"pallas_fused"`` backend all of it, search included, is kernel K3
-  (``ops/cuda_gicp.py``);
-- ``_compute_error`` (``:272-296``): error with frozen correspondences,
-  for the LM gain-ratio test;
+  (``ops/cuda_gicp.py``); of one lane or of B;
+- ``ops/cuda_lm.compute_error_plain`` (``:272-296``): error with frozen
+  correspondences, for the LM gain-ratio test;
 - :func:`align` (``lsq_registration_impl.hpp:89-208``): the outer loop and
   the LM inner retry loop, with the reference's lambda/nu schedule, the
   rho gain test and the convergence test
@@ -38,8 +38,8 @@ operations one by one.
 
 :func:`align_batched` registers B independent lanes at once on every
 backend (the JAX package's ``align`` under ``jax.vmap``): sources,
-targets (a hash grid too) and guesses carry a leading [B], every search or
-fused linearization is one launch or one tensor-op pass over all lanes, and each lane's LM state (x,
+targets (a hash grid too) and guesses carry a leading [B], ``_linearize``
+serves all lanes at once, and each lane's LM state (x,
 lambda, nu, iterations, converged, failed) lives in [B] tensors. The loops
 run while any lane is live; a lane that has finished keeps its carry
 frozen (``torch.where``), and each inner iteration still reads its flags,
@@ -210,12 +210,14 @@ def _linearize(
     backend "pallas_fused": one pass of kernel K3 (search, Mahalanobis and
     the H/b sums). ``seed_corr``: previous-iteration correspondences that
     warm-start K3's branch-and-bound (the result is exactly the unseeded
-    one; :func:`align` does not seed, as in the JAX package).
+    one; :func:`align` does not seed, as in the JAX package). Over B lanes
+    (x0 [B, 4, 4], clouds [B, N, ...]) one search, one K3 launch or one
+    tensor-op pass serves them all, and each lane's sums run in the
+    single-sequence operations (``utils/lanes.per_lane``).
     """
     if backend == "pallas_fused":
-        r = x0[:3, :3]
         p_t = se3.transform_points(x0, src.points)
-        m0 = src.normals @ r.T
+        m0 = src.normals @ x0[..., :3, :3].mT
         fl = cuda_gicp.fused_linearize(
             target.points, target.mask, target.normals, target.normals_valid,
             target.chunk_lo, target.chunk_hi, p_t, m0, src.mask & src.normals_valid,
@@ -226,9 +228,11 @@ def _linearize(
 
     corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend,
                                                                 cap)
-    j = torch.clamp(corr, min=0)
-    mu_b = target.points[j]
-    h, b, err, n_corr = _normal_equations(p_t, mu_b, weight, mahal)
+    mu_b = gather_rows(target.points, torch.clamp(corr, min=0))
+    if x0.dim() == 3:
+        h, b, err, n_corr = per_lane(_normal_equations, p_t, mu_b, weight, mahal)
+    else:
+        h, b, err, n_corr = _normal_equations(p_t, mu_b, weight, mahal)
     return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
                           mu_b=mu_b, n_b=n_b, m0=m0, n_corr=n_corr)
 
@@ -256,23 +260,6 @@ def _normal_equations(p_t, mu_b, weight, mahal):
     b = torch.cat([b_top, b_bot])
     n_corr = torch.sum(weight).to(torch.int32)
     return h, b, err, n_corr
-
-
-def _compute_error(x0: torch.Tensor, src: GicpSource, lin: _Linearization) -> torch.Tensor:
-    """Reference nano_gicp_impl.hpp:272-296 with frozen correspondences
-    (``ops/cuda_lm.compute_error_plain``); with B lanes (x0 [B, 4, 4]) the
-    error of each lane, [B]."""
-    return cuda_lm.compute_error_plain(x0, src.points, lin.mu_b, lin.n_b, lin.m0, lin.weight,
-                                       PLANE_EPS)
-
-
-def _is_converged(delta: torch.Tensor, cfg: GicpStageConfig) -> torch.Tensor:
-    """Reference lsq_registration_impl.hpp:118-127 (device bool)."""
-    return cuda_lm.is_converged(delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
-
-
-_reorthonormalize = cuda_lm.reorthonormalize_plain
-_solve6 = cuda_lm.solve6
 
 
 class _LmState(NamedTuple):
@@ -323,10 +310,10 @@ def _iteration(st: _LmState, src: GicpSource, target: GicpTarget, cfg: GicpStage
         st.fresh.fill_(False)
         st.nu.fill_(2.0)
         return lin, _lm_trial(st, src, lin, cfg)
-    d = _solve6(lin.h, lin.b)
+    d = cuda_lm.solve6(lin.h, lin.b)
     delta = se3.se3_exp(d)
-    st.x.copy_(_reorthonormalize(delta @ st.x))
-    return lin, _is_converged(delta, cfg)
+    st.x.copy_(cuda_lm.reorthonormalize_plain(delta @ st.x))
+    return lin, cuda_lm.is_converged(delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
 
 
 def _clone(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -544,41 +531,6 @@ def align(
     )
 
 
-def _linearize_batched(
-    x0: torch.Tensor, src: GicpSource, target: GicpTarget, cfg: GicpStageConfig, backend: str,
-    cap: int = 16,
-) -> _Linearization:
-    """:func:`_linearize` over B lanes (x0 [B, 4, 4], clouds [B, N, ...]):
-    one K2/K4 search, one fused K3 launch or one tensor-op search for all
-    lanes, then each lane's masked reduction in :func:`_linearize`'s own
-    operations."""
-    if backend == "pallas_fused":
-        p_t = se3.transform_points(x0, src.points)
-        m0 = src.normals @ x0[:, :3, :3].mT
-        fl = cuda_gicp.fused_linearize(
-            target.points, target.mask, target.normals, target.normals_valid,
-            target.chunk_lo, target.chunk_hi, p_t, m0, src.mask & src.normals_valid,
-            cfg.max_correspondence_distance, PLANE_EPS,
-        )
-        return _Linearization(h=fl.h, b=fl.b, error=fl.error, corr=fl.corr, weight=fl.weight,
-                              mu_b=fl.mu_b, n_b=fl.n_b, m0=m0, n_corr=fl.n_corr)
-
-    corr, weight, mahal, p_t, n_b, m0 = _update_correspondences(x0, src, target, cfg, backend,
-                                                                cap)
-    mu_b = gather_rows(target.points, torch.clamp(corr, min=0))
-    h, b, err, n_corr = per_lane(_normal_equations, p_t, mu_b, weight, mahal)
-    return _Linearization(h=h, b=b, error=err, corr=corr, weight=weight,
-                          mu_b=mu_b, n_b=n_b, m0=m0, n_corr=n_corr)
-
-
-def _is_converged_batched(delta: torch.Tensor, cfg: GicpStageConfig) -> torch.Tensor:
-    """:func:`_is_converged` of each lane: [B, 4, 4] -> [B] bool."""
-    r = delta[:, :3, :3] - torch.eye(3, dtype=delta.dtype, device=delta.device)
-    r_max = torch.amax(torch.abs(r), dim=(-2, -1)) / cfg.rotation_epsilon
-    t_max = torch.amax(torch.abs(delta[:, :3, 3]), dim=-1) / cfg.transformation_epsilon
-    return torch.maximum(r_max, t_max) < 1.0
-
-
 def align_batched(
     src: GicpSource,
     target: GicpTarget,
@@ -607,7 +559,7 @@ def align_batched(
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     use_lm = cfg.optimizer == "lm"
 
-    x = _reorthonormalize(guess.to(torch.float32))
+    x = cuda_lm.reorthonormalize_plain(guess.to(torch.float32))
     if active is None:
         live_dev = torch.ones((lanes,), dtype=torch.bool, device=dev)
         live = [True] * lanes
@@ -622,7 +574,7 @@ def align_batched(
     nc_fin = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     lam = None
     while any(live):
-        lin = _linearize_batched(x, src, target, cfg, backend, cap)
+        lin = _linearize(x, src, target, cfg, backend, cap=cap)
         if use_lm:
             # step_lm (lsq_registration_impl.hpp:161-208), lane by lane
             if lam is None:  # every lane's first linearization
@@ -637,14 +589,16 @@ def align_batched(
             for _ in range(cfg.lm_max_iterations):
                 if not any(inner):
                     break
-                d = _solve6(lin.h + lam[:, None, None] * eye6, lin.b)
+                d = cuda_lm.solve6(lin.h + lam[:, None, None] * eye6, lin.b)
                 delta = se3.se3_exp(d)
-                xi = _reorthonormalize(per_lane(torch.matmul, delta, x))
-                yi = _compute_error(xi, src, lin)
+                xi = cuda_lm.reorthonormalize_plain(per_lane(torch.matmul, delta, x))
+                yi = cuda_lm.compute_error_plain(xi, src.points, lin.mu_b, lin.n_b, lin.m0,
+                                                 lin.weight, PLANE_EPS)
                 denom = per_lane(torch.dot, d, lam[:, None] * d - lin.b)
                 denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
                 rho = (lin.error - yi) / denom
-                flags = torch.stack([rho >= 0.0, _is_converged_batched(delta, cfg)])
+                flags = torch.stack([rho >= 0.0, cuda_lm.is_converged(
+                    delta, cfg.rotation_epsilon, cfg.transformation_epsilon)])
                 accept_h, conv_h = sync.read(flags)
                 accept, stop = flags[0], flags[0] | flags[1]
                 acc = inner_dev & accept
@@ -664,10 +618,10 @@ def align_batched(
                         ok[b], conv[b], inner[b] = True, bool(conv_h[b]), False
         else:
             # step_gn (lsq_registration_impl.hpp:142-158)
-            d = _solve6(lin.h, lin.b)
+            d = cuda_lm.solve6(lin.h, lin.b)
             delta = se3.se3_exp(d)
-            x_new = _reorthonormalize(per_lane(torch.matmul, delta, x))
-            conv_in = _is_converged_batched(delta, cfg)
+            x_new = cuda_lm.reorthonormalize_plain(per_lane(torch.matmul, delta, x))
+            conv_in = cuda_lm.is_converged(delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
             conv = sync.read(conv_in)
             ok, ok_dev = list(live), live_dev
         moved = live_dev & ok_dev

@@ -12,7 +12,7 @@ lane dimension of kernels K1-K4, on the CPU.
   worlds, and each lane against the port's own single-sequence
   ``odom_frame(hull_masks=None)``, also with lanes that take different
   branches in one step (a spawn in one lane only, the rescue in one lane
-  only);
+  only), and without the S2S polish;
 - host reads a step do not grow with B.
 
 The same on "brute" and "hashgrid": ``tests/test_torch_batched_backends.py``;
@@ -429,6 +429,26 @@ def test_lanes_taking_different_branches(two_worlds, port_drive, singles):
     assert seen and all(a == [False, True] for a in seen)
     _assert_lane_equals_single(res, 0, singles[0][0])
     _assert_lane_equals_single(res, 1, _port_single(cfg, lane1)[0])
+
+
+def test_lanes_without_the_s2s_polish_equal_their_single_runs(two_worlds):
+    """With ``gicp.s2s_full_polish`` off the S2S plan ends at the coarse
+    align (``pipeline.s2s_passes``), in the batched step as in the single
+    one: two lanes over three frames each equal their own single-sequence
+    run bit for bit."""
+    _, frames = two_worlds
+    frames = frames[:3]
+    base = _port_cfg(pallas_cfg())
+    cfg = base.replace(gicp=dataclasses.replace(base.gicp, s2s_full_polish=False))
+    assert [stride for stride, _ in tpipe.s2s_passes(cfg)] == [4]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        res, _ = _port_batched(cfg, frames)
+        for b in range(2):
+            _assert_lane_equals_single(res, b, _port_single(cfg, [f[b] for f in frames])[0])
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_host_reads_do_not_grow_with_lanes(two_worlds, port_drive, singles):

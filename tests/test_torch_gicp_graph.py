@@ -22,6 +22,7 @@ from direct_lidar_odometry_tpu_torch.config import DloConfig, ShapeConfig
 from direct_lidar_odometry_tpu_torch.core import se3
 from direct_lidar_odometry_tpu_torch.io import synthetic
 from direct_lidar_odometry_tpu_torch.odometry import pipeline
+from direct_lidar_odometry_tpu_torch.ops import cuda_lm
 from direct_lidar_odometry_tpu_torch.registration import covariance, gicp
 from direct_lidar_odometry_tpu_torch.utils import sync
 
@@ -45,7 +46,7 @@ def _host_loop_align(src, target, guess, cfg, backend="pallas", cap=16):
     """``align`` as it was with its LM state on the host (the oracle)."""
     dev = guess.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    x = gicp._reorthonormalize(guess.to(torch.float32))
+    x = cuda_lm.reorthonormalize_plain(guess.to(torch.float32))
     lam = None
     h_fin = eye6
     err_fin = torch.zeros((), dtype=torch.float32, device=dev)
@@ -60,15 +61,17 @@ def _host_loop_align(src, target, guess, cfg, backend="pallas", cap=16):
             ok, conv, x_new = False, False, x
             for _ in range(cfg.lm_max_iterations):
                 steps += 1
-                d = gicp._solve6(lin.h + lam * eye6, lin.b)
+                d = cuda_lm.solve6(lin.h + lam * eye6, lin.b)
                 delta = se3.se3_exp(d)
-                xi = gicp._reorthonormalize(delta @ x)
-                yi = gicp._compute_error(xi, src, lin)
+                xi = cuda_lm.reorthonormalize_plain(delta @ x)
+                yi = cuda_lm.compute_error_plain(xi, src.points, lin.mu_b, lin.n_b, lin.m0,
+                                                 lin.weight, covariance.PLANE_EPS)
                 denom = torch.dot(d, lam * d - lin.b)
                 denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
                 rho = (lin.error - yi) / denom
                 accept = bool(rho >= 0.0)
-                conv = bool(gicp._is_converged(delta, cfg))
+                conv = bool(cuda_lm.is_converged(delta, cfg.rotation_epsilon,
+                                                 cfg.transformation_epsilon))
                 if accept:
                     lam = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
                     x_new = xi
@@ -80,10 +83,11 @@ def _host_loop_align(src, target, guess, cfg, backend="pallas", cap=16):
                     break
         else:
             steps += 1
-            d = gicp._solve6(lin.h, lin.b)
+            d = cuda_lm.solve6(lin.h, lin.b)
             delta = se3.se3_exp(d)
-            x_new = gicp._reorthonormalize(delta @ x)
-            ok, conv = True, bool(gicp._is_converged(delta, cfg))
+            x_new = cuda_lm.reorthonormalize_plain(delta @ x)
+            ok, conv = True, bool(cuda_lm.is_converged(delta, cfg.rotation_epsilon,
+                                                       cfg.transformation_epsilon))
         converged = ok and conv
         failed = not ok
         if ok:

@@ -8,8 +8,13 @@ Port of the JAX package's ``tools/ablate_step.py``.
 the step skips (the conditional submap rebuild and keyframe spawn) or runs
 at reduced resolution (the coarse S2S). This tool times CUMULATIVE
 PREFIXES of the port's own ``pipeline.odom_frame``, so that successive
-deltas attribute the whole step. The prefixes keep the step's wiring: the
-S2S guess of ``pipeline._guess``, the coarse stride with its
+deltas attribute the whole step. The prefixes call the step's own stage
+functions (``pipeline.front``, ``_scan_normals``, ``s2s_passes`` and
+``s2s_align``, ``submap_stage``, ``s2m_stage`` and ``rescue_stage``,
+``keyframe_stage``) in its order and return at the stop ("preprocess"
+takes in the spaciousness and the keyframe threshold, as the step's
+``step.preprocess`` span does), so they keep its wiring: the S2S guess of
+``pipeline._guess``, the coarse stride with its
 ``s2s_coarse_max_iterations`` cap, the full-resolution S2S only when
 ``gicp.s2s_full_polish`` is set (or the stride is 1), the submap's
 rebuild-if-changed read, the staged-gate rescue with its host read, and
@@ -34,7 +39,6 @@ one; on the CPU call :func:`run` with ``device="cpu"`` and a small config.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import sys
@@ -48,123 +52,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench_torch import make_bench_world, production_cfg  # noqa: E402
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend  # noqa: E402
-from direct_lidar_odometry_tpu_torch.core import cloud as cl, se3  # noqa: E402
+from direct_lidar_odometry_tpu_torch.core import cloud as cl  # noqa: E402
 from direct_lidar_odometry_tpu_torch.io import synthetic  # noqa: E402
-from direct_lidar_odometry_tpu_torch.odometry import (  # noqa: E402
-    adaptive, hulls, keyframes, pipeline, submap,
-)
+from direct_lidar_odometry_tpu_torch.odometry import hulls, pipeline  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.state import OdomState, clone_state  # noqa: E402
-from direct_lidar_odometry_tpu_torch.ops import morton  # noqa: E402
 from direct_lidar_odometry_tpu_torch.parallel.sharded import require_device  # noqa: E402
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
-from direct_lidar_odometry_tpu_torch.utils import sync  # noqa: E402
 from tools_torch import devprof  # noqa: E402
 
 STOPS = ("preprocess", "normals", "s2s_coarse", "s2s", "submap", "s2m", "full")
 ROUNDS = 3  # the JAX tool's best of 3
 
 
-# ---------------------------------------------------------------- the wiring
-def coarse_stride(cfg: DloConfig) -> int:
-    """The coarse S2S stride ``odom_frame`` uses: ``s2s_coarse_stride``,
-    lowered until the strided scan keeps whole Morton chunks."""
-    cs = max(1, int(cfg.gicp.s2s_coarse_stride))
-    while cs > 1 and (cfg.shapes.n_scan // cs) % morton.TARGET_CHUNK != 0:
-        cs -= 1
-    return cs
-
-
-def s2s_passes(cfg: DloConfig) -> list:
-    """(stride, stage config) of each S2S align ``odom_frame`` runs, in
-    order: the capped coarse align when the stride is > 1, then the
-    full-resolution align when the stride is 1 or ``s2s_full_polish``."""
-    cs = coarse_stride(cfg)
-    passes = []
-    if cs > 1:
-        passes.append((cs, dataclasses.replace(
-            cfg.gicp.s2s,
-            max_iterations=min(cfg.gicp.s2s_coarse_max_iterations, cfg.gicp.s2s.max_iterations))))
-    if cs == 1 or cfg.gicp.s2s_full_polish:
-        passes.append((1, cfg.gicp.s2s))
-    return passes
-
-
+# ---------------------------------------------------------------- the prefixes
 def stops(cfg: DloConfig) -> list[str]:
     """The stops of this configuration ("s2s_coarse" only at a stride > 1)."""
-    return [s for s in STOPS if s != "s2s_coarse" or coarse_stride(cfg) > 1]
-
-
-def _strided(tensors, stride: int) -> tuple:
-    return tuple(t[::stride].contiguous() for t in tensors) if stride > 1 else tuple(tensors)
-
-
-def s2s_target(cfg: DloConfig, state: OdomState, backend: str, stride: int) -> gicp.GicpTarget:
-    """The S2S target over every ``stride``-th point of the previous scan."""
-    prev = _strided((state.prev_points, state.prev_mask, state.prev_normals,
-                     state.prev_normals_valid), stride)
-    return gicp.make_target(*prev, cfg.gicp.s2s.max_correspondence_distance,
-                            cfg.shapes.grid_table_size, backend)
-
-
-def s2s_aligns(cfg: DloConfig, src: gicp.GicpSource, targets: list, guess: torch.Tensor,
-               backend: str) -> list:
-    """The S2S aligns of :func:`s2s_passes` on their ``targets``, each
-    seeded by the one before; the last is the step's S2S result."""
-    results = []
-    for (stride, stage), target in zip(s2s_passes(cfg), targets):
-        res = gicp.align(gicp.GicpSource(*_strided(src, stride)), target, guess, stage, backend,
-                         cfg.shapes.cell_cap_1nn)
-        guess = res.transform
-        results.append(res)
-    return results
-
-
-def s2m_align(cfg: DloConfig, state: OdomState, src: gicp.GicpSource, guess: torch.Tensor,
-              s2s_res: gicp.GicpResult, backend: str) -> gicp.GicpResult:
-    """S2M against the state's submap from the S2S-propagated ``guess``,
-    then the staged-gate rescue with its host read, as ``odom_frame``."""
-    shapes = cfg.shapes
-    cap = shapes.cell_cap_1nn
-    submap_cloud = (state.submap_points, state.submap_mask, state.submap_normals,
-                    state.submap_normals_valid)
-    if gicp.is_pallas(backend):
-        s2m_target = gicp.make_target(*submap_cloud)
-    else:
-        s2m_target = gicp.GicpTarget(*submap_cloud, grid=state.submap_grid)
-    s2m_res = gicp.align(src, s2m_target, guess, cfg.gicp.s2m, backend, cap)
-    if not cfg.gicp.s2m_rescue:
-        return s2m_res
-    s2s_per = pipeline._per_corr(s2s_res)
-    s2m_per = pipeline._per_corr(s2m_res)
-    n_valid_src = torch.clamp(torch.sum(src.mask.to(torch.int32)), min=1).to(torch.float32)
-    corr_frac = s2m_res.num_correspondences.to(torch.float32) / n_valid_src
-    s2m_unhealthy = (
-        (s2m_per > cfg.gicp.rescue_s2m_error)
-        | (corr_frac < cfg.gicp.rescue_min_corr_frac)
-        | (s2m_res.num_correspondences == 0)
-    )
-    s2s_alarm = (s2s_per > cfg.gicp.rescue_s2s_error) & (
-        s2m_per > cfg.gicp.rescue_s2m_corroborate * cfg.gicp.rescue_s2m_error
-    )
-    if sync.read(s2m_unhealthy | s2s_alarm):
-        wide_cfg = dataclasses.replace(
-            cfg.gicp.s2m, max_correspondence_distance=cfg.gicp.rescue_corr_distance)
-        wide_target = s2m_target
-        if backend == "hashgrid":
-            wide_target = gicp.make_target(*submap_cloud, cfg.gicp.rescue_corr_distance,
-                                           shapes.submap_table_size, backend)
-        r1 = gicp.align(src, wide_target, guess, wide_cfg, backend, cap)
-        s2m_res = gicp.align(src, s2m_target, r1.transform, cfg.gicp.s2m, backend, cap)
-    return s2m_res
-
-
-def thresh_dist(cfg: DloConfig, spac: torch.Tensor) -> torch.Tensor:
-    """The keyframe distance threshold ``odom_frame`` derives from the
-    spaciousness."""
-    if cfg.adaptive.use:
-        return adaptive.keyframe_thresh_from_spaciousness(spac)
-    return torch.full_like(spac, cfg.keyframe.thresh_dist)
+    return [s for s in STOPS if s != "s2s_coarse" or pipeline.coarse_stride(cfg) > 1]
 
 
 def prefix(stop: str, cfg: DloConfig | None = None):
@@ -187,38 +91,35 @@ def prefix(stop: str, cfg: DloConfig | None = None):
         if dev not in directions:
             directions[dev] = torch.from_numpy(
                 hulls.fibonacci_directions(cfg.shapes.hull_directions)).to(dev)
-        scan = pipeline.preprocess_scan(raw_points, raw_mask, cfg, backend)
+        scan, _, thresh = pipeline.front(cfg, state, raw_points, raw_mask, backend)
         if stop == "preprocess":
             return scan
-        spac = adaptive.update_spaciousness(state.spaciousness, scan.points, scan.mask,
-                                            cfg.adaptive.lpf_alpha)
-        thresh = thresh_dist(cfg, spac)
         nrm = pipeline._scan_normals(scan, cfg, backend)
         if stop == "normals":
             return nrm
         src = gicp.GicpSource(scan.points, scan.mask, nrm.normals, nrm.valid)
         guess = pipeline._guess(cfg, state, imu_prior)
-        passes = s2s_passes(cfg)
-        if stop == "s2s_coarse":
-            passes = passes[:1]
-        targets = [s2s_target(cfg, state, backend, stride) for stride, _ in passes]
-        s2s_res = s2s_aligns(cfg, src, targets, guess, backend)[-1]
-        if stop in ("s2s_coarse", "s2s"):
+        for stride, stage in pipeline.s2s_passes(cfg):
+            s2s_res = pipeline.s2s_align(cfg, state, src, guess, stride, stage, backend)
+            guess = s2s_res.transform
+            if stop == "s2s_coarse":
+                return s2s_res
+        if stop == "s2s":
             return s2s_res
         t_s2s_global = state.t_s2s @ s2s_res.transform
-        query_pos = se3.se3_translation(t_s2s_global)
-        sel = submap.select_submap_keyframes(state.keyframes, state.submap_members, query_pos,
-                                             thresh, cfg, directions[dev])
-        state, _ = submap.assemble_submap(state, sel, query_pos, cfg, backend)
+        state, _ = pipeline.submap_stage(cfg, state, t_s2s_global, thresh, directions[dev], None,
+                                         backend)
         if stop == "submap":
             return cl.PointCloud(state.submap_points, state.submap_mask)
-        s2m_res = s2m_align(cfg, state, src, t_s2s_global, s2s_res, backend)
+        target, s2m_res, rescue = pipeline.s2m_stage(cfg, state, src, t_s2s_global, s2s_res,
+                                                     backend)
+        if rescue:
+            s2m_res = pipeline.rescue_stage(cfg, src, target, t_s2s_global, backend)
         if stop == "s2m":
             return s2m_res
-        pose = torch.where(s2m_res.num_correspondences > 0, s2m_res.transform, t_s2s_global)
-        kf, spawned, _, _ = keyframes.maybe_spawn(
-            state.keyframes, scan, pose, cfg, thresh, seq=state.frame_idx,
-            health=pipeline._per_corr(s2m_res), backend=backend)
+        pose = pipeline.guarded_pose(s2m_res, t_s2s_global)
+        kf, spawned, _, _ = pipeline.keyframe_stage(cfg, state, scan, pose, thresh, s2m_res,
+                                                    backend)
         return kf.count, spawned, pose
 
     return fn
@@ -307,7 +208,7 @@ def run(small: bool = False, device="cuda", cfg: DloConfig | None = None, frames
     fr = capture_frame(cfg, small, device, frames)
     cfg, dev = fr.cfg, fr.device
     print(f"# device={dev.type} backend={resolve_backend(cfg)} n_scan={cfg.shapes.n_scan} "
-          f"stride={coarse_stride(cfg)} polish={cfg.gicp.s2s_full_polish}", file=sys.stderr)
+          f"stride={pipeline.coarse_stride(cfg)} polish={cfg.gicp.s2s_full_polish}", file=sys.stderr)
     args = (fr.points, fr.mask, fr.imu_prior)
 
     def call(fn, st):

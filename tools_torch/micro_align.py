@@ -36,9 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench_torch import production_cfg  # noqa: E402
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend  # noqa: E402
-from direct_lidar_odometry_tpu_torch.core import se3  # noqa: E402
 from direct_lidar_odometry_tpu_torch.core.cloud import PointCloud  # noqa: E402
-from direct_lidar_odometry_tpu_torch.odometry import keyframes, pipeline, submap  # noqa: E402
+from direct_lidar_odometry_tpu_torch.odometry import keyframes, pipeline  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.state import clone_state  # noqa: E402
 from direct_lidar_odometry_tpu_torch.ops import cuda_nn, morton, preprocess as prep, voxel  # noqa: E402
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
@@ -79,7 +78,7 @@ def run(device="cuda", cfg: DloConfig | None = None, frames: int = 3, n: int = 2
     scan = pipeline.preprocess_scan(pts, msk, cfg, backend)
     nrm = pipeline._scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(scan.points, scan.mask, nrm.normals, nrm.valid)
-    tgt = ablate_step.s2s_target(cfg, state, backend, 1)
+    tgt = pipeline.s2s_target(cfg, state, 1, backend)
     g = state.last_delta
     r = cfg.gicp.s2s.max_correspondence_distance
     res = gicp.align(src, tgt, g, cfg.gicp.s2s, backend, cap)
@@ -93,20 +92,15 @@ def run(device="cuda", cfg: DloConfig | None = None, frames: int = 3, n: int = 2
     c0 = prep.preprocess(PointCloud(pts, msk), crop)
     cv = voxel.voxel_downsample(c0, cfg.preprocessing.voxel_scan.res,
                                 out_capacity=cfg.shapes.n_scan)
-    qpos = se3.se3_translation(state.pose)
     five = torch.tensor(5.0, device=dev)
 
     def submap_fn(st):
-        sel = submap.select_submap_keyframes(st.keyframes, st.submap_members, qpos, five, cfg,
-                                             fr.directions)
-        return submap.assemble_submap(st, sel, qpos, cfg, backend)[0].submap_points
+        return pipeline.submap_stage(cfg, st, state.pose, five, fr.directions, None,
+                                     backend)[0].submap_points
 
     def s2m_fn():
-        t = gicp.make_target(state.submap_points, state.submap_mask, state.submap_normals,
-                             state.submap_normals_valid) if gicp.is_pallas(backend) else \
-            gicp.GicpTarget(state.submap_points, state.submap_mask, state.submap_normals,
-                            state.submap_normals_valid, grid=state.submap_grid)
-        return gicp.align(src, t, state.pose, cfg.gicp.s2m, backend, cap)
+        return gicp.align(src, pipeline.s2m_target(state, backend), state.pose, cfg.gicp.s2m,
+                          backend, cap)
 
     st_sub, st_full = clone_state(state), clone_state(state)
     kf_ring = clone_state(state.keyframes)
@@ -121,7 +115,7 @@ def run(device="cuda", cfg: DloConfig | None = None, frames: int = 3, n: int = 2
                                        out_capacity=cfg.shapes.n_scan),
         lambda: morton.sort_order(cv.points, cv.mask),
         lambda: pipeline._scan_normals(scan, cfg, backend),
-        lambda: ablate_step.s2s_target(cfg, state, backend, 1),
+        lambda: pipeline.s2s_target(cfg, state, 1, backend),
         lambda: submap_fn(st_sub),
         s2m_fn,
         lambda: keyframes.maybe_spawn(kf_ring, scan, state.pose, cfg, five,

@@ -8,15 +8,18 @@ Measures each stage of ``pipeline.odom_frame`` as a call of its own on real
 data: the bench frame of ``ablate_step.capture_frame`` (``bench.py``'s
 operating point and world, the state after 8 frames through
 ``OdometryRunner``, frame 8 encoded as the runner encodes it, the transfer
-not quantized). Rows, in the JAX tool's order and under its names:
-"preprocess+morton", "normals", "s2s make_target" (the S2S targets the
+not quantized). Rows, in the JAX tool's order and under its names, each
+calling the step's own stage functions (``pipeline.py``):
+"preprocess+morton" (``front``: the scan, spaciousness and keyframe
+threshold), "normals", "s2s make_target" (the S2S targets the
 step builds: the strided one at the coarse stride, the full-resolution one
 only with ``s2s_full_polish``), "s2s align" (the step's S2S aligns, seeded
-as in the step), "submap select+assemble" (spaciousness, selection through
-the device hull surrogates, the rebuild if the members changed), "s2m
-align" (S2M and the staged-gate rescue), "keyframe maybe_spawn" (the
-step's pose, threshold, sequence number and health; ``spawned`` says
-whether it spawned) and "FULL step (odom_frame)". Each row carries
+as in the step), "submap select+assemble" (``submap_stage``: selection
+through the device hull surrogates, the rebuild if the members changed),
+"s2m align" (``s2m_stage`` and the staged-gate rescue), "keyframe
+maybe_spawn" (``keyframe_stage`` on the step's pose, threshold, sequence
+number and health; ``spawned`` says whether it spawned) and "FULL step
+(odom_frame)". Each row carries
 ``devprof.stage_profile``'s columns: the median synced ms of ``n`` calls,
 the device operations and busy ms of one call (torch.profiler), its host
 reads and its K1-K6 launches. A stage that writes the state in place runs
@@ -36,33 +39,18 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench_torch import production_cfg  # noqa: E402
 from direct_lidar_odometry_tpu_torch.config import DloConfig, resolve_backend  # noqa: E402
-from direct_lidar_odometry_tpu_torch.core import se3  # noqa: E402
-from direct_lidar_odometry_tpu_torch.odometry import adaptive, keyframes, pipeline, submap  # noqa: E402
+from direct_lidar_odometry_tpu_torch.odometry import pipeline  # noqa: E402
 from direct_lidar_odometry_tpu_torch.odometry.state import clone_state  # noqa: E402
 from direct_lidar_odometry_tpu_torch.registration import gicp  # noqa: E402
 from tools_torch import ablate_step, devprof  # noqa: E402
 
 STAGES = ("preprocess+morton", "normals", "s2s make_target", "s2s align",
           "submap select+assemble", "s2m align", "keyframe maybe_spawn", "FULL step (odom_frame)")
-
-
-def submap_stage(cfg: DloConfig, state, scan, t_s2s_global, directions, backend):
-    """Spaciousness, threshold, submap selection and assembly, as the step
-    runs them; returns (state, threshold)."""
-    spac = adaptive.update_spaciousness(state.spaciousness, scan.points, scan.mask,
-                                        cfg.adaptive.lpf_alpha)
-    thresh = ablate_step.thresh_dist(cfg, spac)
-    query_pos = se3.se3_translation(t_s2s_global)
-    sel = submap.select_submap_keyframes(state.keyframes, state.submap_members, query_pos,
-                                         thresh, cfg, directions)
-    state, _ = submap.assemble_submap(state, sel, query_pos, cfg, backend)
-    return state, thresh
 
 
 def run(small: bool = False, device="cuda", cfg: DloConfig | None = None, frames: int = 8,
@@ -81,31 +69,44 @@ def run(small: bool = False, device="cuda", cfg: DloConfig | None = None, frames
           file=sys.stderr)
 
     # the stages' inputs, each the output of the stage before, as in the step
-    scan = pipeline.preprocess_scan(fr.points, fr.mask, cfg, backend)
+    scan, _, thresh = pipeline.front(cfg, state, fr.points, fr.mask, backend)
     nrm = pipeline._scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(scan.points, scan.mask, nrm.normals, nrm.valid)
     guess = pipeline._guess(cfg, state, fr.imu_prior)
-    passes = ablate_step.s2s_passes(cfg)
-    targets = [ablate_step.s2s_target(cfg, state, backend, s) for s, _ in passes]
-    s2s = ablate_step.s2s_aligns(cfg, src, targets, guess, backend)
+    passes = pipeline.s2s_passes(cfg)
+    targets = [pipeline.s2s_target(cfg, state, s, backend) for s, _ in passes]
+
+    def s2s_aligns():  # the step's S2S aligns on the targets built above
+        res, g = [], guess
+        for (stride, stage), target in zip(passes, targets):
+            res.append(gicp.align(gicp.GicpSource(*pipeline.strided(src, stride)), target, g,
+                                  stage, backend, cfg.shapes.cell_cap_1nn))
+            g = res[-1].transform
+        return res
+
+    def s2m(st):  # S2M and the rescue, as the step runs them
+        target, res, rescue = pipeline.s2m_stage(cfg, st, src, t_global, s2s[-1], backend)
+        return pipeline.rescue_stage(cfg, src, target, t_global, backend) if rescue else res
+
+    s2s = s2s_aligns()
     t_global = state.t_s2s @ s2s[-1].transform
-    state2, thresh = submap_stage(cfg, clone_state(state), scan, t_global, fr.directions, backend)
-    s2m_res = ablate_step.s2m_align(cfg, state2, src, t_global, s2s[-1], backend)
-    pose = torch.where(s2m_res.num_correspondences > 0, s2m_res.transform, t_global)
+    state2, _ = pipeline.submap_stage(cfg, clone_state(state), t_global, thresh, fr.directions,
+                                      None, backend)
+    s2m_res = s2m(state2)
+    pose = pipeline.guarded_pose(s2m_res, t_global)
     print(f"# s2s iters={[r.iterations for r in s2s]} s2m iters={s2m_res.iterations}",
           file=sys.stderr)
 
     st_sub, st_full = clone_state(state), clone_state(state)
-    kf_ring = clone_state(state2.keyframes)
+    st_kf = state2._replace(keyframes=clone_state(state2.keyframes))
     stages = [
-        lambda: pipeline.preprocess_scan(fr.points, fr.mask, cfg, backend),
+        lambda: pipeline.front(cfg, state, fr.points, fr.mask, backend),
         lambda: pipeline._scan_normals(scan, cfg, backend),
-        lambda: [ablate_step.s2s_target(cfg, state, backend, s) for s, _ in passes],
-        lambda: ablate_step.s2s_aligns(cfg, src, targets, guess, backend),
-        lambda: submap_stage(cfg, st_sub, scan, t_global, fr.directions, backend),
-        lambda: ablate_step.s2m_align(cfg, state2, src, t_global, s2s[-1], backend),
-        lambda: keyframes.maybe_spawn(kf_ring, scan, pose, cfg, thresh, seq=state.frame_idx,
-                                      health=pipeline._per_corr(s2m_res), backend=backend),
+        lambda: [pipeline.s2s_target(cfg, state, s, backend) for s, _ in passes],
+        s2s_aligns,
+        lambda: pipeline.submap_stage(cfg, st_sub, t_global, thresh, fr.directions, None, backend),
+        lambda: s2m(state2),
+        lambda: pipeline.keyframe_stage(cfg, st_kf, scan, pose, thresh, s2m_res, backend),
         lambda: pipeline.odom_frame(cfg, fr.directions, st_full, fr.points, fr.mask,
                                     fr.imu_prior),
     ]
