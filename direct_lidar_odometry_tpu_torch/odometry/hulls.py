@@ -51,7 +51,7 @@ def convex_membership(
     best = torch.argmax(proj, dim=-2)  # [..., D]
     members = torch.zeros(mask.shape, dtype=torch.bool, device=positions.device)
     if best.dim() == 1:
-        members[best] = True
+        members.index_fill_(0, best, True)
     else:
         members.scatter_(-1, best, True)
     enough = torch.sum(mask, dim=-1, keepdim=True) >= 4

@@ -26,8 +26,8 @@ from direct_lidar_odometry_tpu_torch.core.cloud import PAD_VALUE, PointCloud
 from direct_lidar_odometry_tpu_torch.ops import morton, voxel
 from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore
 from direct_lidar_odometry_tpu_torch.registration import covariance, gicp
-from direct_lidar_odometry_tpu_torch.utils import sync
-from direct_lidar_odometry_tpu_torch.utils.lanes import lane_rows, lanes_where
+from direct_lidar_odometry_tpu_torch.utils import graphs, sync
+from direct_lidar_odometry_tpu_torch.utils.lanes import lanes_where, take_row
 
 
 class KeyframeDecision(NamedTuple):
@@ -50,9 +50,9 @@ def decide(
     d = torch.linalg.norm(kf.positions - position[..., None, :], dim=-1)
     d = torch.where(kmask, d, torch.inf)
     num_nearby = torch.sum((d <= thresh_dist[..., None] * 1.5) & kmask, dim=-1).to(torch.int32)
-    closest = lane_rows(torch.argmin(d, dim=-1))
-    dd = sync.index(d, closest)
-    theta_deg = se3.quat_angle_deg(quat, sync.index(kf.quats, closest))
+    closest = torch.argmin(d, dim=-1)
+    dd = take_row(d, closest)
+    theta_deg = se3.quat_angle_deg(quat, take_row(kf.quats, closest))
     spawn = (dd > thresh_dist) | ((theta_deg > thresh_rot_deg) & (num_nearby <= 1))
     # no keyframes yet -> always spawn
     spawn = spawn | (kf.count == 0)
@@ -107,8 +107,8 @@ def _eviction_slot(positions: torch.Tensor, position: torch.Tensor) -> torch.Ten
     d2 = d2 + torch.where(eye, torch.inf, 0.0)
     flat = torch.argmin(d2.flatten(-2), dim=-1)
     i, j = flat // k, flat % k
-    di = torch.sum((sync.index(positions, lane_rows(i)) - position) ** 2, dim=-1)
-    dj = torch.sum((sync.index(positions, lane_rows(j)) - position) ** 2, dim=-1)
+    di = torch.sum((take_row(positions, i) - position) ** 2, dim=-1)
+    dj = torch.sum((take_row(positions, j) - position) ** 2, dim=-1)
     return torch.where(di > dj, i, j)
 
 
@@ -164,6 +164,24 @@ def insert(
     return kf._replace(count=new_count), full, idx.to(torch.int32)
 
 
+def _decision(kf: KeyframeStore, pose: torch.Tensor, thresh_dist: torch.Tensor,
+              thresh_rot_deg: float) -> tuple[torch.Tensor, torch.Tensor, KeyframeDecision]:
+    """The pose's position and quaternion, and :func:`decide` there."""
+    position = se3.se3_translation(pose)
+    quat = se3.rotmat_to_quat(se3.se3_rotation(pose))
+    return position, quat, decide(kf, position, quat, thresh_dist, thresh_rot_deg)
+
+
+def _spawn(kf: KeyframeStore, scan: PointCloud, pose: torch.Tensor, position: torch.Tensor,
+           quat: torch.Tensor, cfg: DloConfig, seq: torch.Tensor | None,
+           health: torch.Tensor | None, backend: str | None):
+    """The keyframe cloud of the scan at ``pose``, inserted into the ring in
+    place: (new count, evicted, slot)."""
+    cloud, nrm = make_keyframe_cloud(scan, pose, cfg, backend)
+    new_kf, evicted, slot = insert(kf, position, quat, cloud, nrm, seq=seq, health=health)
+    return new_kf.count, evicted, slot
+
+
 def maybe_spawn(
     kf: KeyframeStore,
     scan: PointCloud,
@@ -173,19 +191,19 @@ def maybe_spawn(
     seq: torch.Tensor | None = None,
     health: torch.Tensor | None = None,
     backend: str | None = None,
+    run=graphs.eager,
 ) -> tuple[KeyframeStore, bool, torch.Tensor, torch.Tensor]:
     """Full updateKeyframes step. Returns (store, spawned, evicted, slot);
     slot is the written ring index, or -1 if no keyframe spawned. One host
-    read (the spawn decision) replaces the JAX package's ``lax.cond``."""
-    position = se3.se3_translation(pose)
-    quat = se3.rotmat_to_quat(se3.se3_rotation(pose))
-    dec = decide(kf, position, quat, thresh_dist, cfg.keyframe.thresh_rot)
+    read (the spawn decision) replaces the JAX package's ``lax.cond``; the
+    decision and the spawn are stretches of ``run`` (``utils/graphs.py``;
+    run eagerly by default)."""
+    position, quat, dec = run(_decision, kf, pose, thresh_dist, cfg.keyframe.thresh_rot)
     if not sync.read(dec.spawn):
         no = torch.zeros((), dtype=torch.bool, device=pose.device)
         return kf, False, no, torch.full((), -1, dtype=torch.int32, device=pose.device)
-    cloud, nrm = make_keyframe_cloud(scan, pose, cfg, backend)
-    new_kf, evicted, slot = insert(kf, position, quat, cloud, nrm, seq=seq, health=health)
-    return new_kf, True, evicted, slot
+    count, evicted, slot = run(_spawn, kf, scan, pose, position, quat, cfg, seq, health, backend)
+    return kf._replace(count=count), True, evicted, slot
 
 
 def maybe_spawn_batched(
@@ -205,9 +223,7 @@ def maybe_spawn_batched(
     keyframe clouds built together and written into their rings. Returns
     (store, spawned [B] bool, evicted [B] bool, slot [B] int32, -1 where
     none)."""
-    position = se3.se3_translation(pose)
-    quat = se3.rotmat_to_quat(se3.se3_rotation(pose))
-    dec = decide(kf, position, quat, thresh_dist, cfg.keyframe.thresh_rot)
+    position, quat, dec = _decision(kf, pose, thresh_dist, cfg.keyframe.thresh_rot)
     evicted = torch.zeros_like(dec.spawn)
     slot = torch.full(dec.spawn.shape, -1, dtype=torch.int32, device=pose.device)
     n = sum(sync.read(dec.spawn))

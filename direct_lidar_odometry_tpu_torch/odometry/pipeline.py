@@ -22,6 +22,14 @@ The first frame goes through :func:`init_frame` (``initializeInputTarget``,
 eagerly, so the JAX package's ``lax.cond`` branches become Python ``if`` on
 host reads (``utils/sync.py``): the rescue trigger, the submap change and
 the keyframe spawn, one read each per frame, besides GICP's loop exits.
+Between them, on a CUDA device with a pruned-kernel backend,
+:func:`odom_frame` replays each stretch outside GICP from a CUDA graph
+captured on its first use (``utils/graphs.py``, :func:`_stretches`): the
+front and the normals, the submap selection and rebuild, the keyframe
+decision and spawn, and what the frame hands on (:func:`_carried`). The
+stage functions take that runner as ``run``; the CPU, "brute",
+"hashgrid", the batched step and the stage tools run the same stage
+functions operation by operation.
 
 The backend (``config.resolve_backend``) picks each stage's branch, as in
 the JAX package: on the pruned-kernel backends the scan and the submap are
@@ -64,7 +72,7 @@ from direct_lidar_odometry_tpu_torch.ops import hashgrid, morton, preprocess as 
 from direct_lidar_odometry_tpu_torch.odometry import adaptive, keyframes, submap
 from direct_lidar_odometry_tpu_torch.odometry.state import FrameResult, OdomState, empty_state
 from direct_lidar_odometry_tpu_torch.registration import covariance, gicp
-from direct_lidar_odometry_tpu_torch.utils import sync
+from direct_lidar_odometry_tpu_torch.utils import graphs, sync
 from direct_lidar_odometry_tpu_torch.utils.lanes import lanes_where, per_lane
 
 
@@ -160,15 +168,15 @@ def _guess(cfg: DloConfig, state: OdomState, imu_prior: torch.Tensor) -> torch.T
     return imu_prior  # reference behavior (odom.cc:801-806)
 
 
-def front(cfg: DloConfig, state: OdomState, raw_points: torch.Tensor, raw_mask: torch.Tensor,
-          backend: str) -> tuple[PointCloud, torch.Tensor, torch.Tensor]:
-    """The frame's scan (:func:`preprocess_scan`), the low-passed
-    spaciousness and the keyframe distance threshold it sets
-    (``odom.cc:650-659, 1188-1199``); each lane's over raw clouds
-    [B, N, ...]."""
+def front(cfg: DloConfig, spaciousness: torch.Tensor, raw_points: torch.Tensor,
+          raw_mask: torch.Tensor, backend: str) -> tuple[PointCloud, torch.Tensor, torch.Tensor]:
+    """The frame's scan (:func:`preprocess_scan`), the spaciousness
+    low-passed from the state's ``spaciousness`` and the keyframe distance
+    threshold it sets (``odom.cc:650-659, 1188-1199``); each lane's over
+    raw clouds [B, N, ...]."""
     scan = preprocess_scan(raw_points, raw_mask, cfg, backend)
     spac = adaptive.update_spaciousness(
-        state.spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
+        spaciousness, scan.points, scan.mask, cfg.adaptive.lpf_alpha
     )
     if cfg.adaptive.use:
         thresh_dist = adaptive.keyframe_thresh_from_spaciousness(spac)
@@ -236,15 +244,15 @@ def s2s_align(cfg: DloConfig, state: OdomState, src: gicp.GicpSource, guess: tor
 def submap_stage(cfg: DloConfig, state: OdomState, t_s2s_global: torch.Tensor,
                  thresh_dist: torch.Tensor, directions: torch.Tensor,
                  hull_masks: tuple[torch.Tensor, torch.Tensor, bool] | None,
-                 backend: str) -> tuple[OdomState, torch.Tensor]:
+                 backend: str, run=graphs.eager) -> tuple[OdomState, bool]:
     """The submap's keyframes around the S2S-propagated position, and the
     submap rebuilt if they changed (``odom.cc:825-834``): the state and
-    the changed flag."""
+    the changed flag. The selection and the rebuild are stretches of
+    ``run``."""
     query_pos = se3.se3_translation(t_s2s_global)
-    sel = submap.select_submap_keyframes(
-        state.keyframes, state.submap_members, query_pos, thresh_dist, cfg, directions, hull_masks,
-    )
-    return submap.assemble_submap(state, sel, query_pos, cfg, backend)
+    sel = run(submap.select_submap_keyframes, state.keyframes, state.submap_members, query_pos,
+              thresh_dist, cfg, directions, hull_masks)
+    return submap.assemble_submap(state, sel, query_pos, cfg, backend, run)
 
 
 def s2m_target(state: OdomState, backend: str) -> gicp.GicpTarget:
@@ -317,50 +325,71 @@ def guarded_pose(s2m_res: gicp.GicpResult, t_s2s_global: torch.Tensor) -> torch.
 
 
 def keyframe_stage(cfg: DloConfig, state: OdomState, scan: PointCloud, pose: torch.Tensor,
-                   thresh_dist: torch.Tensor, s2m_res: gicp.GicpResult, backend: str):
+                   thresh_dist: torch.Tensor, s2m_res: gicp.GicpResult, backend: str,
+                   run=graphs.eager):
     """The keyframe spawn (``odom.cc:678, 1097-1181``): (store, spawned,
-    evicted, slot)."""
+    evicted, slot). The decision and the spawn are stretches of ``run``."""
     return keyframes.maybe_spawn(state.keyframes, scan, pose, cfg, thresh_dist,
-                                 seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend)
+                                 seq=state.frame_idx, health=_per_corr(s2m_res), backend=backend,
+                                 run=run)
 
 
 def _relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return se3.se3_inverse(a) @ b
 
 
+def _carried(state_pose: torch.Tensor, pose: torch.Tensor, members: torch.Tensor,
+             evicted: torch.Tensor, frame_idx: torch.Tensor, scan: PointCloud,
+             nrm: covariance.Normals, spac: torch.Tensor, thresh_dist: torch.Tensor,
+             count: torch.Tensor, slot: torch.Tensor) -> tuple:
+    """Every tensor the frame hands on: the cached submap's members (an
+    eviction clears them), the relative motion, the next frame index, the
+    pose's position and quaternion, and the rest as they came."""
+    # eviction rewrote a slot under a possibly-unchanged membership mask:
+    # clearing the cached members forces a submap rebuild next frame
+    members = torch.where(evicted[..., None], False, members)
+    last_delta = (per_lane(_relative, state_pose, pose) if pose.dim() == 3
+                  else _relative(state_pose, pose))
+    position = se3.se3_translation(pose)
+    quat = se3.rotmat_to_quat(se3.se3_rotation(pose))
+    return (members, last_delta, frame_idx + 1, position, quat, pose, scan, nrm, spac,
+            thresh_dist, count, evicted, slot)
+
+
 def finish(state: OdomState, scan: PointCloud, nrm: covariance.Normals, spac: torch.Tensor,
            thresh_dist: torch.Tensor, pose: torch.Tensor, s2s_res: gicp.GicpResult,
            s2m_res: gicp.GicpResult, submap_changed: torch.Tensor,
-           spawn: tuple) -> tuple[OdomState, FrameResult]:
+           spawn: tuple, run=graphs.eager) -> tuple[OdomState, FrameResult]:
     """The next state, which carries the scan as the next S2S target, and
     the frame's :class:`FrameResult`; ``spawn`` is the keyframe stage's
-    (store, spawned, evicted, slot). Each lane's with lanes."""
+    (store, spawned, evicted, slot). Each lane's with lanes. What the
+    frame hands on is one stretch of ``run``, whose outputs outlive it."""
     kf, spawned, kf_evicted, kf_slot = spawn
-    # eviction rewrote a slot under a possibly-unchanged membership mask:
-    # clearing the cached members forces a submap rebuild next frame
-    submap_members = torch.where(kf_evicted[..., None], False, state.submap_members)
+    (members, last_delta, frame_idx, position, quat, pose, scan, nrm, spac, thresh_dist, count,
+     kf_evicted, kf_slot) = run(_carried, state.pose, pose, state.submap_members, kf_evicted,
+                                state.frame_idx, scan, nrm, spac, thresh_dist, kf.count, kf_slot,
+                                keep=True)
     new_state = state._replace(
-        submap_members=submap_members,
+        submap_members=members,
         pose=pose,
         t_s2s=pose,  # T_s2s_prev <- T (odom.cc:843)
-        last_delta=(per_lane(_relative, state.pose, pose) if pose.dim() == 3
-                    else _relative(state.pose, pose)),
+        last_delta=last_delta,
         prev_points=scan.points,
         prev_mask=scan.mask,
         prev_normals=nrm.normals,
         prev_normals_valid=nrm.valid,
-        keyframes=kf,
+        keyframes=kf._replace(count=count),
         spaciousness=spac,
-        frame_idx=state.frame_idx + 1,
+        frame_idx=frame_idx,
     )
     result = FrameResult(
         pose=pose,
-        position=se3.se3_translation(pose),
-        quat=se3.rotmat_to_quat(se3.se3_rotation(pose)),
+        position=position,
+        quat=quat,
         new_keyframe=spawned,
         kf_slot=kf_slot,
         kf_evicted=kf_evicted,
-        num_keyframes=kf.count,
+        num_keyframes=count,
         submap_changed=submap_changed,
         spaciousness=spac,
         keyframe_thresh_dist=thresh_dist,
@@ -374,6 +403,29 @@ def finish(state: OdomState, scan: PointCloud, nrm: covariance.Normals, spac: to
         s2m_converged=s2m_res.converged,
     )
     return new_state, result
+
+
+def _stretches(state: OdomState, backend: str):
+    """How :func:`odom_frame` runs its stretches outside GICP
+    (``utils/graphs.py``): on a CUDA device with a pruned-kernel backend and
+    one sequence, replayed from CUDA graphs on the state's keyframe ring,
+    as ``gicp.align`` replays its iterations; elsewhere one operation at a
+    time (counted on a card)."""
+    if state.pose.device.type != "cuda":
+        return graphs.eager
+    if not gicp.is_pallas(backend) or state.keyframes.count.dim():
+        return graphs.eager_on_card
+    return _ring_graphs(state)
+
+
+def _ring_graphs(state: OdomState) -> graphs.Stretches:
+    """The graphs of the state's keyframe ring, which read and write the
+    ring and the submap cache where they are."""
+    kf = state.keyframes
+    return graphs.Stretches(kf.positions, (
+        kf.positions, kf.quats, kf.points, kf.masks, kf.normals, kf.normals_valid, kf.seq,
+        kf.health, state.submap_points, state.submap_mask, state.submap_normals,
+        state.submap_normals_valid))
 
 
 def odom_frame(
@@ -405,11 +457,13 @@ def _odom_frame(
     hull_masks: tuple[torch.Tensor, torch.Tensor, bool] | None,
 ) -> tuple[OdomState, FrameResult]:
     backend = resolve_backend(cfg)
+    run = _stretches(state, backend)
     with sync.span("step.preprocess"):
-        scan, spac, thresh_dist = front(cfg, state, raw_points, raw_mask, backend)
+        scan, spac, thresh_dist = run(front, cfg, state.spaciousness, raw_points, raw_mask,
+                                      backend)
     # per-scan normals, computed exactly once (odom.cc:815,818)
     with sync.span("step.normals"):
-        nrm = _scan_normals(scan, cfg, backend)
+        nrm = run(_scan_normals, scan, cfg, backend)
     src = gicp.GicpSource(
         points=scan.points, mask=scan.mask, normals=nrm.normals, normals_valid=nrm.valid,
     )
@@ -422,7 +476,7 @@ def _odom_frame(
     t_s2s_global = state.t_s2s @ s2s_res.transform
     with sync.span("step.submap"):
         state, submap_changed = submap_stage(cfg, state, t_s2s_global, thresh_dist, directions,
-                                             hull_masks, backend)
+                                             hull_masks, backend, run)
     with sync.span("step.s2m"):
         s2m_tgt, s2m_res, rescue = s2m_stage(cfg, state, src, t_s2s_global, s2s_res, backend)
     if rescue:
@@ -430,9 +484,9 @@ def _odom_frame(
             s2m_res = rescue_stage(cfg, src, s2m_tgt, t_s2s_global, backend)
     pose = guarded_pose(s2m_res, t_s2s_global)
     with sync.span("step.keyframe"):
-        spawn = keyframe_stage(cfg, state, scan, pose, thresh_dist, s2m_res, backend)
+        spawn = keyframe_stage(cfg, state, scan, pose, thresh_dist, s2m_res, backend, run)
     return finish(state, scan, nrm, spac, thresh_dist, pose, s2s_res, s2m_res, submap_changed,
-                  spawn)
+                  spawn, run)
 
 
 def _select(flags: torch.Tensor, new: gicp.GicpResult, old: gicp.GicpResult) -> gicp.GicpResult:
@@ -463,7 +517,7 @@ def odom_frame_batched(
     """
     backend = resolve_backend(cfg)
     cap = cfg.shapes.cell_cap_1nn
-    scan, spac, thresh_dist = front(cfg, state, raw_points, raw_mask, backend)
+    scan, spac, thresh_dist = front(cfg, state.spaciousness, raw_points, raw_mask, backend)
     nrm = _scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(
         points=scan.points, mask=scan.mask, normals=nrm.normals, normals_valid=nrm.valid,

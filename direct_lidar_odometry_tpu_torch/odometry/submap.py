@@ -25,7 +25,7 @@ from direct_lidar_odometry_tpu_torch.ops import morton
 from direct_lidar_odometry_tpu_torch.odometry import hulls
 from direct_lidar_odometry_tpu_torch.odometry.state import KeyframeStore, OdomState, build_submap_grid
 from direct_lidar_odometry_tpu_torch.registration import gicp
-from direct_lidar_odometry_tpu_torch.utils import sync
+from direct_lidar_odometry_tpu_torch.utils import graphs, sync
 from direct_lidar_odometry_tpu_torch.utils.lanes import lanes_where
 
 
@@ -89,12 +89,42 @@ def select_submap_keyframes(
     return SubmapSelection(members=members, changed=changed)
 
 
+def _assemble(kf: KeyframeStore, members: torch.Tensor, query_pos: torch.Tensor,
+              cache: tuple, cfg: DloConfig, backend: str) -> tuple:
+    """The submap of ``members`` written IN PLACE into ``cache`` (points,
+    mask, normals, normals valid); returns nothing."""
+    s_max = cfg.shapes.max_submap_kf
+    nk = cfg.shapes.n_keyframe
+    flat_out = submap_flat_size(cfg)
+    k = kf.capacity
+    ar = torch.arange(k, device=members.device)
+    # member keyframe indices, ascending, packed into s_max slots
+    order = torch.argsort(torch.where(members, ar, k + ar))[:s_max]
+    slot_valid = members[order]
+    pts = kf.points[order].reshape(s_max * nk, 3)
+    msk = (kf.masks[order] & slot_valid[:, None]).reshape(s_max * nk)
+    nrm = kf.normals[order].reshape(s_max * nk, 3)
+    nvl = (kf.normals_valid[order] & slot_valid[:, None]).reshape(s_max * nk)
+    if flat_out < s_max * nk:
+        d2 = torch.sum((pts - query_pos) ** 2, dim=-1)
+        d2 = torch.where(msk, d2, torch.inf)
+        keep = torch.sort(d2, stable=True).indices[:flat_out]
+        pts, msk, nrm, nvl = pts[keep], msk[keep], nrm[keep], nvl[keep]
+    if gicp.is_pallas(backend):
+        z = morton.sort_order(pts, msk)
+        pts, msk, nrm, nvl = pts[z], msk[z], nrm[z], nvl[z]
+    for buf, new in zip(cache, (pts, msk, nrm, nvl)):
+        buf.copy_(new)
+    return ()
+
+
 def assemble_submap(
     state: OdomState,
     sel: SubmapSelection,
     query_pos: torch.Tensor,
     cfg: DloConfig,
     backend: str | None = None,
+    run=graphs.eager,
 ) -> tuple[OdomState, bool]:
     """Rebuild the submap cache IN PLACE iff the member set changed.
 
@@ -104,36 +134,16 @@ def assemble_submap(
     for the pruned S2M search; on "hashgrid" rebuild the S2M hash index
     (the index build the reference hides in ``gicp.setInputTarget``,
     ``odom.cc:828``). One host read (``changed``) replaces the JAX
-    package's ``lax.cond``. Returns (state, changed).
+    package's ``lax.cond``; the rebuild is a stretch of ``run``
+    (``utils/graphs.py``; run eagerly by default). Returns (state,
+    changed).
     """
     backend = backend or resolve_backend(cfg)
     changed = bool(sync.read(sel.changed))
     if changed:
-        s_max = cfg.shapes.max_submap_kf
-        nk = cfg.shapes.n_keyframe
-        flat_out = submap_flat_size(cfg)
-        kf = state.keyframes
-        k = kf.capacity
-        ar = torch.arange(k, device=sel.members.device)
-        # member keyframe indices, ascending, packed into s_max slots
-        order = torch.argsort(torch.where(sel.members, ar, k + ar))[:s_max]
-        slot_valid = sel.members[order]
-        pts = kf.points[order].reshape(s_max * nk, 3)
-        msk = (kf.masks[order] & slot_valid[:, None]).reshape(s_max * nk)
-        nrm = kf.normals[order].reshape(s_max * nk, 3)
-        nvl = (kf.normals_valid[order] & slot_valid[:, None]).reshape(s_max * nk)
-        if flat_out < s_max * nk:
-            d2 = torch.sum((pts - query_pos) ** 2, dim=-1)
-            d2 = torch.where(msk, d2, torch.inf)
-            keep = torch.sort(d2, stable=True).indices[:flat_out]
-            pts, msk, nrm, nvl = pts[keep], msk[keep], nrm[keep], nvl[keep]
-        if gicp.is_pallas(backend):
-            z = morton.sort_order(pts, msk)
-            pts, msk, nrm, nvl = pts[z], msk[z], nrm[z], nvl[z]
-        state.submap_points.copy_(pts)
-        state.submap_mask.copy_(msk)
-        state.submap_normals.copy_(nrm)
-        state.submap_normals_valid.copy_(nvl)
+        cache = (state.submap_points, state.submap_mask, state.submap_normals,
+                 state.submap_normals_valid)
+        run(_assemble, state.keyframes, sel.members, query_pos, cache, cfg, backend)
         if backend == "hashgrid":
             state = state._replace(
                 submap_grid=build_submap_grid(cfg, state.submap_points, state.submap_mask))

@@ -28,7 +28,8 @@ K1 and its plain version take a leading lane dimension as K2 does
 Q, 3] queries over [B, T, 3] clouds, one launch, [B, Q, 10] moments.
 
 ``launches`` (K1) and ``exhaustive_launches`` (K6) count each wrapper's
-calls per route (``"cuda"``/``"plain"``).
+calls per route (``"cuda"``/``"plain"``); a call inside a CUDA graph
+capture launches nothing and is not counted.
 """
 
 from __future__ import annotations
@@ -136,7 +137,8 @@ def cov_pruned(
             torch.cuda.current_stream(queries.device).cuda_stream,
         )
     cuda_build.check(err, "cov_pruned")
-    launches["cuda"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches["cuda"] += 1
     return out
 
 

@@ -63,7 +63,7 @@ from direct_lidar_odometry_tpu_torch.ops import (
     bruteforce, cuda_gicp, cuda_lm, cuda_nn, hashgrid, morton,
 )
 from direct_lidar_odometry_tpu_torch.registration.covariance import PLANE_EPS, cov_from_normal
-from direct_lidar_odometry_tpu_torch.utils import sync
+from direct_lidar_odometry_tpu_torch.utils import graphs, sync
 from direct_lidar_odometry_tpu_torch.utils.lanes import per_lane
 
 
@@ -364,13 +364,13 @@ class _Iterations:
     @classmethod
     def captured(cls, src, target, x0, cfg, backend, cap) -> _Iterations:
         """Static copies of the inputs, and both graphs captured on the
-        device's side stream (:func:`_side_stream`), each in a private
+        device's side stream (``utils/graphs.side_stream``), each in a private
         memory pool, after one eager run there that builds what a capture
         cannot (the kernel library, the cuBLAS and cuSOLVER handles and
         workspaces, the constants)."""
         run = cls(GicpSource(*map(_clone, src)), GicpTarget(*map(_clone, target)), x0.clone(),
                   cfg, backend, cap)
-        side = _side_stream(x0.device)
+        side = graphs.side_stream(x0.device)
         side.wait_stream(torch.cuda.current_stream(x0.device))
         with torch.cuda.stream(side):  # the warm run, counted nowhere
             lin, _ = _iteration(run.st, run.src, run.target, cfg, backend, cap)
@@ -393,18 +393,9 @@ class _Iterations:
 
 def _capture(side, body):
     """(the graph, what ``body`` returned, the LM trial kernels it holds):
-    ``torch.cuda.graph``'s capture without its device-wide synchronize and
-    cache flush, which would stall the caller's stream and the chunk
-    worker's copies; capture errors of this thread only."""
-    graph = torch.cuda.CUDAGraph()
+    ``utils/graphs.capture``, counted as ``gicp_graph.captures``."""
     recorded = cuda_lm.launches["captured"]
-    with torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            out = body()
-        finally:
-            graph.capture_end()
-    sync.count("gicp_graph.captures")
+    graph, out = graphs.capture(side, body, "gicp_graph.captures")
     return graph, out, cuda_lm.launches["captured"] - recorded
 
 
@@ -414,17 +405,7 @@ def _count_trials(n: int) -> None:
         sync.count("gicp_trial.kernel", n)
 
 
-_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 _GRAPHS: dict[tuple, _Iterations] = {}
-
-
-def _side_stream(dev: torch.device) -> torch.cuda.Stream:
-    """The one stream a device's captures run on: cuBLAS keeps a workspace
-    per stream, which a new stream for each key would add to the memory
-    held for the process's life."""
-    if dev not in _SIDE_STREAMS:
-        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
-    return _SIDE_STREAMS[dev]
 
 
 def release_graphs() -> None:

@@ -11,7 +11,7 @@
   products of points by a lane's rotation, ``se3_exp`` and the batched 6x6
   solve give every lane the bits of its unbatched form, and stay batched.
   The plain versions of K1-K4 run their lanes this way too.
-- :func:`lane_rows` indexes one row of each lane's ring.
+- :func:`take_row` takes one row of a ring, or of each lane's ring.
 - :func:`lanes_where` picks the lanes a branch runs for, on the device.
 """
 
@@ -34,13 +34,14 @@ def per_lane(fn, *args, lanes: int | None = None):
     return torch.stack(outs)
 
 
-def lane_rows(idx: torch.Tensor):
-    """The index of row ``idx[b]`` of each lane b: ``x[lane_rows(idx)]`` is
-    ``x[b, idx[b]]`` for a [B] ``idx`` into [B, K, ...], and ``x[idx]`` for
-    a 0-d ``idx`` (one sequence)."""
-    if idx.dim() == 0:
-        return idx
-    return torch.arange(idx.shape[0], device=idx.device), idx
+def take_row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx`` of ``x`` [K, ...] for a 0-d ``idx`` (one sequence), and
+    row ``idx[b]`` of each lane's [B, K, ...] for a [B] ``idx``: a gather
+    on the device, where indexing by a 0-d CUDA tensor would read it to the
+    host."""
+    lead = idx.dim()
+    index = idx.reshape(idx.shape + (1,) * (x.dim() - lead))
+    return torch.gather(x, lead, index.expand(idx.shape + (1,) + x.shape[lead + 1:])).squeeze(lead)
 
 
 def lanes_where(flags: torch.Tensor, n: int) -> torch.Tensor:

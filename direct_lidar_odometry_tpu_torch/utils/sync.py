@@ -5,13 +5,12 @@ spans at the layer boundaries, and counters.
   the host — a loop exit, a branch — goes through :func:`read`, which
   waits for the device; ``counts["host_reads"]`` counts them. The count
   is what a CUDA graph or a device-side fixed trip would remove later.
-- **Waits.** A read is one of four kinds of host wait on the device, each
+- **Waits.** A read is one of three kinds of host wait on the device, each
   a span of kind ``read``, ``event`` (:func:`wait_event`: a CUDA event or
-  the whole device), ``copy`` (:func:`upload`: a blocking copy from
-  pageable host memory to a CUDA device, which drains its stream first)
-  or ``index`` (:func:`index`: indexing by a 0-d CUDA tensor, which reads
-  the index to the host). A wait is attributed to the innermost open span
-  of its thread, its site.
+  the whole device) or ``copy`` (:func:`upload`: a blocking copy from
+  pageable host memory to a CUDA device, which drains its stream first).
+  A wait is attributed to the innermost open span of its thread, its
+  site.
 - **Spans.** ``with span(name):`` times a layer's call on the host clock
   (``time.perf_counter_ns``); each thread keeps its own stack, so a span
   knows its parent. Per name the module keeps the count, the total and the
@@ -55,7 +54,11 @@ Spans and counters in the program, and what reads them (the benchmark's
   ``gicp_graph_share``;
 - ``gicp_trial.kernel`` (LM trials run by kernel K7, launched eagerly or
   replayed in a graph; ``registration/gicp.align``):
-  ``lm_trial_kernel_share``.
+  ``lm_trial_kernel_share``;
+- ``step_graph.captures``, ``step_graph.replays`` and ``step_graph.eager``
+  (the per-frame step's stretches outside GICP captured, replayed from a
+  CUDA graph, and run operation by operation on a CUDA device, warm runs
+  included; ``utils/graphs.py``): ``step_graph_share``.
 """
 
 from __future__ import annotations
@@ -248,16 +251,6 @@ def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
                 t[i].fill_(v)
         _constants[key] = t
     return t
-
-
-def index(x: torch.Tensor, rows):
-    """``x[rows]``. A 0-d CUDA ``rows`` (one sequence's row from
-    ``utils/lanes.lane_rows``) is read to the host by the indexing itself
-    (``item``): an ``index`` wait."""
-    if isinstance(rows, torch.Tensor) and rows.dim() == 0 and rows.device.type != "cpu":
-        with Span("wait.index", "index"):
-            return x[rows]
-    return x[rows]
 
 
 def wait_event(event) -> None:

@@ -789,6 +789,8 @@ def test_gicp_graph_keys_share_one_side_stream(dev):
     so no key adds a cuBLAS workspace of its own (32 MiB on an H100)."""
     from direct_lidar_odometry_tpu_torch.registration import gicp
 
+    from direct_lidar_odometry_tpu_torch.utils import graphs
+
     calls = _recorded_aligns("pallas")
     gicp.release_graphs()
     for stage in ("step.s2s_coarse", "step.s2s", "step.s2m"):
@@ -806,7 +808,7 @@ def test_gicp_graph_keys_share_one_side_stream(dev):
     owned = [t for t in (*run.src, *run.target, *run.st, *run.lin, run.flags, run.retry_flags)
              if t is not None]
     own_bytes = sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in owned)
-    assert len(gicp._SIDE_STREAMS) == 1
+    assert len(graphs._SIDE_STREAMS) == 1
     assert grown <= own_bytes + 2**20, (grown, own_bytes)
 
 
@@ -989,8 +991,8 @@ def test_every_sync_of_a_chunk_is_a_counted_wait(dev):
     """Over one chunk of ``process_chunk`` (its scans prepared inside it,
     host preprocessing, the wire encoding, the IMU prior), every call that
     ``torch.cuda.set_sync_debug_mode("warn")`` flags is made inside one of
-    the tracer's ``read``, ``copy`` or ``index`` waits, and each such wait
-    is one flagged call."""
+    the tracer's ``read`` or ``copy`` waits, and each such wait is one
+    flagged call; no ``index`` wait is left."""
     import dataclasses
     import warnings
 
@@ -1035,10 +1037,131 @@ def test_every_sync_of_a_chunk_is_a_counted_wait(dev):
     t = sync.totals()
     counted = {kind: sum(c for (k, *_), (c, _) in t.waits.items() if k == kind)
                for kind in ("read", "copy", "index", "event")}
-    outside = [s for s in flagged if s not in ("wait.read", "wait.copy", "wait.index")]
+    outside = [s for s in flagged if s not in ("wait.read", "wait.copy")]
     assert outside == [], (outside, counted)
-    assert len(flagged) == counted["read"] + counted["copy"] + counted["index"], counted
+    assert len(flagged) == counted["read"] + counted["copy"], counted
     assert counted["read"] == sync.counts["host_reads"] > 0 and counted["copy"] > 0
     assert counted["event"] == 8  # the hull positions' copy, waited for each frame
-    # the GICP iterations replayed from their graphs, none issued eagerly
+    assert counted["index"] == 0  # the keyframe ring is read by device gathers
+    # the GICP iterations replayed from their graphs, none issued eagerly,
+    # and the step's stretches outside GICP replayed from theirs
     assert sync.counts["gicp_graph.replays"] > 0 and sync.counts["gicp_graph.eager_iters"] == 0
+    assert sync.counts["step_graph.replays"] > 0
+
+
+@contextlib.contextmanager
+def _eager_stretches():
+    """``pipeline.odom_frame`` issuing its stretches outside GICP operation
+    by operation on the card (the stage functions called eagerly)."""
+    from direct_lidar_odometry_tpu_torch.odometry import pipeline
+    from direct_lidar_odometry_tpu_torch.utils import graphs
+
+    stretches = pipeline._stretches
+    pipeline._stretches = lambda state, backend: graphs.eager
+    try:
+        yield
+    finally:
+        pipeline._stretches = stretches
+
+
+def _same_state(a, b, where):
+    """Two states bit for bit: the pose, the ring, the submap cache and its
+    members, the carried scan and every other field."""
+    from direct_lidar_odometry_tpu_torch.odometry.state import state_to_numpy
+
+    na, nb = state_to_numpy(a), state_to_numpy(b)
+    assert na.keys() == nb.keys()
+    for k in na:
+        np.testing.assert_array_equal(na[k], nb[k], err_msg=f"{where}: {k}")
+
+
+def test_step_graphs_equal_the_eager_stage_functions(dev, tmp_path):
+    """``odom_frame`` with its stretches outside GICP replayed from CUDA
+    graphs against the same stage functions run eagerly, on twin runners
+    over 46 frames of the small bench world, with an 8-slot ring that
+    evicts: every frame's result (pose, keyframe decision, slot, eviction,
+    count, submap change) and the whole state after it (ring, submap
+    cache, members, carried scan) bit for bit, and the same host reads.
+    Frames spawn, rebuild the submap and take the rescue (its gate forced
+    on every fifth frame); a loop-closure re-anchoring moves both rings at
+    frame 20; at frame 30 both runners resume from their checkpoints, and
+    after frame 46 a second pair of runners drives again from the start.
+    The graphed runner replays every stretch it has met before, and
+    captures afresh after the resume and on the second runner, whose rings
+    are new."""
+    import dataclasses
+
+    from bench_torch import make_bench_world, production_cfg
+    from direct_lidar_odometry_tpu_torch.io import synthetic
+    from direct_lidar_odometry_tpu_torch.odometry import loopclosure
+    from direct_lidar_odometry_tpu_torch.odometry.runner import OdometryRunner
+    from direct_lidar_odometry_tpu_torch.utils import checkpoint, sync
+
+    base = production_cfg(small=True)
+    cfg = base.replace(shapes=dataclasses.replace(base.shapes, max_keyframes=8))
+    forced = cfg.replace(gicp=dataclasses.replace(cfg.gicp, rescue_s2m_error=0.0))
+    n = 46
+    rng = np.random.default_rng(0)
+    world, max_range, max_pts, beams = make_bench_world(n, rng, small=True)
+    scans = [synthetic.render_scan(world, t, rng, max_range=max_range, max_points=max_pts,
+                                   beams=beams) for t in range(n)]
+    seen = dict(spawn=0, evict=0, rebuild=0, rescue=0)
+
+    def step(runners, t):
+        out = []
+        for graphed, runner in zip((True, False), runners):
+            runner.cfg = forced if t % 5 == 4 else cfg
+            reads, rescues = sync.counts["host_reads"], sync.totals().spans.get(
+                "step.rescue", (0,))[0]
+            with contextlib.nullcontext() if graphed else _eager_stretches():
+                res = runner.process_scan(scans[t], float(world.stamps[t]), sync=True)
+            out.append((res, sync.counts["host_reads"] - reads,
+                        sync.totals().spans.get("step.rescue", (0,))[0] - rescues))
+        (got, got_reads, got_rescue), (want, want_reads, want_rescue) = out
+        if t == 0:
+            return
+        for name in ("pose", "position", "quat", "kf_slot", "kf_evicted", "num_keyframes",
+                     "spaciousness", "keyframe_thresh_dist", "s2s_error", "s2m_error"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (t, name)
+        for name in ("new_keyframe", "submap_changed", "s2s_iterations", "s2m_iterations"):
+            assert getattr(got, name) == getattr(want, name), (t, name)
+        assert (got_reads, got_rescue) == (want_reads, want_rescue), t
+        _same_state(runners[0].state, runners[1].state, f"frame {t}")
+        seen["spawn"] += got.new_keyframe
+        seen["evict"] += bool(got.kf_evicted)
+        seen["rebuild"] += got.submap_changed
+        seen["rescue"] += got_rescue
+
+    def window(runners, frames):
+        sync.reset()
+        for t in frames:
+            step(runners, t)
+        return dict(sync.counts)
+
+    runners = (OdometryRunner(cfg, dev), OdometryRunner(cfg, dev))
+    first = window(runners, range(0, 20))
+    for runner in runners:  # a loop-closure round's re-anchoring, the same on both rings
+        slots = loopclosure._slot_poses(runner.state.keyframes)
+        nudge = torch.eye(4, device=dev)
+        nudge[:3, 3] = torch.tensor([0.03, -0.02, 0.0], device=dev)
+        runner.state, _ = loopclosure.reanchor(runner.state, nudge @ slots)
+    anchored = window(runners, range(20, 30))
+    resumed = []
+    for i, runner in enumerate(runners):
+        path = tmp_path / f"state{i}.npz"
+        checkpoint.save_state(str(path), runner.state)
+        fresh = OdometryRunner(cfg, dev)
+        fresh.state, _ = checkpoint.load_state(str(path), cfg, dev)
+        fresh.prev_stamp = runner.prev_stamp
+        resumed.append(fresh)
+    after_resume = window(resumed, range(30, n))
+    second = window((OdometryRunner(cfg, dev), OdometryRunner(cfg, dev)), range(0, 12))
+    assert all(seen[k] > 0 for k in seen), seen
+    for counts in (first, anchored, after_resume, second):
+        assert counts["step_graph.replays"] > 0, counts
+        # the eager twin counts nothing: its stretches are not the card's path
+        assert counts.get("step_graph.eager", 0) == counts.get("step_graph.captures", 0)
+    # a handful of captures a runner and configuration (the forced gate is
+    # another configuration)
+    assert first["step_graph.captures"] <= 16, first
+    assert after_resume["step_graph.captures"] >= 4 and second["step_graph.captures"] >= 4

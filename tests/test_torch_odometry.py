@@ -121,17 +121,56 @@ def test_select_submap_keyframes_matches_reference(seed, max_submap_kf):
 
 # ----------------------------------------------------------------- keyframes
 
+def _aten_calls(fn):
+    """``fn()`` on one thread, and the aten operations it dispatched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            calls.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with Log():
+            out = fn()
+    finally:
+        torch.set_num_threads(threads)
+    return out, calls
+
+
+def _reads_nothing(calls):
+    """No operation read a tensor's value to the host (``item``, and the
+    indexing by a 0-d tensor that calls it)."""
+    return not any(c.startswith("_local_scalar_dense") for c in calls)
+
+
 @pytest.mark.parametrize("count", [0, 5, 16])
 def test_keyframe_decide_matches_reference(count):
+    """The decision as the JAX package's, from an empty, a part-filled and a
+    full ring; the closest keyframe gathered on the device, as indexing
+    the ring by its index selects it, with no read to the host."""
+    from direct_lidar_odometry_tpu_torch.utils import sync
+
     pos, _ = _ring(6, count=max(count, 1))
     kj, kt = _kf_store_pair(pos, count)
     for p in (pos[0] + 0.2, pos[0] + 3.0):
         qt = np.array([0.9, 0.1, 0.3, 0.0], np.float32)
         qt /= np.linalg.norm(qt)
         dj = jkf.decide(kj, jnp.asarray(p), jnp.asarray(qt), jnp.float32(1.0), 45.0)
-        dt = tkf.decide(kt, _t(p), _t(qt), torch.tensor(1.0), 45.0)
+        sync.reset()
+        dt, calls = _aten_calls(lambda: tkf.decide(kt, _t(p), _t(qt), torch.tensor(1.0), 45.0))
         assert bool(dt.spawn) == bool(dj.spawn)
         assert int(dt.num_nearby) == int(dj.num_nearby)
+        assert _reads_nothing(calls) and not sync.totals().waits
+        d = torch.where(torch.arange(16) < count, torch.linalg.norm(kt.positions - _t(p), dim=-1),
+                        torch.inf)
+        closest = int(torch.argmin(d))
+        assert torch.equal(dt.closest_dist, d[closest])
+        assert _np(dt.closest_dist) == np.asarray(dj.closest_dist)
 
 
 @pytest.mark.parametrize("count", [3, 16])
@@ -164,6 +203,16 @@ def test_keyframe_insert_and_evict_match_reference(count):
     assert bool(evt) == bool(evj) == (count == 16)
     assert int(slott) == int(slotj)
     assert outt.positions is positions_before  # in place
+    # the eviction slot gathered on the device, as indexing the ring by
+    # the densest pair's rows selects it, with no read to the host
+    slot, calls = _aten_calls(lambda: tkf._eviction_slot(_t(pos), _t(new_pos)))
+    assert _reads_nothing(calls)
+    d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1) + np.where(np.eye(16, dtype=bool), np.inf, 0)
+    i, j = divmod(int(np.argmin(d2)), 16)
+    far = i if ((pos[i] - new_pos) ** 2).sum() > ((pos[j] - new_pos) ** 2).sum() else j
+    assert slot.dim() == 0 and int(slot) == far
+    if count == 16:
+        assert int(slott) == far
     for f in jstate.KeyframeStore._fields:
         np.testing.assert_array_equal(_np(getattr(outt, f)), np.asarray(getattr(outj, f)), err_msg=f)
 

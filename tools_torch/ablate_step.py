@@ -91,7 +91,7 @@ def prefix(stop: str, cfg: DloConfig | None = None):
         if dev not in directions:
             directions[dev] = torch.from_numpy(
                 hulls.fibonacci_directions(cfg.shapes.hull_directions)).to(dev)
-        scan, _, thresh = pipeline.front(cfg, state, raw_points, raw_mask, backend)
+        scan, _, thresh = pipeline.front(cfg, state.spaciousness, raw_points, raw_mask, backend)
         if stop == "preprocess":
             return scan
         nrm = pipeline._scan_normals(scan, cfg, backend)

@@ -69,7 +69,7 @@ def run(small: bool = False, device="cuda", cfg: DloConfig | None = None, frames
           file=sys.stderr)
 
     # the stages' inputs, each the output of the stage before, as in the step
-    scan, _, thresh = pipeline.front(cfg, state, fr.points, fr.mask, backend)
+    scan, _, thresh = pipeline.front(cfg, state.spaciousness, fr.points, fr.mask, backend)
     nrm = pipeline._scan_normals(scan, cfg, backend)
     src = gicp.GicpSource(scan.points, scan.mask, nrm.normals, nrm.valid)
     guess = pipeline._guess(cfg, state, fr.imu_prior)
@@ -100,7 +100,7 @@ def run(small: bool = False, device="cuda", cfg: DloConfig | None = None, frames
     st_sub, st_full = clone_state(state), clone_state(state)
     st_kf = state2._replace(keyframes=clone_state(state2.keyframes))
     stages = [
-        lambda: pipeline.front(cfg, state, fr.points, fr.mask, backend),
+        lambda: pipeline.front(cfg, state.spaciousness, fr.points, fr.mask, backend),
         lambda: pipeline._scan_normals(scan, cfg, backend),
         lambda: [pipeline.s2s_target(cfg, state, s, backend) for s, _ in passes],
         s2s_aligns,
